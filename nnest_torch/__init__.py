@@ -1,0 +1,37 @@
+"""nnest_torch — neural nested sampling on PyTorch and CUDA.
+
+A port of ``nnest_tpu`` (the JAX reference, kept beside this package) to
+PyTorch on an NVIDIA H100. Flows are ``nn.Module``s, random numbers come
+from explicit ``torch.Generator``s, and the spline-flow inverse that every
+MCMC proposal runs is a hand-written CUDA kernel
+(``ops/spline_inverse.py`` + ``csrc/spline_inverse.cu``) with a plain
+PyTorch twin that serves CPU tensors.
+
+Entry points run on ``device='cuda'`` unless the caller asks for the CPU;
+with no GPU they raise instead of falling back. This package never imports
+``jax`` or ``nnest_tpu``.
+"""
+
+import torch
+
+# The repo's numerics contract is float32: keep TF32 out of every matmul
+# and convolution (PyTorch enables TF32 for cuDNN convolutions by default).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = '0.1.0'
+
+__all__ = ['NestedSampler', 'Trainer', 'build_flow', '__version__']
+
+_LAZY = {
+    'NestedSampler': 'nnest_torch.samplers.nested',
+    'Trainer': 'nnest_torch.training.trainer',
+    'build_flow': 'nnest_torch.flows.factory',
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(name)

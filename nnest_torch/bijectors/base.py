@@ -1,0 +1,58 @@
+"""Bijector core: invertible transforms as ``nn.Module``s.
+
+Port of ``nnest_tpu/bijectors/base.py``. Each bijector maps
+``forward(x) -> (z, logdet)`` and ``inverse(z) -> (x, logdet)`` with ``x``
+of shape (batch, dim) and ``logdet`` of shape (batch,). Both are total
+functions: out-of-domain inputs take identity tails instead of raising.
+
+Data-dependent initialisation (ActNorm) is the optional ``data_init(x)``
+hook; ``Chain.data_init`` threads the batch through the chain so each
+bijector sees the activations of the ones before it, as the JAX
+``Chain.init`` does.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class Bijector(nn.Module):
+    """Invertible transform with a log-determinant."""
+
+    def forward(self, x):
+        raise NotImplementedError
+
+    def inverse(self, z):
+        raise NotImplementedError
+
+    def data_init(self, x):
+        """Initialise from a data batch; the default has nothing to set."""
+
+
+class Chain(Bijector):
+    """Sequential composition with logdet accumulation."""
+
+    def __init__(self, bijectors):
+        super().__init__()
+        self.bijectors = nn.ModuleList(bijectors)
+
+    def forward(self, x):
+        logdet = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        for b in self.bijectors:
+            x, ld = b(x)
+            logdet = logdet + ld
+        return x, logdet
+
+    def inverse(self, z):
+        logdet = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
+        for b in reversed(self.bijectors):
+            z, ld = b.inverse(z)
+            logdet = logdet + ld
+        return z, logdet
+
+    @torch.no_grad()
+    def data_init(self, x):
+        for b in self.bijectors:
+            b.data_init(x)
+            x = b(x)[0]

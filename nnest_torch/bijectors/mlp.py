@@ -1,0 +1,46 @@
+"""Small MLP conditioners used inside coupling layers.
+
+Port of ``nnest_tpu/bijectors/mlp.py`` for the spline conditioner: linear
+layers with LeakyReLU(0.2) after every layer but the last. Weights keep the
+JAX layout ``(n_in, n_out)`` and the layer computes ``x @ w + b``, so a JAX
+parameter tree loads leaf by leaf (``flows/convert.py``) and the CUDA kernel
+reads the same layout. Init follows ``nn.Linear``'s default (uniform
+±1/sqrt(fan_in) for weight and bias), as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def leaky_relu(x):
+    return torch.where(x >= 0, x, 0.2 * x)
+
+
+class MLP(nn.Module):
+    """``sizes = [n_in, h1, ..., n_out]``; one (w, b) pair per layer."""
+
+    def __init__(self, sizes, generator=None):
+        super().__init__()
+        self.sizes = tuple(int(s) for s in sizes)
+        self.w = nn.ParameterList()
+        self.b = nn.ParameterList()
+        for n_in, n_out in zip(self.sizes[:-1], self.sizes[1:]):
+            bound = 1.0 / math.sqrt(max(n_in, 1))
+            w = torch.empty(n_in, n_out).uniform_(-bound, bound,
+                                                  generator=generator)
+            b = torch.empty(n_out).uniform_(-bound, bound,
+                                            generator=generator)
+            self.w.append(nn.Parameter(w))
+            self.b.append(nn.Parameter(b))
+
+    def forward(self, x):
+        n = len(self.w)
+        for i in range(n):
+            x = x @ self.w[i] + self.b[i]
+            if i < n - 1:
+                x = leaky_relu(x)
+        return x

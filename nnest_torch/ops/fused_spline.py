@@ -1,0 +1,60 @@
+"""Hot-path spline-flow inverse with packed constants (plain PyTorch).
+
+Port of ``nnest_tpu/ops/fused_spline.py``. ``pack_inverse_consts`` turns the
+parameter-only pieces of the chain inverse into constants once per kernel
+invocation (each 1x1-conv's dense W⁻¹, the ActNorm s/t, and the
+data-independent logdet ``-Σs - Σlog|S|``), so a chain step never solves a
+linear system. ``_inverse_body`` is the inverse on a batch with those
+constants: the CPU path of ``ops.spline_inverse`` and the plain twin the
+CUDA kernel is checked against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nnest_torch.bijectors import ActNorm, Invertible1x1Conv, SplineCoupling
+
+
+def is_fusable_spline(model) -> bool:
+    """True for single-speed spline chains: [ActNorm, Inv1x1Conv,
+    SplineCoupling] × blocks (the factory's 'spline' layout)."""
+    chain = getattr(model, 'chain', None)
+    if chain is None:
+        return False
+    bijs = list(chain.bijectors)
+    if len(bijs) == 0 or len(bijs) % 3 != 0:
+        return False
+    return all(isinstance(bijs[i], ActNorm)
+               and isinstance(bijs[i + 1], Invertible1x1Conv)
+               and isinstance(bijs[i + 2], SplineCoupling)
+               for i in range(0, len(bijs), 3))
+
+
+@torch.no_grad()
+def pack_inverse_consts(model):
+    """Per block {s, t, winv, sc}, plus the constant logdet. ``sc`` is the
+    block's SplineCoupling module (its MLP weights are used as they are)."""
+    bijs = list(model.chain.bijectors)
+    blocks = []
+    const_logdet = bijs[0].s.new_zeros(())
+    for i in range(0, len(bijs), 3):
+        act, conv, sc = bijs[i], bijs[i + 1], bijs[i + 2]
+        winv = torch.linalg.inv(conv.assemble())
+        const_logdet = const_logdet - torch.sum(act.s) \
+            - torch.sum(torch.log(torch.abs(conv.S)))
+        blocks.append({'s': act.s.detach(), 't': act.t.detach(),
+                       'winv': winv, 'sc': sc})
+    return {'blocks': blocks, 'const_logdet': const_logdet}
+
+
+@torch.no_grad()
+def _inverse_body(z, packed):
+    """Full chain inverse on a batch using packed consts (plain PyTorch)."""
+    logdet = torch.zeros(z.shape[0], dtype=torch.float32, device=z.device)
+    for blk in reversed(packed['blocks']):
+        z, ld = blk['sc'].inverse(z)
+        logdet = logdet + ld
+        z = z @ blk['winv']
+        z = (z - blk['t']) * torch.exp(-blk['s'])
+    return z, logdet + packed['const_logdet']

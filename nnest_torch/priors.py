@@ -1,0 +1,51 @@
+"""Priors: the box prior the nested sampler draws its unit cube from.
+
+Port of ``UniformPrior`` in ``nnest_tpu/priors.py``. ``logpdf`` takes a
+(batch, d) tensor and returns 0 inside the box and -inf outside;
+``sample`` draws host points from a seeded numpy generator (the initial
+live set) and ``sample_torch`` draws on a ``torch.Generator``'s device
+(batched prior rejection).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class UniformPrior:
+    """Box prior on [minimum, maximum]^dim."""
+
+    def __init__(self, x_dim: int, minimum, maximum):
+        if not hasattr(minimum, '__len__'):
+            minimum = [minimum] * x_dim
+        if not hasattr(maximum, '__len__'):
+            maximum = [maximum] * x_dim
+        if len(minimum) != x_dim or len(maximum) != x_dim:
+            raise ValueError('prior bounds must have x_dim entries')
+        self.x_dim = x_dim
+        self.minimum = np.asarray(minimum, dtype=np.float64)
+        self.maximum = np.asarray(maximum, dtype=np.float64)
+        self._rng = np.random.default_rng(0)
+
+    def logpdf(self, x):
+        lo = torch.as_tensor(self.minimum, dtype=x.dtype, device=x.device)
+        hi = torch.as_tensor(self.maximum, dtype=x.dtype, device=x.device)
+        inside = torch.all((x >= lo) & (x <= hi), dim=-1)
+        return torch.where(inside, torch.zeros_like(x[:, 0]),
+                           torch.full_like(x[:, 0], -np.inf))
+
+    def seed(self, seed: int):
+        self._rng = np.random.default_rng(seed)
+
+    def sample(self, num_samples):
+        u = self._rng.uniform(size=(num_samples, self.x_dim))
+        return self.minimum + (self.maximum - self.minimum) * u
+
+    def sample_torch(self, num_samples, generator):
+        device = generator.device
+        lo = torch.as_tensor(self.minimum, dtype=torch.float32, device=device)
+        hi = torch.as_tensor(self.maximum, dtype=torch.float32, device=device)
+        u = torch.rand(num_samples, self.x_dim, generator=generator,
+                       device=device)
+        return lo + (hi - lo) * u

@@ -1,0 +1,227 @@
+"""Sampler base: user-callable wrapping, trainer, kernels, artifacts.
+
+Port of the main-path part of ``nnest_tpu/samplers/base.py``:
+
+- one likelihood convention: the user's ``loglike`` receives a (batch, d)
+  float32 tensor on the sampler's device (after ``transform``) and returns
+  a (batch,) log likelihood. The host wrapper (numpy in, float64 out,
+  non-finite values clamped to -1e100, calls counted) and the device
+  function used inside the kernels (non-finite values sanitized to
+  ``LOG_NEG``) both call it. This replaces the JAX split between traced
+  and ``io_callback`` likelihoods;
+- capacity autoscale of the conditioner width (16/32/64 by dimension);
+- the endpoint MCMC pool generation from the live set and batched prior
+  rejection, with their counters and chain statistics;
+- getdist-style ``chain.txt`` and ``params.txt``.
+
+Derived parameters, meshes, checkpoints and the other strategies are not
+ported yet (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+
+import numpy as np
+import torch
+
+from nnest_torch.samplers.kernels import LatentKernels
+from nnest_torch.training.trainer import Trainer
+from nnest_torch.utils.device import resolve_device
+from nnest_torch.utils.logger import create_logger, get_or_create_run_dir
+
+
+def _to_numpy(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+class Sampler:
+
+    def __init__(self,
+                 x_dim,
+                 loglike,
+                 transform=None,
+                 prior=None,
+                 append_run_num=True,
+                 hidden_dim=0,
+                 batch_size=100,
+                 flow='spline',
+                 num_blocks=3,
+                 learning_rate=0.001,
+                 log_dir='logs/test',
+                 trainer=None,
+                 log_level=logging.INFO,
+                 param_names=None,
+                 seed=0,
+                 device='cuda'):
+        self.device = resolve_device(device)
+        self.x_dim = x_dim
+        self.param_names = param_names
+        if param_names is not None and len(param_names) != x_dim:
+            raise ValueError('param_names must have x_dim entries')
+        # Capacity autoscale: hidden_dim=0 derives the conditioner width
+        # from x_dim; an explicit hidden_dim always wins.
+        if not hidden_dim:
+            hidden_dim = 16 if x_dim < 16 else (32 if x_dim < 32 else 64)
+
+        self._user_loglike = loglike
+        self._user_transform = transform if transform is not None else (
+            lambda x: x)
+        self._user_prior = prior
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            int(seed))
+
+        args = {k: v for k, v in locals().items()
+                if k not in ('self', 'loglike', 'transform', 'prior',
+                             'trainer')}
+        args['sampler'] = getattr(self, 'sampler', '')
+        self._init_args = args
+
+        if log_dir is not None:
+            self.logs = get_or_create_run_dir(log_dir,
+                                              append_run_num=append_run_num)
+            self.log_dir = self.logs['run_dir']
+        else:
+            self.logs = None
+            self.log_dir = None
+        self.logger = create_logger(__name__, level=log_level)
+
+        self.trainer = trainer if trainer is not None else Trainer(
+            x_dim, hidden_dim=hidden_dim, batch_size=batch_size, flow=flow,
+            num_blocks=num_blocks, learning_rate=learning_rate,
+            log_level=log_level, seed=seed + 1, device=self.device)
+        self.logger.info('Num params [%d]' % self.x_dim)
+
+        self.total_accepted = 0
+        self.total_rejected = 0
+        self.total_calls = 0
+        self._kernels = None
+        self._last_kernel_stats = None
+        self._mix_ratios = []
+
+    # ------------------------------------------------------------ wrappers
+
+    def _save_params(self, extra=None):
+        if self.logs is None:
+            return
+        d = dict(self._init_args)
+        if extra:
+            d.update(extra)
+        with open(os.path.join(self.logs['info'], 'params.txt'), 'w') as f:
+            json.dump({k: str(v) for k, v in d.items()}, f, indent=4)
+
+    def transform(self, u):
+        """Unit-cube points (numpy) → physical points (numpy float64)."""
+        u = torch.as_tensor(np.atleast_2d(np.asarray(u, dtype=np.float64)),
+                            device=self.device)
+        return np.asarray(_to_numpy(self._user_transform(u)),
+                          dtype=np.float64)
+
+    def _device_loglike(self, u):
+        """(batch, d) float32 tensor → (batch,) float32 log likelihood."""
+        logl = self._user_loglike(self._user_transform(u))
+        return torch.as_tensor(logl, dtype=torch.float32, device=u.device)
+
+    def loglike(self, u):
+        """Host wrapper: numpy in, float64 numpy out, non-finite values
+        clamped to -1e100, calls counted."""
+        u = np.atleast_2d(np.asarray(u, dtype=np.float32))
+        with torch.no_grad():
+            logl = self._device_loglike(torch.as_tensor(u, device=self.device))
+        logl = np.asarray(_to_numpy(logl), dtype=np.float64).reshape(-1)
+        self.total_calls += u.shape[0]
+        logl[~np.isfinite(logl)] = -1e100
+        return logl
+
+    def _device_prior(self, u):
+        if self._user_prior is None:
+            return torch.zeros(u.shape[0], device=u.device)
+        return self._user_prior.logpdf(u)
+
+    @property
+    def kernels(self) -> LatentKernels:
+        if self._kernels is None:
+            self._kernels = LatentKernels(self.trainer.model,
+                                          self._device_loglike,
+                                          self._device_prior)
+        return self._kernels
+
+    # -------------------------------------------------------------- MCMC
+
+    def _consume_endpoint_out(self, out):
+        """Counters and chain statistics of one endpoint kernel output;
+        returns host (u, logl, moved, scale, mean_jump, ncall)."""
+        out = {k: _to_numpy(v) for k, v in out.items()}
+        self.total_calls += int(out['ncall'])
+        self.total_accepted += int(out['accepted'])
+        self.total_rejected += int(out['rejected'])
+        self._mix_ratios.append(float(out['mix_ratio']))
+        self._last_kernel_stats = {
+            'ess': np.asarray(out['ess'], dtype=np.float64),
+            'acceptance': float(out['acceptance']),
+            'mean_jump': float(out['mean_jump']),
+            'mix_ratio': float(out['mix_ratio']),
+        }
+        return (np.asarray(out['final_x'], dtype=np.float64),
+                np.asarray(out['final_logl'], dtype=np.float64),
+                np.asarray(out['moved'], dtype=bool),
+                float(out['scale']), float(out['mean_jump']),
+                int(out['ncall']))
+
+    def _mcmc_sample_live(self, mcmc_steps, active_u, active_logl,
+                          num_chains, loglstar, step_size,
+                          dynamic_step_size=False, prior_volume_steps=1,
+                          adapt_cov=False):
+        """One MCMC pool generation from the live set.
+
+        Returns (u, logl, moved, scale, mean_jump, ncall)."""
+        if step_size <= 0.0:
+            step_size = 2.0 / self.x_dim ** 0.5
+        self.trainer.ensure_init()
+        with torch.no_grad():
+            f32 = np.float32
+            out = self.kernels.mcmc_from_live(
+                self.generator,
+                torch.as_tensor(active_u.astype(f32), device=self.device),
+                torch.as_tensor(active_logl.astype(f32), device=self.device),
+                num_chains=num_chains, loglstar=loglstar,
+                step_size=step_size, mcmc_steps=mcmc_steps,
+                dynamic_step_size=dynamic_step_size,
+                prior_volume_steps=prior_volume_steps, adapt_cov=adapt_cov)
+        return self._consume_endpoint_out(out)
+
+    # --------------------------------------------------------- rejection
+
+    def _rejection_prior_sample(self, loglstar, num_trials=512):
+        """Batched prior rejection. Returns (samples, loglikes,
+        effective_ncall) with the successful trials only (may be empty)."""
+        trials = int(num_trials)
+        x, logl, ok = self.kernels.rejection_prior(
+            self._user_prior, self.generator, loglstar, trials)
+        ok = _to_numpy(ok)
+        self.total_calls += trials
+        n_ok = int(ok.sum())
+        nc = trials / max(n_ok, 1) if n_ok > 0 else trials
+        return (_to_numpy(x)[ok].astype(np.float64),
+                _to_numpy(logl).astype(np.float64)[ok], nc)
+
+    # ---------------------------------------------------------------- io
+
+    def _save_samples(self, samples, loglikes, weights=None,
+                      min_weight=1e-30, outfile='chain'):
+        """getdist/CosmoMC text chain: rows of `weight -loglike params`."""
+        if self.logs is None:
+            return
+        if weights is None:
+            weights = np.ones_like(loglikes)
+        header = ''
+        if self.param_names is not None:
+            header = 'weight minusloglike ' + ' '.join(self.param_names)
+        mat = np.hstack([np.maximum(weights, min_weight)[:, None],
+                         -np.asarray(loglikes)[:, None], samples])
+        np.savetxt(os.path.join(self.logs['chains'], outfile + '.txt'), mat,
+                   fmt='%.5E', header=header, comments='#' if header else '')

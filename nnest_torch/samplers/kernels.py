@@ -1,0 +1,333 @@
+"""Latent-space sampling kernels on the sampler's device.
+
+Port of the main-path part of ``nnest_tpu/samplers/kernels.py``:
+constrained (nested) and full Metropolis-Hastings latent MCMC with the
+covariance-preconditioned proposal and dynamic step size, the red-black
+chain starts drawn from the live set, batched prior rejection, and the
+on-device chain diagnostics (ESS, start decorrelation, second moments).
+
+The JAX ``lax.scan`` becomes a Python loop over steps with the chains as
+the batch dimension; accept/reject stay masks (``torch.where``) and every
+counter stays a device tensor, so a step never waits on the host. Random
+numbers come from the caller's ``torch.Generator``. Every flow inverse
+inside a step goes through :meth:`LatentKernels._hot_inverse`, which on
+the GPU is the hand-written CUDA kernel (``ops/spline_inverse.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nnest_torch.ops import fused_spline
+from nnest_torch.ops.spline_inverse import spline_inverse
+
+# Finite sentinel for impossible log-densities (keeps ±inf/NaN out of the
+# chain arithmetic; < -1e30 so the `> -1e30` validity checks keep working).
+LOG_NEG = -1e31
+
+
+def sanitize_log_density(lp):
+    """Map NaN/±inf/very-negative log-densities to the finite LOG_NEG."""
+    lp = torch.where(torch.isfinite(lp), lp, torch.full_like(lp, LOG_NEG))
+    return torch.clamp(lp, min=LOG_NEG)
+
+
+def _accept_mask(u, log_ratio):
+    """Metropolis accept on given uniforms ``u``: u < exp(min(lr, 0))."""
+    return u < torch.exp(torch.clamp(log_ratio, max=0.0))
+
+
+def ess_device(chains, mu, var):
+    """Truncated-autocorrelation ESS per dimension.
+
+    chains: (num_chains, t, dim); mu/var: (dim,) normalising moments. The
+    autocorrelation comes from one FFT over the step axis; lags contribute
+    2 rho_s (1 - s/t) while any dim has rho_s > 0.05, as in the JAX
+    package (and the reference's lag loop)."""
+    b, t, d = chains.shape
+    var = torch.clamp(var, min=1e-12)
+    y = chains - mu[None, None, :]
+    nfft = 1 << (2 * t - 1).bit_length()
+    fy = torch.fft.rfft(y, n=nfft, dim=1)
+    acf = torch.fft.irfft(fy * torch.conj(fy), n=nfft, dim=1)[:, :t, :]
+    lags = torch.arange(1, t, device=chains.device, dtype=chains.dtype)
+    rho = (torch.sum(acf, dim=0)[1:]
+           / (b * (t - lags)[:, None] * var[None, :]))
+    active = rho > 0.05
+    inactive = ~torch.any(active, dim=1)
+    s_break = torch.where(torch.any(inactive),
+                          torch.argmax(inactive.to(torch.int32)),
+                          torch.tensor(t - 1, device=chains.device))
+    within = (torch.arange(t - 1, device=chains.device) < s_break)[:, None]
+    contrib = torch.where(active & within, 2.0 * rho * (1.0 - lags[:, None] / t),
+                          torch.zeros_like(rho))
+    return t / (1.0 + torch.sum(contrib, dim=0))
+
+
+def mix_ratio_device(z_end, z0):
+    """Min over latent dims of the chains' mean-square displacement from
+    their starts over twice the start population's variance (~1 when the
+    endpoints have forgotten their starts)."""
+    dz = z_end - z0
+    ref = 2.0 * torch.var(z0, dim=0, unbiased=False) + 1e-12
+    return torch.min(torch.mean(dz * dz, dim=0) / ref)
+
+
+def mix_moments_device(z_end, z0):
+    """(cov, msd): the start population's latent covariance and the
+    displacement second moment, for the host's eigenbasis diagnostic."""
+    n = float(z0.shape[0])
+    zc = z0 - torch.mean(z0, dim=0, keepdim=True)
+    dz = z_end - z0
+    return zc.T @ zc / n, dz.T @ dz / n
+
+
+class LatentKernels:
+    """Kernels bound to a flow model and device likelihood/prior functions.
+
+    ``like_fn`` and ``prior_fn`` map a (batch, dim) float32 tensor to a
+    (batch,) log density on the same device; both are sanitized here.
+    """
+
+    def __init__(self, model, like_fn, prior_fn):
+        self.model = model
+        self.like_fn = lambda u: sanitize_log_density(like_fn(u))
+        self.prior_fn = lambda u: sanitize_log_density(prior_fn(u))
+        if not fused_spline.is_fusable_spline(model):
+            raise ValueError('LatentKernels needs a single-speed spline flow '
+                             "(build_flow('spline')); got %s"
+                             % type(model).__name__)
+
+    def _hot_inverse(self):
+        """Flow inverse for use inside chain steps: the parameter-only work
+        (1x1-conv inverses, constant logdet) is packed once per kernel
+        invocation, and each call runs the whole-chain inverse kernel."""
+        packed = fused_spline.pack_inverse_consts(self.model)
+        return lambda z: spline_inverse(z, packed)
+
+    # ------------------------------------------------------------- MCMC
+
+    def _latent_cov_chol(self, live_u, mask=None, n_masked=None):
+        """Cholesky factor of the live set's latent covariance, from the
+        rows in ``mask`` only when given (the red-black half the chain
+        starts were not drawn from). A tiny relative jitter keeps it PD; a
+        failed or NaN factor falls back to the diagonal scales."""
+        with torch.no_grad():
+            z, _ = self.model(live_u)
+        if mask is None:
+            n = float(z.shape[0])
+            zc = z - torch.mean(z, dim=0, keepdim=True)
+        else:
+            n = float(n_masked)
+            w = mask.to(z.dtype)[:, None]
+            mean = torch.sum(z * w, dim=0, keepdim=True) / n
+            zc = (z - mean) * w
+        cov = zc.T @ zc / n
+        dim = cov.shape[0]
+        eps = 1e-6 * (torch.trace(cov) / dim + 1e-12)
+        cov = cov + eps * torch.eye(dim, dtype=cov.dtype, device=cov.device)
+        chol, info = torch.linalg.cholesky_ex(cov)
+        fallback = torch.diag(torch.sqrt(torch.clamp(torch.diagonal(cov),
+                                                     min=1e-12)))
+        bad = (info != 0) | torch.any(torch.isnan(chol))
+        return torch.where(bad, fallback, chol)
+
+    def step(self, state, inverse, draws, *, loglstar, scale, cov_chol):
+        """One Metropolis step (constrained when ``loglstar`` is not None).
+
+        ``state`` is (z, x, ldj, logl, logl_prior); ``draws`` yields one
+        (dz, u) pair of standard normals and uniforms per proposal
+        (``prior_volume_steps`` of them in constrained mode). Returns the
+        new state, the accept mask and the likelihood-call count."""
+        z, x, ldj, logl, logl_prior = state
+
+        def propose(dz):
+            if cov_chol is not None:
+                dz = dz @ cov_chol.T
+            return z + dz * scale
+
+        if loglstar is not None:
+            # Find a move passing prior+Jacobian among the proposals, then
+            # one likelihood check against the hard constraint.
+            z_pr, x_pr, ldj_pr = z, x, ldj
+            mask1 = torch.zeros(z.shape[0], dtype=torch.bool, device=z.device)
+            for dz, u in draws:
+                z_prop = propose(dz)
+                x_prop, ldj_prop = inverse(z_prop)
+                m = (_accept_mask(u, ldj_prop - ldj)
+                     & (self.prior_fn(x_prop) > -1e30))
+                mcol = m[:, None]
+                z_pr = torch.where(mcol, z_prop, z_pr)
+                x_pr = torch.where(mcol, x_prop, x_pr)
+                ldj_pr = torch.where(m, ldj_prop, ldj_pr)
+                mask1 = mask1 | m
+            logl_prop = self.like_fn(x_pr)
+            lp_prior_new = self.prior_fn(x_pr)
+            n_evals = torch.sum(mask1.to(torch.int64))
+            accept = mask1 & torch.isfinite(logl_prop) & (logl_prop > loglstar)
+            z_new, x_new, ldj_new = z_pr, x_pr, ldj_pr
+        else:
+            (dz, u), = draws
+            z_new = propose(dz)
+            x_new, ldj_new = inverse(z_new)
+            logl_prop = self.like_fn(x_new)
+            lp_prior_new = self.prior_fn(x_new)
+            log_ratio = ((ldj_new - ldj) + (logl_prop - logl)
+                         + (lp_prior_new - logl_prior))
+            accept = _accept_mask(u, log_ratio)
+            n_evals = torch.tensor(z.shape[0], device=z.device)
+
+        acol = accept[:, None]
+        new_state = (torch.where(acol, z_new, z), torch.where(acol, x_new, x),
+                     torch.where(accept, ldj_new, ldj),
+                     torch.where(accept, logl_prop, logl),
+                     torch.where(accept, lp_prior_new, logl_prior))
+        return new_state, accept, x_new, n_evals
+
+    @torch.no_grad()
+    def mcmc(self, generator, z0, logl0, logl_prior0, *, loglstar=None,
+             step_size, mcmc_steps, dynamic_step_size=False,
+             prior_volume_steps=1, stat_moments=None, cov_from=None,
+             cov_mask=None):
+        """Multi-chain latent Metropolis, endpoint mode: returns each
+        chain's final state, a per-chain ``moved`` flag and statistics over
+        all chains and steps (ESS, acceptance, mean jump, start
+        decorrelation). Constrained (nested) mode when ``loglstar`` is
+        given: accept on the prior+Jacobian ratio, then require
+        logl > loglstar. ``cov_from``/``cov_mask`` enable the proposal
+        dz ~ N(0, scale^2 C) with C from the masked live rows."""
+        constrained = loglstar is not None
+        device = z0.device
+        num_chains, dim = z0.shape
+        ll_star = (None if not constrained else
+                   torch.tensor(loglstar, dtype=torch.float32, device=device))
+        inverse = self._hot_inverse()
+        cov_chol = (None if cov_from is None else self._latent_cov_chol(
+            cov_from, cov_mask,
+            None if cov_mask is None
+            else cov_from.shape[0] - cov_from.shape[0] // 2))
+        x0, ldj0 = inverse(z0)
+        state = (z0, x0, ldj0, sanitize_log_density(logl0),
+                 sanitize_log_density(logl_prior0))
+        scale = torch.tensor(step_size, dtype=torch.float32, device=device)
+        acc_ctr = torch.zeros((), device=device)
+        rej_ctr = torch.zeros((), device=device)
+        ncall = torch.zeros((), dtype=torch.int64, device=device)
+        total_acc = torch.zeros((), dtype=torch.int64, device=device)
+        moved = torch.zeros(num_chains, dtype=torch.bool, device=device)
+        jump = torch.zeros((), device=device)
+        xs = [x0]
+        n_draws = prior_volume_steps if constrained else 1
+        for _ in range(mcmc_steps):
+            draws = [(torch.randn(num_chains, dim, generator=generator,
+                                  device=device),
+                      torch.rand(num_chains, generator=generator,
+                                 device=device))
+                     for _ in range(n_draws)]
+            x_old = state[1]
+            state, accept, x_new, n_evals = self.step(
+                state, inverse, draws, loglstar=ll_star, scale=scale,
+                cov_chol=cov_chol)
+            ncall = ncall + n_evals
+            n_acc = torch.sum(accept.to(torch.int64))
+            total_acc = total_acc + n_acc
+            moved = moved | accept
+            jump = jump + torch.sum(torch.where(
+                accept, torch.linalg.norm(x_new - x_old, dim=-1),
+                torch.zeros_like(jump)))
+            xs.append(state[1])
+            if dynamic_step_size:
+                # adapt toward 50% acceptance
+                win = 2 * n_acc > num_chains
+                acc_ctr = acc_ctr + win.to(acc_ctr.dtype)
+                rej_ctr = rej_ctr + (~win).to(rej_ctr.dtype)
+                scale = torch.where(acc_ctr > rej_ctr,
+                                    scale * torch.exp(1.0 / (1.0 + acc_ctr)),
+                                    scale)
+                scale = torch.where(acc_ctr < rej_ctr,
+                                    scale / torch.exp(1.0 / (1.0 + rej_ctr)),
+                                    scale)
+
+        z_end, x_end, _, logl_end, _ = state
+        chains = torch.stack(xs, dim=1)
+        if stat_moments is None:
+            mu = torch.mean(chains, dim=(0, 1))
+            var = torch.var(chains, dim=(0, 1), unbiased=False)
+        else:
+            mu, var = stat_moments
+        mix_cov, mix_msd = mix_moments_device(z_end, z0)
+        return {
+            'final_x': x_end, 'final_z': z_end, 'final_logl': logl_end,
+            'moved': moved, 'scale': scale, 'ncall': ncall,
+            'mean_jump': jump / torch.clamp(total_acc, min=1),
+            'mix_ratio': mix_ratio_device(z_end, z0),
+            'mix_cov': mix_cov, 'mix_msd': mix_msd,
+            'ess': ess_device(chains, mu, var),
+            'acceptance': total_acc / float(mcmc_steps * num_chains),
+            'accepted': total_acc,
+            'rejected': mcmc_steps * num_chains - total_acc,
+        }
+
+    @staticmethod
+    def _red_black_split(generator, n_live):
+        """Random half split of the live set: (start-half indices
+        (n_live//2,), complement mask (n_live,) bool) — the complement
+        carries the covariance estimate, independent of every start."""
+        perm = torch.randperm(n_live, generator=generator,
+                              device=generator.device)
+        idx_a = perm[: n_live // 2]
+        mask_a = torch.zeros(n_live, dtype=torch.bool,
+                             device=generator.device)
+        mask_a[idx_a] = True
+        return idx_a, ~mask_a
+
+    @torch.no_grad()
+    def _live_starts(self, idx, active_u, active_logl):
+        """Chain starts at live rows ``idx``: (z0, logl0, logl_prior0, mu,
+        var), with the numerical re-projection x -> z -> x."""
+        x0 = active_u[idx]
+        logl0 = active_logl[idx]
+        z0, _ = self.model(x0)
+        x0p, _ = self.model.inverse(z0)
+        lp_prior0 = self.prior_fn(x0p)
+        mu = torch.mean(active_u, dim=0)
+        var = torch.var(active_u, dim=0, unbiased=False)
+        return z0, logl0, lp_prior0, mu, var
+
+    def mcmc_from_live(self, generator, active_u, active_logl, *,
+                       num_chains, loglstar, step_size, mcmc_steps,
+                       dynamic_step_size=False, prior_volume_steps=1,
+                       adapt_cov=False):
+        """Constrained endpoint-mode Metropolis started from the live set:
+        uniform chain starts (from a random half when ``adapt_cov``, whose
+        complement gives the proposal covariance), re-projection, chains."""
+        n_live = active_u.shape[0]
+        cov_mask = None
+        if adapt_cov:
+            idx_a, cov_mask = self._red_black_split(generator, n_live)
+            idx = idx_a[torch.randint(0, n_live // 2, (num_chains,),
+                                      generator=generator,
+                                      device=generator.device)]
+        else:
+            idx = torch.randint(0, n_live, (num_chains,),
+                                generator=generator, device=generator.device)
+        z0, logl0, lp_prior0, mu, var = self._live_starts(
+            idx, active_u, active_logl)
+        return self.mcmc(
+            generator, z0, logl0, lp_prior0, loglstar=loglstar,
+            step_size=step_size, mcmc_steps=mcmc_steps,
+            dynamic_step_size=dynamic_step_size,
+            prior_volume_steps=prior_volume_steps, stat_moments=(mu, var),
+            cov_from=active_u if adapt_cov else None, cov_mask=cov_mask)
+
+    # -------------------------------------------------------- rejection
+
+    @torch.no_grad()
+    def rejection_prior(self, prior, generator, loglstar, num_trials):
+        """Batched rejection from the prior: ``num_trials`` prior draws,
+        all evaluated; returns (x, logl, ok)."""
+        x = prior.sample_torch(num_trials, generator)
+        logl = self.like_fn(x)
+        ok = torch.isfinite(logl) & (logl > torch.tensor(
+            loglstar, dtype=torch.float32, device=x.device))
+        return x, logl, ok

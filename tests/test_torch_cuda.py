@@ -1,0 +1,88 @@
+"""GPU-only tests of the CUDA spline-inverse kernel (``cuda`` marker).
+
+They skip with a reason where CUDA is unavailable. On a machine with a
+GPU and nvcc, run them with ``python -m pytest --noconftest -m cuda
+tests/test_torch_cuda.py`` (``--noconftest`` because tests/conftest.py
+configures JAX, which this file never imports).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nnest_torch.flows import build_flow
+from nnest_torch.ops import spline_inverse as si
+from nnest_torch.ops.fused_spline import _inverse_body, pack_inverse_consts
+
+pytestmark = pytest.mark.cuda
+
+
+def _needs_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA GPU: the kernel has no CPU mode')
+
+
+def _flow(d, seed=0):
+    hidden = 16 if d < 16 else (32 if d < 32 else 64)
+    model = build_flow(d, hidden_dim=hidden, seed=seed, device='cuda')
+    model.data_init(0.7 * torch.randn(256, d, device='cuda') + 0.3)
+    return model
+
+
+@pytest.mark.parametrize('d,n', [(2, 1), (5, 1000), (16, 256), (50, 4096)])
+def test_kernel_matches_twin(d, n):
+    _needs_gpu()
+    packed = pack_inverse_consts(_flow(d, seed=d))
+    z = 2.0 * torch.randn(n, d, device='cuda')
+    before = si.launches
+    x_k, ld_k = si.spline_inverse(z, packed)
+    x_p, ld_p = _inverse_body(z, packed)
+    torch.cuda.synchronize()
+    assert si.launches == before + 1
+    assert float((x_k - x_p).abs().max()) <= 3e-5
+    assert float((ld_k - ld_p).abs().max()) <= 3e-4
+
+
+def test_block_range_chain_equals_whole_inverse():
+    """One launch per block (last to first) plus the constant logdet
+    equals the whole-chain launch: the entry point's block range."""
+    _needs_gpu()
+    packed = pack_inverse_consts(_flow(5))
+    z = 2.0 * torch.randn(300, 5, device='cuda')
+    x, ld = z, torch.zeros(300, device='cuda')
+    for b in reversed(range(len(packed['blocks']))):
+        x, ld_b = si._launch(x, packed, b, 1, False)
+        ld = ld + ld_b
+    x_all, ld_all = si.spline_inverse(z, packed)
+    assert float((x - x_all).abs().max()) <= 1e-6
+    assert float((ld + packed['const_logdet'] - ld_all).abs().max()) <= 1e-5
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    _needs_gpu()
+    packed = pack_inverse_consts(_flow(4))
+    z = torch.randn(8, 4, device='cuda')
+    for bad in (z.double(), z.t().contiguous().t(), z[:, :3].contiguous()):
+        with pytest.raises(ValueError):
+            si.spline_inverse(bad, packed)
+    x, ld = si.spline_inverse(z[:0], packed)
+    assert x.shape == (0, 4) and ld.shape == (0,)
+
+
+def test_nested_sampler_launches_the_kernel(tmp_path):
+    _needs_gpu()
+    from nnest_torch import NestedSampler
+    from nnest_torch.likelihoods import Gaussian
+    like = Gaussian(2, 0.0, lim=3)
+    sampler = NestedSampler(2, like, transform=lambda u: 3.0 * u,
+                            num_live_points=100, log_dir=str(tmp_path),
+                            seed=0, device='cuda')
+    before = si.launches
+    sampler.run(strategy=['mcmc'], train_iters=50, dlogz=0.5)
+    generations = sampler.run_stats['mcmc_generations']
+    assert generations > 0
+    # one launch for the chain starts plus one per step of each generation
+    assert si.launches - before == generations * (5 * 2 + 1)
+    analytic = like.analytic_logz([-3.0, -3.0], [3.0, 3.0])
+    assert abs(sampler.logz - analytic) <= max(3 * sampler.logzerr, 0.15)
+    assert np.isfinite(sampler.logzerr)

@@ -1,0 +1,73 @@
+"""nnest_torch stands alone: it imports neither jax nor nnest_tpu, and its
+entry points run on CUDA unless asked for the CPU."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_RUN = """
+import sys
+sys.modules['jax'] = None        # any import of jax now raises ImportError
+sys.modules['nnest_tpu'] = None
+import torch
+import nnest_torch
+from nnest_torch import NestedSampler, Trainer, build_flow
+import nnest_torch.likelihoods, nnest_torch.priors
+from nnest_torch.ops.fused_spline import pack_inverse_consts
+from nnest_torch.ops.spline_inverse import spline_inverse
+model = build_flow(3, device='cpu')
+x, logdet = spline_inverse(torch.randn(5, 3), pack_inverse_consts(model))
+assert x.shape == (5, 3) and bool(torch.isfinite(logdet).all())
+loaded = [m for m in sys.modules
+          if m.split('.')[0] in ('jax', 'jaxlib', 'nnest_tpu')
+          and sys.modules[m] is not None]
+assert not loaded, loaded
+print('ok')
+"""
+
+
+def test_imports_and_runs_with_jax_blocked():
+    proc = subprocess.run([sys.executable, '-c', _BLOCKED_RUN], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith('ok')
+
+
+def test_no_jax_import_in_port_sources():
+    pattern = re.compile(r'^\s*(import|from)\s+(jax|jaxlib|nnest_tpu)\b',
+                         re.MULTILINE)
+    files = [os.path.join(ROOT, 'chip_smoke.py')]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, 'nnest_torch')):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith('.py')]
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            if pattern.search(f.read()):
+                offenders.append(os.path.relpath(path, ROOT))
+    assert len(files) > 10 and not offenders, offenders
+
+
+def test_tf32_is_off():
+    import nnest_torch  # noqa: F401
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_entry_points_refuse_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('a GPU is present: the default device is usable')
+    from nnest_torch import NestedSampler, Trainer, build_flow
+    from nnest_torch.likelihoods import Gaussian
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        build_flow(2)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        Trainer(2)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        NestedSampler(2, Gaussian(2, 0.0), log_dir=None)

@@ -2,23 +2,36 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs four phases, printing one JSON line per
+from JAX or ``nnest_tpu`` and runs five phases, printing one JSON line per
 phase with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the build
-   of ``nnest_torch/csrc/spline_inverse.cu`` with its ``-Xptxas -v`` report;
+   of ``nnest_torch/csrc/spline_inverse.cu`` with the ``-Xptxas -v``
+   registers and spills of every instantiation;
 2. kernel: the CUDA spline-flow inverse against its plain PyTorch twin on
-   the card, at d in {2, 5, 16, 50} (hidden 16/16/32/64) and N in
-   {1, 128, 256, 1000, 4096}, with inputs beyond ±3, exactly at ±3 and on
-   spline knots; max |dx| <= 3e-5 and max |dlogdet| <= 3e-4. Then the kernel
-   and the twin are timed with CUDA events (median) at (d=16, N=256) and
-   (d=16, N=4096) beside the least time the card could take;
+   the card, at d in {2, 5, 16, 50, 100} (hidden 16/16/32/64/64) and N in
+   {1, 128, 256, 1000, 4096, 4097}, with inputs beyond ±3, exactly at ±3
+   and on spline knots; max |dx| <= 3e-5 and max |dlogdet| <= 3e-4. The
+   per-block entry against the twin (the same limits) and against the
+   whole-chain kernel (1e-6, 1e-5) at d in {5, 16}. Then the kernel is
+   timed by CUDA-graph replay (and eagerly, back to back) and the twin
+   eagerly, at the main path's shapes beside the least time the card could
+   take; the per-block entry at d = 16; and the rows a thread block takes
+   and the ring's stages are swept;
 3. main path: ``NestedSampler`` on a 16-D Gaussian (transform 5x, hidden 32,
    256 chains x 80 steps, default strategy and retrain gate) until the
    ladder has reached 'mcmc', the flow has been trained and at least three
    MCMC generations have run; the kernel's launch counter must be > 0;
 4. correctness: the 2-D Gaussian (transform 3x, 200 live points) to
-   completion; logz within max(3 logzerr, 0.15) of the analytic value.
+   completion; logz within max(3 logzerr, 0.15) of the analytic value;
+5. per-block entry: ``spline_inverse_per_block`` called as a user would, on
+   a 16-D flow at 256 rows, with its own launch counter, against the
+   whole-chain kernel.
+
+``--baseline SRC`` also builds SRC, an earlier version of the kernel with
+its own C entry point (the unpadded layout, no launch plan), checks it
+against the twin and times it beside this kernel at every phase-2 shape
+and the sweep's, in turns (earlier, this, this, earlier).
 
 Before the last line it prints the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -28,6 +41,7 @@ non-zero before that line.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -73,36 +87,69 @@ def cuda_time_ms(fn, reps=10, calls=20, warmup=5):
     return float(np.median(times))
 
 
+def graph_time_ms(fn, reps=10, calls=20):
+    """Per-call device time of a kernel: ``calls`` calls captured in one
+    CUDA graph, the graph replayed between CUDA events, divided by
+    ``calls``; the median over ``reps`` replays. The host's launch cost
+    stays out of the reading, which back-to-back eager calls
+    (``cuda_time_ms``) cannot promise where a call's host work outlasts
+    its device work."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def rqs_inverse_ops(k):
     """f32 operations the RQS inverse of one value needs with K = k bins
     (each exp, log, log1p, sqrt, division, comparison and select counted
-    as one), as the function is defined, not as the kernel computes it:
+    as one), as the function is defined, not as a kernel computes it:
 
     - width and height pre-normalisation, two softmaxes of 5K - 2 (max,
       subtract, exp, sum, divide) and the 2B scale: 12K - 4;
     - the knots, two more softmaxes and two cumulative sums of 5 per
       interior knot: 20K - 14;
-    - the K - 1 interior derivatives, min + softplus(softplus(.)) at 13
-      each (the pinned ends are constants): 13K - 13;
     - the clamp to [-B, B] and the K comparisons y >= edge_k: K + 2;
     - the chosen bin's width, height and slope: 3;
+    - the derivatives at the chosen bin's two knots, min +
+      softplus(softplus(.)) at 13 each (a pinned end is a constant): 26;
     - the quadratic's coefficients, clamped discriminant, guarded and
       clipped root, the output, the logdet's numerator, denominator and
       logs, and the tail select: 52.
     """
-    return 46 * k + 26
+    return 33 * k + 65
 
 
-def inverse_cost(n, d, hidden, num_bins, num_blocks, param_floats):
-    """(operations, bytes) the whole-chain inverse needs for n rows.
+def inverse_cost(n, d, hidden, num_bins, num_blocks):
+    """(operations, bytes) the chain inverse needs for n rows.
 
     Operations per row and block: the two conditioner MLPs' multiply-adds
     (2 each), bias adds and LeakyReLUs; the RQS inverse of each of the d
     dims (``rqs_inverse_ops``); the per-dim logdet sum; the x @ W^-1
     product; and the affine (x - t) * e^-s, whose e^-s is parameter-only
     and counted once per block. Then the constant logdet add per row.
-    Bytes: z read once, the packed parameters read once, x and logdet
-    written once."""
+    Bytes: z read once, the parameters (unpadded: s, t, W^-1 and the MLPs
+    of every block, and the constant) read once, x and logdet written
+    once. The per-block entry computes the same function."""
     per = 3 * num_bins - 1
     cut = d - d // 2
     up = d - cut
@@ -111,10 +158,16 @@ def inverse_cost(n, d, hidden, num_bins, num_blocks, param_floats):
         return (2 * (n_in * hidden + 2 * hidden * hidden + hidden * n_out)
                 + 6 * hidden + n_out)
 
+    def mlp_params(n_in, n_out):
+        return (n_in * hidden + hidden + 2 * (hidden * hidden + hidden)
+                + hidden * n_out + n_out)
+
     per_block = (mlp(up, cut * per) + mlp(cut, up * per)
                  + d * rqs_inverse_ops(num_bins) + d + 2 * d * d + 2 * d)
     ops = n * (num_blocks * per_block + 1) + num_blocks * 2 * d
-    nbytes = 4 * (2 * n * d + n + param_floats)
+    params = num_blocks * (2 * d + d * d + mlp_params(up, cut * per)
+                           + mlp_params(cut, up * per)) + 1
+    nbytes = 4 * (2 * n * d + n + params)
     return ops, nbytes
 
 
@@ -158,6 +211,20 @@ def kernel_inputs(model, n, seed, device):
     return z.contiguous()
 
 
+def ptxas_report(build_log):
+    """One line per kernel instantiation: its template arguments, then
+    ptxas's register, barrier, stack and spill figures."""
+    out, label = [], None
+    for line in build_log.splitlines():
+        m = re.search(r'spline_inverse_kernelILi(\d+)ELi(\d+)E', line)
+        if m and 'Compiling entry' in line:
+            h = int(m.group(2))
+            label = 'K=%s hidden=%s' % (m.group(1), h if h else 'run-time')
+        elif 'spill' in line or 'Used' in line:
+            out.append('%s: %s' % (label, line.strip()))
+    return out
+
+
 def phase_device():
     from nnest_torch.ops import spline_inverse as si
     smi = subprocess.run(
@@ -168,8 +235,7 @@ def phase_device():
     t0 = time.time()
     si.load_library()
     build_s = time.time() - t0
-    ptxas = [line.strip() for line in si.build_log.splitlines()
-             if 'ptxas' in line and ('Used' in line or 'spill' in line)]
+    ptxas = ptxas_report(si.build_log)
     for line in ptxas:
         print(line, flush=True)
     return {'gpu': smi, 'kind': torch.cuda.get_device_name(0),
@@ -178,60 +244,212 @@ def phase_device():
             'build_seconds': build_s, 'ptxas': ptxas}
 
 
-def phase_kernel(record):
+class EarlierKernel:
+    """An earlier version of the kernel, built from ``src`` (``--baseline``):
+    C entry ``nnest_spline_inverse(z, params, x, logdet, n, d, hidden,
+    num_bins, total_blocks, first_block, num_blocks, include_const,
+    tail_bound, rows_per_block, stream)`` over the unpadded layout (per
+    block s, t, W^-1, then f2 and f1 as (w, b) x 4, then the constant),
+    ceil(n / 264) rows a block up to 16. It is timed beside the port's
+    kernel and is no part of the port."""
+
+    def __init__(self, src, build_dir):
+        import ctypes
+        from nnest_torch.ops.spline_inverse import NVCC_FLAGS, _find_nvcc
+        so = os.path.join(build_dir, 'libspline_inverse_earlier.so')
+        subprocess.run([_find_nvcc(), *NVCC_FLAGS, '-o', so, src],
+                       check=True, capture_output=True, text=True)
+        self.lib = ctypes.CDLL(so)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        self.lib.nnest_spline_inverse.argtypes = (
+            [vp] * 4 + [ci] * 8 + [ctypes.c_float, ci, vp])
+        self.lib.nnest_spline_inverse.restype = ci
+        self._flat = {}
+
+    def __call__(self, z, packed):
+        key = id(packed)
+        if key not in self._flat:
+            parts = []
+            for blk in packed['blocks']:
+                parts += [blk['s'], blk['t'], blk['winv']]
+                for net in (blk['sc'].f2, blk['sc'].f1):
+                    for w, b in zip(net.w, net.b):
+                        parts += [w, b]
+            parts.append(packed['const_logdet'])
+            self._flat[key] = (packed, torch.cat(
+                [p.detach().reshape(-1).float() for p in parts]))
+        flat = self._flat[key][1]
+        sc = packed['blocks'][0]['sc']
+        n, d = z.shape
+        per_row = 3 * d + 2 * sc.hidden + (d - d // 2) * (3 * sc.num_bins - 1) + 1
+        rows = max(1, min(16, 232448 // (4 * per_row), -(-n // 264)))
+        x = torch.empty_like(z)
+        logdet = torch.empty(n, dtype=torch.float32, device=z.device)
+        nb = len(packed['blocks'])
+        err = self.lib.nnest_spline_inverse(
+            z.data_ptr(), flat.data_ptr(), x.data_ptr(), logdet.data_ptr(),
+            n, d, sc.hidden, sc.num_bins, nb, 0, nb, 1,
+            float(sc.tail_bound), rows,
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError('earlier kernel launch failed: %d' % err)
+        return x, logdet
+
+
+def max_diff(a, b):
+    return float((a[0] - b[0]).abs().max()), float((a[1] - b[1]).abs().max())
+
+
+def timed_pair(fn, earlier):
+    """(ms of fn, ms of earlier or None) by ``graph_time_ms``, measured in
+    turns: earlier, fn, fn, earlier; each the mean of its two readings."""
+    if earlier is None:
+        return graph_time_ms(fn), None
+    e1 = graph_time_ms(earlier)
+    f1 = graph_time_ms(fn)
+    f2 = graph_time_ms(fn)
+    e2 = graph_time_ms(earlier)
+    return (f1 + f2) / 2, (e1 + e2) / 2
+
+
+SWEEP_SHAPES = (16, 256), (16, 4096), (50, 256), (50, 4096)
+TIMED_SHAPES = (16, 256), (16, 4096), (2, 128), (50, 256), (50, 4096)
+
+
+def phase_kernel(records, earlier):
     from nnest_torch.ops import spline_inverse as si
     from nnest_torch.ops.fused_spline import _inverse_body, pack_inverse_consts
     device = torch.device('cuda')
-    worst_x, worst_ld, cases = 0.0, 0.0, []
-    for d in (2, 5, 16, 50):
-        model = random_flow(d, seed=100 + d, device=device)
-        packed = pack_inverse_consts(model)
-        for n in (1, 128, 256, 1000, 4096):
-            z = kernel_inputs(model, n, seed=7 * n + d, device=device)
-            x_k, ld_k = si.spline_inverse(z, packed)
-            x_p, ld_p = _inverse_body(z, packed)
-            torch.cuda.synchronize()
-            if not (torch.isfinite(x_k).all() and torch.isfinite(ld_k).all()):
-                raise AssertionError('non-finite kernel output at d=%d n=%d'
-                                     % (d, n))
-            ex = float((x_k - x_p).abs().max())
-            eld = float((ld_k - ld_p).abs().max())
-            cases.append({'d': d, 'n': n, 'max_abs_dx': ex,
-                          'max_abs_dlogdet': eld})
-            worst_x, worst_ld = max(worst_x, ex), max(worst_ld, eld)
-            if ex > TOL_X or eld > TOL_LOGDET:
-                raise AssertionError(
-                    'kernel disagrees with its twin at d=%d n=%d: '
-                    'dx %.3g (tol %g), dlogdet %.3g (tol %g)'
-                    % (d, n, ex, TOL_X, eld, TOL_LOGDET))
+    worst = {'x': 0.0, 'ld': 0.0, 'pb_x': 0.0, 'pb_ld': 0.0}
+    cases, models = [], {}
 
-    timings = {}
-    model = random_flow(16, seed=116, device=device)
-    packed = pack_inverse_consts(model)
-    flat = si.pack_kernel_params(packed)
-    for n in (256, 4096):
+    def check(name, got, ref, tx, tld, d, n):
+        ex, eld = max_diff(got, ref)
+        if not (torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()):
+            raise AssertionError('non-finite %s output at d=%d n=%d'
+                                 % (name, d, n))
+        if ex > tx or eld > tld:
+            raise AssertionError(
+                '%s disagrees at d=%d n=%d: dx %.3g (tol %g), dlogdet %.3g '
+                '(tol %g)' % (name, d, n, ex, tx, eld, tld))
+        return ex, eld
+
+    for d in (2, 5, 16, 50, 100):
+        model = random_flow(d, seed=100 + d, device=device)
+        packed = models[d] = pack_inverse_consts(model)
+        for n in (1, 128, 256, 1000, 4096, 4097):
+            z = kernel_inputs(model, n, seed=7 * n + d, device=device)
+            got = si.spline_inverse(z, packed)
+            ref = _inverse_body(z, packed)
+            torch.cuda.synchronize()
+            ex, eld = check('kernel', got, ref, TOL_X, TOL_LOGDET, d, n)
+            case = {'d': d, 'n': n, 'max_abs_dx': ex, 'max_abs_dlogdet': eld}
+            worst['x'], worst['ld'] = max(worst['x'], ex), max(worst['ld'], eld)
+            if d in (5, 16):
+                pb = si.spline_inverse_per_block(z, packed)
+                torch.cuda.synchronize()
+                pex, peld = check('per-block entry', pb, ref, TOL_X,
+                                  TOL_LOGDET, d, n)
+                check('per-block entry vs whole chain', pb, got, 1e-6, 1e-5,
+                      d, n)
+                case.update({'per_block_dx': pex, 'per_block_dlogdet': peld})
+                worst['pb_x'] = max(worst['pb_x'], pex)
+                worst['pb_ld'] = max(worst['pb_ld'], peld)
+            if earlier is not None:
+                check('earlier kernel', earlier(z, packed), ref, TOL_X,
+                      TOL_LOGDET, d, n)
+                ms, e_ms = timed_pair(lambda: si.spline_inverse(z, packed),
+                                      lambda: earlier(z, packed))
+                case.update({'ms': ms, 'earlier_ms': e_ms,
+                             'earlier_over_this': e_ms / ms})
+            cases.append(case)
+
+    def shape_timing(d, n, per_block=False):
+        model = random_flow(d, seed=200 + d, device=device)
+        packed = pack_inverse_consts(model)
         z = kernel_inputs(model, n, seed=n, device=device)
-        ms = cuda_time_ms(lambda: si.spline_inverse(z, packed))
+        fn = ((lambda: si.spline_inverse_per_block(z, packed)) if per_block
+              else (lambda: si.spline_inverse(z, packed)))
+        ms, e_ms = timed_pair(fn, None if (earlier is None or per_block)
+                              else (lambda: earlier(z, packed)))
+        eager_ms = cuda_time_ms(fn)
         plain_ms = cuda_time_ms(lambda: _inverse_body(z, packed))
-        ops, nbytes = inverse_cost(n, 16, hidden_for(16), 8, 3, flat.numel())
+        ops, nbytes = inverse_cost(n, d, hidden_for(d), 8, 3)
         b_ms, b_by = bound_ms(ops, nbytes)
-        timings[n] = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
-                      'bound_by': b_by, 'ops': ops, 'bytes': nbytes}
-    record.update({
-        'max_abs_err': worst_x,
-        'max_abs_err_logdet': worst_ld,
-        'ms': timings[256]['ms'], 'plain_ms': timings[256]['plain_ms'],
-        'bound_ms': timings[256]['bound_ms'],
-        'bound_by': timings[256]['bound_by'],
-        'shape': 'd=16 hidden=32 K=8 blocks=3 N=256',
-        'ms_n4096': timings[4096]['ms'],
-        'plain_ms_n4096': timings[4096]['plain_ms'],
-        'bound_ms_n4096': timings[4096]['bound_ms'],
-        'bound_by_n4096': timings[4096]['bound_by'],
-    })
-    return {'cases': cases, 'max_abs_dx': worst_x,
-            'max_abs_dlogdet': worst_ld,
-            'timings': {str(k): v for k, v in timings.items()}}
+        plan = si.launch_plan(n, d, hidden_for(d), 8)
+        out = {'d': d, 'hidden': hidden_for(d), 'n': n, 'ms': ms,
+               'eager_ms': eager_ms, 'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+               'over_bound': ms / b_ms, 'ops': ops, 'bytes': nbytes,
+               'rows': plan['rows'], 'stages': plan['stages']}
+        if e_ms is not None:
+            out.update({'earlier_ms': e_ms, 'earlier_over_this': e_ms / ms})
+        return out
+
+    timings = [shape_timing(d, n) for d, n in TIMED_SHAPES]
+    per_block = [shape_timing(16, n, per_block=True) for n in (256, 4096)]
+
+    sweep = []
+    for d, n in SWEEP_SHAPES:
+        model = random_flow(d, seed=300 + d, device=device)
+        packed = pack_inverse_consts(model)
+        z = kernel_inputs(model, n, seed=n + 1, device=device)
+        ref = _inverse_body(z, packed)
+        for rows in ((1, 2, 4, 8) if n <= 256 else (8, 16, 32, 64)):
+            top = si.launch_plan(n, d, hidden_for(d), 8, rows)['stages']
+            for stages in sorted({0, min(2, top), top}):
+                check('kernel at %d rows a block, %d stages' % (rows, stages),
+                      si._launch(z, packed, 0, 3, True, rows, stages), ref,
+                      TOL_X, TOL_LOGDET, d, n)
+                plan = si.launch_plan(n, d, hidden_for(d), 8, rows, stages)
+                sweep.append({
+                    'd': d, 'n': n, 'rows': rows, 'grid': plan['grid'],
+                    'stages': stages, 'smem_bytes': plan['smem_bytes'],
+                    'ms': graph_time_ms(lambda: si._launch(
+                        z, packed, 0, 3, True, rows, stages)),
+                    'default': (rows, stages) == tuple(
+                        si.launch_plan(n, d, hidden_for(d), 8)[k]
+                        for k in ('rows', 'stages'))})
+
+    main, pb = timings[0], per_block[0]
+    records[0].update({
+        'max_abs_err': worst['x'], 'max_abs_err_logdet': worst['ld'],
+        'ms': main['ms'], 'plain_ms': main['plain_ms'],
+        'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+        'shape': 'd=16 hidden=32 K=8 blocks=3 N=256', 'shapes': timings})
+    records[1].update({
+        'max_abs_err': worst['pb_x'], 'max_abs_err_logdet': worst['pb_ld'],
+        'ms': pb['ms'], 'plain_ms': pb['plain_ms'],
+        'bound_ms': pb['bound_ms'], 'bound_by': pb['bound_by'],
+        'shape': 'd=16 hidden=32 K=8 blocks=3 N=256', 'shapes': per_block})
+    return {'cases': cases, 'max_abs_dx': worst['x'],
+            'max_abs_dlogdet': worst['ld'], 'timings': timings,
+            'per_block_timings': per_block, 'rows_sweep': sweep}
+
+
+def phase_per_block_entry(record):
+    """The per-block entry as a user calls it, at the main path's width,
+    with its own launch counter reset just before and read just after."""
+    from nnest_torch.ops import spline_inverse as si
+    from nnest_torch.ops.fused_spline import pack_inverse_consts
+    device = torch.device('cuda')
+    model = random_flow(16, seed=400, device=device)
+    packed = pack_inverse_consts(model)
+    z = kernel_inputs(model, 256, seed=401, device=device)
+    whole = si.spline_inverse(z, packed)
+    si.launches_per_block = 0
+    got = si.spline_inverse_per_block(z, packed)
+    torch.cuda.synchronize()
+    launches = si.launches_per_block
+    record['launches'] = launches
+    if launches != len(packed['blocks']):
+        raise AssertionError('per-block entry launched %d times, expected %d'
+                             % (launches, len(packed['blocks'])))
+    ex, eld = max_diff(got, whole)
+    if ex > 1e-6 or eld > 1e-5:
+        raise AssertionError('per-block entry vs whole chain: dx %.3g, '
+                             'dlogdet %.3g' % (ex, eld))
+    return {'launches': launches, 'vs_whole_chain_dx': ex,
+            'vs_whole_chain_dlogdet': eld}
 
 
 def phase_main_path(record, log_dir):
@@ -338,27 +556,44 @@ def phase_correctness(log_dir):
 
 
 def main():
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--baseline', metavar='SRC',
+                        help='an earlier kernel source to time beside '
+                             'this one in phase 2')
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import nnest_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    record = {'name': 'spline_inverse', 'route': 'cuda',
-              'source': 'nnest_torch/csrc/spline_inverse.cu',
-              'replaces': 'nnest_tpu/ops/pallas_spline.py:338',
-              'launches': None, 'library_ms': None}
+    records = [
+        {'name': 'spline_inverse', 'route': 'cuda',
+         'source': 'nnest_torch/csrc/spline_inverse.cu',
+         'replaces': 'nnest_tpu/ops/pallas_spline.py:338',
+         'launches': None, 'library_ms': None},
+        {'name': 'spline_inverse_per_block', 'route': 'cuda',
+         'source': 'nnest_torch/csrc/spline_inverse.cu',
+         'replaces': 'nnest_tpu/ops/pallas_spline.py:346',
+         'launches': None, 'library_ms': None},
+    ]
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as log_dir:
+        earlier = (EarlierKernel(os.path.abspath(args.baseline), log_dir)
+                   if args.baseline else None)
         for num, name, fn in (
                 (1, 'device', phase_device),
-                (2, 'kernel', lambda: phase_kernel(record)),
-                (3, 'main_path', lambda: phase_main_path(record, log_dir)),
-                (4, 'correctness', lambda: phase_correctness(log_dir))):
+                (2, 'kernel', lambda: phase_kernel(records, earlier)),
+                (3, 'main_path', lambda: phase_main_path(records[0],
+                                                         log_dir)),
+                (4, 'correctness', lambda: phase_correctness(log_dir)),
+                (5, 'per_block_entry',
+                 lambda: phase_per_block_entry(records[1]))):
             t0 = time.time()
             out = fn()
             emit({'phase': num, 'name': name,
                   'seconds': time.time() - t0, **out})
-    emit({'kernels': [record]})
+    emit({'kernels': records})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

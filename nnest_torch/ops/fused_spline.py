@@ -49,12 +49,20 @@ def pack_inverse_consts(model):
 
 
 @torch.no_grad()
-def _inverse_body(z, packed):
-    """Full chain inverse on a batch using packed consts (plain PyTorch)."""
+def _inverse_body(z, packed, first_block=0, num_blocks=None,
+                  include_const=True):
+    """Chain inverse on a batch using packed consts (plain PyTorch): blocks
+    [first_block, first_block + num_blocks) from last to first (all of them
+    by default), plus the constant logdet when ``include_const``."""
+    blocks = packed['blocks']
+    if num_blocks is None:
+        num_blocks = len(blocks) - first_block
     logdet = torch.zeros(z.shape[0], dtype=torch.float32, device=z.device)
-    for blk in reversed(packed['blocks']):
+    for blk in reversed(blocks[first_block:first_block + num_blocks]):
         z, ld = blk['sc'].inverse(z)
         logdet = logdet + ld
         z = z @ blk['winv']
         z = (z - blk['t']) * torch.exp(-blk['s'])
-    return z, logdet + packed['const_logdet']
+    if include_const:
+        logdet = logdet + packed['const_logdet']
+    return z, logdet

@@ -1,19 +1,23 @@
-"""The spline-flow inverse kernel: build, bind, launch.
+"""The spline-flow inverse kernel: layout, launch plan, build, bind, launch.
 
 ``spline_inverse(z, packed)`` is the hot inverse every MCMC proposal runs
-(``samplers/kernels.LatentKernels._hot_inverse``). For a CUDA tensor it
-launches the hand-written kernel in ``csrc/spline_inverse.cu``, which
-replaces the JAX package's Pallas TPU kernel
-``nnest_tpu/ops/pallas_spline.py::pallas_inverse_from_consts`` and its XLA
-twin ``nnest_tpu/ops/fused_spline.py::_inverse_body``. For a CPU tensor it
-runs the plain PyTorch twin ``ops.fused_spline._inverse_body``. There is no
-fallback between the two: a CUDA tensor launches the kernel or raises.
+(``samplers/kernels.LatentKernels._hot_inverse``); ``spline_inverse_per_block``
+computes the same function with one launch per flow block. For a CUDA
+tensor both launch the hand-written kernel in ``csrc/spline_inverse.cu``,
+which replaces the JAX package's Pallas TPU kernels
+``nnest_tpu/ops/pallas_spline.py::pallas_inverse_from_consts`` and
+``::pallas_inverse_per_block``. For a CPU tensor they run the plain PyTorch
+twin ``ops.fused_spline._inverse_body``. There is no fallback between the
+two: a CUDA tensor launches the kernel or raises.
 
 The kernel source is compiled at first use with ``nvcc`` for ``sm_90a``
 into ``csrc/build/`` (one shared library per source hash, with the
 ``-Xptxas -v`` register/spill/shared-memory report kept beside it in a
 ``.log`` file and in :data:`build_log`) and bound with ``ctypes``.
-What bounds it and how it is laid out is in the source's header.
+The packed layout (:func:`kernel_layout`), the pieces and copies the
+kernel streams through shared memory and the rows a thread block owns
+(:func:`launch_plan`) are plain Python, so the CPU tests reach them; what
+bounds the kernel and how it is designed is in the source's header.
 """
 
 from __future__ import annotations
@@ -38,15 +42,159 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
 # Shared memory one thread block may use on Hopper (bytes).
 MAX_SHARED_BYTES = 232448
 SUPPORTED_BINS = (8,)
+# The kernel's constants (csrc/spline_inverse.cu): at most 4 ring stages,
+# and room for their 2 x 4 mbarriers ahead of the stages.
+MAX_STAGES = 4
+BARRIER_BYTES = 128
+# A piece of a layer is at most 32 KB (or one row and a tail where that is
+# longer); a stage, and so one bulk copy, at most 80 KB.
+PIECE_CAP_FLOATS = 8192
+STAGE_CAP_FLOATS = 20480
+# Blocks the plan aims to keep in flight (the H100 has 132 SMs) and the
+# most rows one block takes.
+TARGET_BLOCKS = 132
+MAX_ROWS = 64
 
-# Kernel launches since import (or since a caller reset it): chip_smoke.py
-# sets it to 0, drives the sampler and reads it back.
+# Kernel launches since import (or since a caller reset them), one count
+# per wrapper: chip_smoke.py sets them to 0, drives the sampler and reads
+# them back.
 launches = 0
+launches_per_block = 0
 # nvcc's output for the loaded library, -Xptxas -v report included.
 build_log = None
 
 _lib = None
 _lock = threading.Lock()
+
+
+def _ceil4(v):
+    return -(-v // 4) * 4
+
+
+def kernel_layout(d, hidden, num_bins):
+    """The padded layout of one flow block, in the order the kernel uses it:
+    f2 layers 0-3, f1 layers 0-3, then the affine (W^-1, t, s).
+
+    Returns ``(layers, block_floats)``; each layer is a dict with ``name``,
+    ``n_in``, ``n_out``, ``n4`` (the padded row length), ``w`` (float
+    offset of the first weight row within the block) and ``tail`` (offset
+    of the bias, or of t then s for the affine, ``tails`` arrays of ``n4``
+    floats). Every offset and length is a multiple of 4 floats."""
+    per = 3 * num_bins - 1
+    cut = d - d // 2
+    up = d - cut
+    layers, pos = [], 0
+
+    def add(name, n_in, n_out, tails):
+        nonlocal pos
+        n4 = _ceil4(n_out)
+        layers.append({'name': name, 'n_in': n_in, 'n_out': n_out, 'n4': n4,
+                       'w': pos, 'tail': pos + n_in * n4, 'tails': tails})
+        pos += (n_in + tails) * n4
+
+    for net, n_in, n_out in (('f2', up, cut * per), ('f1', cut, up * per)):
+        sizes = (n_in, hidden, hidden, hidden, n_out)
+        for i in range(4):
+            add('%s.%d' % (net, i), sizes[i], sizes[i + 1], 1)
+    add('affine', d, d, 2)
+    return layers, pos
+
+
+def piece_schedule(d, hidden, num_bins):
+    """One block's pieces, each ``(offset, floats, k0, k1)`` = weight rows
+    [k0, k1) of a layer, whole rows only; the last piece of a layer ends at
+    its last row and carries the layer's tail (bias, or t and s) after it,
+    so the pieces of a layer tile its floats exactly. A piece is at most
+    ``PIECE_CAP_FLOATS``, or one row and a tail where that is longer."""
+    layers, _ = kernel_layout(d, hidden, num_bins)
+    cap = max([PIECE_CAP_FLOATS]
+              + [(1 + l['tails']) * l['n4'] for l in layers])
+    pieces = []
+    for l in layers:
+        n4, k0 = l['n4'], 0
+        while True:
+            rest = l['n_in'] - k0
+            if (rest + l['tails']) * n4 <= cap:
+                pieces.append((l['w'] + k0 * n4, (rest + l['tails']) * n4,
+                               k0, l['n_in']))
+                break
+            k1 = k0 + min(cap // n4, rest - 1)
+            pieces.append((l['w'] + k0 * n4, (k1 - k0) * n4, k0, k1))
+            k0 = k1
+    return pieces
+
+
+def copy_schedule(pieces, stage_floats):
+    """Consecutive pieces grouped greedily into bulk copies of at most
+    ``stage_floats``: each ``(offset, floats, first piece, pieces)``."""
+    copies = []
+    for i, (off, floats, _, _) in enumerate(pieces):
+        if copies and copies[-1][1] + floats <= stage_floats:
+            o, f, first, count = copies[-1]
+            copies[-1] = (o, f + floats, first, count + 1)
+        else:
+            copies.append((off, floats, i, 1))
+    return copies
+
+
+def row_floats(d, hidden, num_bins):
+    """Shared floats of one row's state: z, the affine output and the
+    per-dim logdets, two activation buffers, the conditioner output, the
+    running logdet."""
+    cut = d - d // 2
+    return (3 * _ceil4(d) + 2 * _ceil4(hidden)
+            + _ceil4(cut * (3 * num_bins - 1)) + 1)
+
+
+def launch_plan(n, d, hidden, num_bins, rows=None, stages=None):
+    """How the kernel covers ``n`` rows: rows a thread block, grid, ring
+    stages and their floats, the pieces and copies of one block's weights
+    and the shared bytes a block needs (the C entry point checks the last
+    against its own sum).
+
+    By default a block takes the power of two of rows that keeps about
+    ``TARGET_BLOCKS`` blocks in flight (at most ``MAX_ROWS``), halved until
+    two stages of the largest piece fit beside the rows' state. A stage
+    holds a whole flow block's weights where that is at most
+    ``STAGE_CAP_FLOATS`` (one copy a block), else ``STAGE_CAP_FLOATS``,
+    shrunk until two fit; the ring takes up to ``MAX_STAGES``. Where even
+    one row leaves no room for two stages of the largest piece, stages is 0
+    and the kernel reads the weights from global memory. ``rows`` and
+    ``stages`` override the choice (a sweep)."""
+    pieces = piece_schedule(d, hidden, num_bins)
+    _, block_floats = kernel_layout(d, hidden, num_bins)
+    biggest = max(p[1] for p in pieces)
+    per_row = 4 * row_floats(d, hidden, num_bins)
+    # The table holds the pieces and at most as many copies.
+    fixed = BARRIER_BYTES + 32 * len(pieces)
+
+    def room(r):
+        return MAX_SHARED_BYTES - fixed - r * per_row
+
+    if rows is None:
+        want = -(-n // TARGET_BLOCKS)
+        rows = 1
+        while rows < min(want, MAX_ROWS):
+            rows *= 2
+        while rows > 1 and room(rows) < 8 * biggest:
+            rows //= 2
+    rows = int(rows)
+    stage = max(biggest, min(block_floats, STAGE_CAP_FLOATS,
+                             room(rows) // 8 // 4 * 4))
+    top = min(MAX_STAGES, room(rows) // (4 * stage))
+    if stages is None:
+        stages = top if top >= 2 else 0
+    if room(rows) < 0 or stages > top or stages == 1:
+        raise ValueError('spline inverse kernel: %d rows and %d stages need '
+                         'more shared memory than a block has'
+                         % (rows, stages))
+    if stages == 0:
+        stage = biggest
+    copies = copy_schedule(pieces, stage)
+    return {'rows': rows, 'grid': -(-n // rows), 'stages': stages,
+            'stage_floats': stage, 'pieces': pieces, 'copies': copies,
+            'smem_bytes': (BARRIER_BYTES + 16 * (len(pieces) + len(copies))
+                           + 4 * stages * stage + rows * per_row)}
 
 
 def _find_nvcc():
@@ -89,7 +237,7 @@ def load_library():
         lib = ctypes.CDLL(so)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nnest_spline_inverse.argtypes = (
-            [vp] * 4 + [ci] * 8 + [ctypes.c_float, ci, vp])
+            [vp] * 5 + [ci] * 8 + [ctypes.c_float] + [ci] * 6 + [vp])
         lib.nnest_spline_inverse.restype = ci
         lib.nnest_spline_block_floats.argtypes = [ci, ci, ci]
         lib.nnest_spline_block_floats.restype = ci
@@ -99,30 +247,37 @@ def load_library():
 
 @torch.no_grad()
 def pack_kernel_params(packed):
-    """Flatten packed inverse consts into the kernel's parameter layout:
-    per block ``s t winv f2 f1`` (each MLP as w0 b0 ... w3 b3), then the
-    constant logdet."""
-    parts = []
-    for blk in packed['blocks']:
-        parts += [blk['s'], blk['t'], blk['winv']]
+    """Flatten packed inverse consts into the kernel's padded layout
+    (:func:`kernel_layout`): per block f2 and f1 as (w, b) x 4 with JAX's
+    (n_in, n_out) weights, then W^-1, t, s, every row and array padded with
+    zeros to a multiple of 4 floats; then the constant logdet, padded."""
+    blocks = packed['blocks']
+    sc = blocks[0]['sc']
+    d, hidden, num_bins = sc.dim, sc.hidden, sc.num_bins
+    layers, bfloats = kernel_layout(d, hidden, num_bins)
+    ref = blocks[0]['s']
+    flat = torch.zeros(len(blocks) * bfloats + 4, dtype=torch.float32,
+                       device=ref.device)
+    for b, blk in enumerate(blocks):
+        base = b * bfloats
+        mats = []
         for net in (blk['sc'].f2, blk['sc'].f1):
-            for w, b in zip(net.w, net.b):
-                parts += [w, b]
-    parts.append(packed['const_logdet'])
-    return torch.cat([p.detach().reshape(-1).float() for p in parts])
-
-
-def rows_per_block(n, d, hidden, num_bins):
-    """Rows one thread block inverts: enough blocks to cover the SMs at the
-    chain counts of the main path, at most 16 rows, and within shared
-    memory."""
-    per_row = 3 * d + 2 * hidden + (d - d // 2) * (3 * num_bins - 1) + 1
-    fit = MAX_SHARED_BYTES // (4 * per_row)
-    if fit < 1:
-        raise ValueError('spline inverse kernel: one row needs %d bytes of '
-                         'shared memory, more than a block has'
-                         % (4 * per_row))
-    return max(1, min(16, fit, -(-n // 264)))
+            mats += [(w, [bias]) for w, bias in zip(net.w, net.b)]
+        mats.append((blk['winv'], [blk['t'], blk['s']]))
+        for l, (w, tails) in zip(layers, mats):
+            n_in, n_out, n4 = l['n_in'], l['n_out'], l['n4']
+            if tuple(w.shape) != (n_in, n_out):
+                raise ValueError('layer %s is %s, the kernel takes (%d, %d) '
+                                 '(conditioners must be 4-layer MLPs of one '
+                                 'width)' % (l['name'], tuple(w.shape), n_in,
+                                             n_out))
+            flat[base + l['w']:l['tail'] + base].view(n_in, n4)[
+                :, :n_out] = w.detach().float()
+            for i, t in enumerate(tails):
+                o = base + l['tail'] + i * n4
+                flat[o:o + n_out] = t.detach().reshape(-1).float()
+    flat[len(blocks) * bfloats] = packed['const_logdet'].detach().float()
+    return flat
 
 
 def _shape(packed):
@@ -134,58 +289,101 @@ def _shape(packed):
     return shapes.pop()
 
 
-def _launch(z, packed, first_block, num_blocks, include_const):
-    """Launch the kernel on blocks [first_block, first_block + num_blocks)."""
-    global launches
+def _prepared(packed, device):
+    """The kernel's per-flow state, made once and kept in ``packed``: the
+    shape, the padded parameters on ``device``, and the launch plans (with
+    their piece and copy tables on ``device``) by (n, rows, stages)."""
+    prep = packed.get('kernel')
+    if prep is not None and prep['device'] == device:
+        return prep
     d, hidden, num_bins, tail_bound = _shape(packed)
+    if num_bins not in SUPPORTED_BINS:
+        raise ValueError('spline inverse kernel is built for num_bins in %s, '
+                         'got %d' % (SUPPORTED_BINS, num_bins))
+    lib = load_library()
+    total = len(packed['blocks'])
+    flat = pack_kernel_params(packed).to(device)
+    expected = total * lib.nnest_spline_block_floats(d, hidden, num_bins) + 4
+    if flat.numel() != expected:
+        raise ValueError('packed kernel params hold %d floats, expected %d'
+                         % (flat.numel(), expected))
+    prep = packed['kernel'] = {
+        'device': device, 'lib': lib, 'd': d, 'hidden': hidden,
+        'num_bins': num_bins, 'tail_bound': float(tail_bound),
+        'total': total, 'flat': flat, 'plans': {}}
+    return prep
+
+
+def _launch(z, packed, first_block, num_blocks, include_const, rows=None,
+            stages=None):
+    """Launch the kernel on blocks [first_block, first_block + num_blocks).
+    ``rows`` and ``stages`` override the launch plan's (a sweep)."""
     if z.device.type != 'cuda':
         raise ValueError('spline inverse kernel needs a CUDA tensor, got %s'
                          % z.device)
     if z.dtype != torch.float32:
         raise ValueError('spline inverse kernel takes float32, got %s'
                          % z.dtype)
+    prep = _prepared(packed, z.device)
+    d = prep['d']
     if z.dim() != 2 or z.shape[1] != d:
         raise ValueError('z must be (n, %d), got %s' % (d, tuple(z.shape)))
     if not z.is_contiguous():
         raise ValueError('z must be contiguous')
-    if num_bins not in SUPPORTED_BINS:
-        raise ValueError('spline inverse kernel is built for num_bins in %s, '
-                         'got %d' % (SUPPORTED_BINS, num_bins))
-    total = len(packed['blocks'])
-    lib = load_library()
-    flat = packed.get('kernel_params')
-    if flat is None:
-        flat = packed['kernel_params'] = pack_kernel_params(packed)
-    expected = total * lib.nnest_spline_block_floats(d, hidden, num_bins) + 1
-    if flat.numel() != expected:
-        raise ValueError('packed kernel params hold %d floats, expected %d '
-                         '(conditioners must be 4-layer MLPs)'
-                         % (flat.numel(), expected))
-    if flat.device != z.device or not flat.is_contiguous():
-        raise ValueError('kernel params must be contiguous on %s' % z.device)
     n = z.shape[0]
     x = torch.empty_like(z)
     logdet = torch.empty(n, dtype=torch.float32, device=z.device)
     if n == 0:
         return x, logdet
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = lib.nnest_spline_inverse(
-            z.data_ptr(), flat.data_ptr(), x.data_ptr(), logdet.data_ptr(),
-            n, d, hidden, num_bins, total, first_block, num_blocks,
-            int(include_const), float(tail_bound),
-            rows_per_block(n, d, hidden, num_bins), stream)
+    plan = prep['plans'].get((n, rows, stages))
+    if plan is None:
+        p = launch_plan(n, d, prep['hidden'], prep['num_bins'], rows, stages)
+        table = torch.tensor(p['pieces'] + p['copies'], dtype=torch.int32,
+                             device=z.device)
+        plan = prep['plans'][(n, rows, stages)] = (
+            table, (p['rows'], p['stages'], p['stage_floats'],
+                    len(p['pieces']), len(p['copies']), p['smem_bytes']))
+    table, plan_args = plan
+    args = (z.data_ptr(), prep['flat'].data_ptr(), table.data_ptr(),
+            x.data_ptr(), logdet.data_ptr(), n, d, prep['hidden'],
+            prep['num_bins'], prep['total'], first_block, num_blocks,
+            int(include_const), prep['tail_bound'], *plan_args,
+            torch.cuda.current_stream(z.device).cuda_stream)
+    if z.device.index == torch.cuda.current_device():
+        err = prep['lib'].nnest_spline_inverse(*args)
+    else:
+        with torch.cuda.device(z.device):
+            err = prep['lib'].nnest_spline_inverse(*args)
     if err != 0:
         raise RuntimeError('spline inverse kernel launch failed: '
                            'cudaError %d' % err)
-    launches += 1
     return x, logdet
 
 
 def spline_inverse(z, packed):
     """Whole-chain inverse ``z -> (x, logdet)`` with consts from
-    ``ops.fused_spline.pack_inverse_consts``: the CUDA kernel for a CUDA
+    ``ops.fused_spline.pack_inverse_consts``: one kernel launch for a CUDA
     tensor, the plain twin for a CPU tensor."""
+    global launches
     if z.device.type == 'cpu':
         return _inverse_body(z, packed)
-    return _launch(z, packed, 0, len(packed['blocks']), True)
+    out = _launch(z, packed, 0, len(packed['blocks']), True)
+    launches += 1
+    return out
+
+
+def spline_inverse_per_block(z, packed):
+    """The same inverse as ``spline_inverse`` with one launch per flow
+    block, last to first, without the constant, then the blocks' logdets
+    summed plus ``const_logdet`` (``pallas_inverse_per_block``'s order).
+    A CPU tensor takes the plain twin over the same block ranges."""
+    global launches_per_block
+    logdet = torch.zeros(z.shape[0], dtype=torch.float32, device=z.device)
+    for b in reversed(range(len(packed['blocks']))):
+        if z.device.type == 'cpu':
+            z, ld = _inverse_body(z, packed, b, 1, include_const=False)
+        else:
+            z, ld = _launch(z, packed, b, 1, False)
+            launches_per_block += 1
+        logdet = logdet + ld
+    return z, logdet + packed['const_logdet']

@@ -29,7 +29,8 @@ def _flow(d, seed=0):
     return model
 
 
-@pytest.mark.parametrize('d,n', [(2, 1), (5, 1000), (16, 256), (50, 4096)])
+@pytest.mark.parametrize('d,n', [(2, 1), (5, 1000), (16, 256), (50, 4096),
+                                 (100, 256), (16, 4097), (100, 4097)])
 def test_kernel_matches_twin(d, n):
     _needs_gpu()
     packed = pack_inverse_consts(_flow(d, seed=d))
@@ -44,18 +45,64 @@ def test_kernel_matches_twin(d, n):
 
 
 def test_block_range_chain_equals_whole_inverse():
-    """One launch per block (last to first) plus the constant logdet
-    equals the whole-chain launch: the entry point's block range."""
+    """The per-block wrapper (one launch per block, last to first, plus the
+    constant logdet) equals the whole-chain launch: the entry point's
+    block range."""
     _needs_gpu()
     packed = pack_inverse_consts(_flow(5))
     z = 2.0 * torch.randn(300, 5, device='cuda')
-    x, ld = z, torch.zeros(300, device='cuda')
-    for b in reversed(range(len(packed['blocks']))):
-        x, ld_b = si._launch(x, packed, b, 1, False)
-        ld = ld + ld_b
+    before = si.launches_per_block
+    x, ld = si.spline_inverse_per_block(z, packed)
+    assert si.launches_per_block == before + len(packed['blocks'])
     x_all, ld_all = si.spline_inverse(z, packed)
     assert float((x - x_all).abs().max()) <= 1e-6
-    assert float((ld + packed['const_logdet'] - ld_all).abs().max()) <= 1e-5
+    assert float((ld - ld_all).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize('d,n', [(5, 70), (16, 4097)])
+def test_per_block_matches_twin(d, n):
+    _needs_gpu()
+    packed = pack_inverse_consts(_flow(d, seed=d))
+    z = 2.0 * torch.randn(n, d, device='cuda')
+    x_k, ld_k = si.spline_inverse_per_block(z, packed)
+    x_p, ld_p = _inverse_body(z, packed)
+    torch.cuda.synchronize()
+    assert float((x_k - x_p).abs().max()) <= 3e-5
+    assert float((ld_k - ld_p).abs().max()) <= 3e-4
+
+
+@pytest.mark.parametrize('d,hidden', [(7, 10), (16, 24)])
+def test_runtime_width_matches_twin(d, hidden):
+    """A width other than the compiled 16/32/64 runs the kernel's run-time
+    width instantiation, never the twin."""
+    _needs_gpu()
+    model = build_flow(d, hidden_dim=hidden, seed=3, device='cuda')
+    model.data_init(0.7 * torch.randn(256, d, device='cuda') + 0.3)
+    packed = pack_inverse_consts(model)
+    z = 2.0 * torch.randn(333, d, device='cuda')
+    before = si.launches
+    x_k, ld_k = si.spline_inverse(z, packed)
+    x_p, ld_p = _inverse_body(z, packed)
+    torch.cuda.synchronize()
+    assert si.launches == before + 1
+    assert float((x_k - x_p).abs().max()) <= 3e-5
+    assert float((ld_k - ld_p).abs().max()) <= 3e-4
+
+
+@pytest.mark.parametrize('rows,stages', [(1, None), (3, None), (8, None),
+                                         (64, None), (2, 0), (16, 2)])
+def test_any_rows_a_block_matches_twin(rows, stages):
+    """The rows a block takes and the ring's stages (the plan's choice or
+    a sweep's; 0 stages: weights read from global memory) change the
+    tiling, never the result."""
+    _needs_gpu()
+    packed = pack_inverse_consts(_flow(16))
+    z = 2.0 * torch.randn(1000, 16, device='cuda')
+    x_k, ld_k = si._launch(z, packed, 0, 3, True, rows, stages)
+    x_p, ld_p = _inverse_body(z, packed)
+    torch.cuda.synchronize()
+    assert float((x_k - x_p).abs().max()) <= 3e-5
+    assert float((ld_k - ld_p).abs().max()) <= 3e-4
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

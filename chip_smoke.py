@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs five phases, printing one JSON line per
+from JAX or ``nnest_tpu`` and runs seven phases, printing one JSON line per
 phase with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the build
@@ -10,32 +10,49 @@ phase with its seconds:
    registers and spills of every instantiation;
 2. kernel: the CUDA spline-flow inverse against its plain PyTorch twin on
    the card, at d in {2, 5, 16, 50, 100} (hidden 16/16/32/64/64) and N in
-   {1, 128, 256, 1000, 4096, 4097}, with inputs beyond ±3, exactly at ±3
-   and on spline knots; max |dx| <= 3e-5 and max |dlogdet| <= 3e-4. The
-   per-block entry against the twin (the same limits) and against the
-   whole-chain kernel (1e-6, 1e-5) at d in {5, 16}. Then the kernel is
-   timed by CUDA-graph replay (and eagerly, back to back) and the twin
-   eagerly, at the main path's shapes beside the least time the card could
-   take; the per-block entry at d = 16; and the rows a thread block takes
-   and the ring's stages are swept;
+   {1, 128, 256, 1000, 4096, 4097}, and at d in {16, 50} with N in
+   {65536, 65537} (the flow strategies' trials), with inputs beyond ±3,
+   exactly at ±3 and on spline knots; max |dx| <= 3e-5 and max |dlogdet|
+   <= 3e-4. The per-block entry against the twin (the same limits) and
+   against the whole-chain kernel (1e-6, 1e-5) at d in {5, 16}. Then the
+   kernel is timed by CUDA-graph replay (and eagerly, back to back) and
+   the twin eagerly, at the main path's shapes (N = 65536 included)
+   beside the least time the card could take; the per-block entry at
+   d = 16; and the rows a thread block takes and the ring's stages are
+   swept (N = 65536: 32, 64 and 128 rows);
 3. main path: ``NestedSampler`` on a 16-D Gaussian (transform 5x, hidden 32,
    256 chains x 80 steps, default strategy and retrain gate) until the
    ladder has reached 'mcmc', the flow has been trained and at least three
    MCMC generations have run; the kernel's launch counter must be > 0;
 4. correctness: the 2-D Gaussian (transform 3x, 200 live points) to
-   completion; logz within max(3 logzerr, 0.15) of the analytic value;
+   completion; logz within max(3 logzerr, 0.15) of the analytic value,
+   and ``diagnostics.json`` with every key and a finite
+   ``logzerr_adjusted``;
 5. per-block entry: ``spline_inverse_per_block`` called as a user would, on
    a 16-D flow at 256 rows, with its own launch counter, against the
-   whole-chain kernel.
+   whole-chain kernel;
+6. flow rejection: ``NestedSampler`` on the 16-D Gaussian (transform 5x,
+   hidden 32, 1000 live points, ``train_iters=100``) with
+   ``['rejection_flow', 'mcmc']`` at 65536 trials a generation, cut by
+   ``max_iters`` after at least three generations and a training; the
+   kernel's launches on the path (> 0) and the plain twin's calls (0);
+   the wall of each generation, a profile of one and its parts; then one
+   ``density_flow`` generation at 65536 trials with its own counts;
+7. resume: the 2-D Gaussian with ``['rejection_flow', 'mcmc']``,
+   uninterrupted against killed at ``max_iters=120`` and resumed by a
+   sampler built with another seed; both within max(3 logzerr, 0.15) of
+   the analytic logz, and whether (logz, h, ncall, niter) are equal.
 
 ``--baseline SRC`` also builds SRC, an earlier version of the kernel with
 its own C entry point (the unpadded layout, no launch plan), checks it
 against the twin and times it beside this kernel at every phase-2 shape
 and the sweep's, in turns (earlier, this, this, earlier).
 
-Before the last line it prints the ``{"kernels": [...]}`` record; the last
-line is ``{"ok": true, "device": {...}}``. Any failure raises and exits
-non-zero before that line.
+Before the last line it prints the ``{"kernels": [...]}`` record, with each
+kernel's launches by path (``mcmc``: phase 3, ``rejection_flow`` and
+``density_flow``: phase 6, ``per_block``: phase 5); the last line is
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
+before that line.
 """
 
 import json
@@ -55,6 +72,15 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL_X = 3e-5
 TOL_LOGDET = 3e-4
+# the flow strategies' trials a generation (bench.py's workload D)
+FLOW_TRIALS = 65536
+# the keys of results/diagnostics.json (nnest_tpu's set)
+DIAGNOSTICS_KEYS = {
+    'insertion_D', 'insertion_p', 'insertion_rolling_p', 'logzerr',
+    'logzerr_bootstrap', 'n_ranks', 'mixing_min_ratio',
+    'mixing_min_ratio_eig', 'mixing_rel_ratio', 'latent_cond_median',
+    'latent_cond_rel', 'n_mix_windows', 'logzerr_adjusted',
+    'quality_flags'}
 
 
 def emit(obj):
@@ -312,8 +338,12 @@ def timed_pair(fn, earlier):
     return (f1 + f2) / 2, (e1 + e2) / 2
 
 
-SWEEP_SHAPES = (16, 256), (16, 4096), (50, 256), (50, 4096)
-TIMED_SHAPES = (16, 256), (16, 4096), (2, 128), (50, 256), (50, 4096)
+SWEEP_SHAPES = ((16, 256), (16, 4096), (50, 256), (50, 4096),
+                (16, FLOW_TRIALS), (50, FLOW_TRIALS))
+SWEEP_ROWS = {256: (1, 2, 4, 8), 4096: (8, 16, 32, 64),
+              FLOW_TRIALS: (32, 64, 128)}
+TIMED_SHAPES = ((16, 256), (16, 4096), (2, 128), (50, 256), (50, 4096),
+                (16, FLOW_TRIALS), (50, FLOW_TRIALS))
 
 
 def phase_kernel(records, earlier):
@@ -337,7 +367,8 @@ def phase_kernel(records, earlier):
     for d in (2, 5, 16, 50, 100):
         model = random_flow(d, seed=100 + d, device=device)
         packed = models[d] = pack_inverse_consts(model)
-        for n in (1, 128, 256, 1000, 4096, 4097):
+        wide = (FLOW_TRIALS, FLOW_TRIALS + 1) if d in (16, 50) else ()
+        for n in (1, 128, 256, 1000, 4096, 4097) + wide:
             z = kernel_inputs(model, n, seed=7 * n + d, device=device)
             got = si.spline_inverse(z, packed)
             ref = _inverse_body(z, packed)
@@ -394,8 +425,13 @@ def phase_kernel(records, earlier):
         packed = pack_inverse_consts(model)
         z = kernel_inputs(model, n, seed=n + 1, device=device)
         ref = _inverse_body(z, packed)
-        for rows in ((1, 2, 4, 8) if n <= 256 else (8, 16, 32, 64)):
-            top = si.launch_plan(n, d, hidden_for(d), 8, rows)['stages']
+        for rows in SWEEP_ROWS[n]:
+            try:
+                top = si.launch_plan(n, d, hidden_for(d), 8, rows)['stages']
+            except ValueError as e:   # the rows' state alone overflows
+                sweep.append({'d': d, 'n': n, 'rows': rows, 'fits': False,
+                              'why': str(e)})
+                continue
             for stages in sorted({0, min(2, top), top}):
                 check('kernel at %d rows a block, %d stages' % (rows, stages),
                       si._launch(z, packed, 0, 3, True, rows, stages), ref,
@@ -436,11 +472,11 @@ def phase_per_block_entry(record):
     packed = pack_inverse_consts(model)
     z = kernel_inputs(model, 256, seed=401, device=device)
     whole = si.spline_inverse(z, packed)
-    si.launches_per_block = 0
+    reset_counts()
     got = si.spline_inverse_per_block(z, packed)
     torch.cuda.synchronize()
     launches = si.launches_per_block
-    record['launches'] = launches
+    record['launches_by_path']['per_block'] = launches
     if launches != len(packed['blocks']):
         raise AssertionError('per-block entry launched %d times, expected %d'
                              % (launches, len(packed['blocks'])))
@@ -455,22 +491,18 @@ def phase_per_block_entry(record):
 def phase_main_path(record, log_dir):
     from nnest_torch import NestedSampler
     from nnest_torch.likelihoods import Gaussian
-    from nnest_torch.ops import spline_inverse as si
     d = 16
     like = Gaussian(d, 0.0)
     sampler = NestedSampler(d, like, transform=lambda x: 5.0 * x,
                             log_dir=os.path.join(log_dir, 'main'),
                             seed=1, device='cuda')
-    si.launches = 0
+    reset_counts()
     t0 = time.time()
     sampler.run(max_iters=5200, train_iters=100)
-    torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = si.launches
-    record['launches'] = launches
+    launches = read_counts('mcmc')
+    record['launches_by_path']['mcmc'] = launches
     stats = sampler.run_stats
-    if launches <= 0:
-        raise AssertionError('the main path never launched the kernel')
     if stats['mcmc_generations'] < 3 or stats['trainings'] < 1:
         raise AssertionError('main path did not reach 3 MCMC generations '
                              'and a training: %s' % stats)
@@ -481,26 +513,22 @@ def phase_main_path(record, log_dir):
             **stats, 'generation_profile': profile_mcmc_generation(sampler)}
 
 
-def profile_mcmc_generation(sampler, mcmc_steps=80, num_chains=256):
-    """One MCMC pool generation at the main path's shape on a synthetic
-    shell (live points ~ N(0, 0.3^2) in the unit cube): its wall time
-    without and with the profiler, device busy time by kernel from the
-    profiler's CUDA events, and the spline kernel's share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    g = torch.Generator(device='cuda').manual_seed(5)
+def synthetic_shell(sampler, seed=5):
+    """A live set on a synthetic shell (~ N(0, 0.3^2) in the unit cube) and
+    its host log likelihoods."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
     u = torch.clamp(0.3 * torch.randn(1000, sampler.x_dim, generator=g,
                                       device='cuda'), -1.0, 1.0)
     u = u.cpu().numpy().astype(np.float64)
-    logl = sampler.loglike(u)
+    return u, sampler.loglike(u)
 
-    def generation():
-        sampler._mcmc_sample_live(
-            mcmc_steps, u, logl, num_chains, float(np.min(logl)),
-            1.0 / sampler.x_dim ** 0.5, dynamic_step_size=True,
-            adapt_cov=True)
-        torch.cuda.synchronize()
 
+def profile_generation(generation):
+    """One call of ``generation`` (which ends in a synchronise): its wall
+    time without and with the profiler, device busy time by kernel from
+    the profiler's CUDA events, and the spline kernel's share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     generation()
     t0 = time.perf_counter()
     generation()
@@ -518,6 +546,7 @@ def profile_mcmc_generation(sampler, mcmc_steps=80, num_chains=256):
     busy_ms = sum(ms for ms, _ in by_name.values())
     spline = [(ms, n) for name, (ms, n) in by_name.items()
               if 'spline_inverse' in name]
+    spline_ms = sum(ms for ms, _ in spline)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return {
         'wall_ms': wall_ms, 'profiled_wall_ms': prof_wall_ms,
@@ -525,11 +554,28 @@ def profile_mcmc_generation(sampler, mcmc_steps=80, num_chains=256):
         'device_busy_share': (busy_ms / prof_wall_ms if by_name
                               else 'not measured'),
         'kernel_launches': sum(n for _, n in by_name.values()),
-        'spline_inverse_ms': sum(ms for ms, _ in spline),
+        'spline_inverse_ms': spline_ms,
         'spline_inverse_launches': sum(n for _, n in spline),
+        'spline_inverse_share_of_busy': (spline_ms / busy_ms if busy_ms
+                                         else 'not measured'),
         'top_kernels': [{'name': name[:80], 'ms': ms, 'count': n}
                         for name, (ms, n) in top],
     }
+
+
+def profile_mcmc_generation(sampler, mcmc_steps=80, num_chains=256):
+    """One MCMC pool generation at the main path's shape on a synthetic
+    shell, profiled (``profile_generation``)."""
+    u, logl = synthetic_shell(sampler)
+
+    def generation():
+        sampler._mcmc_sample_live(
+            mcmc_steps, u, logl, num_chains, float(np.min(logl)),
+            1.0 / sampler.x_dim ** 0.5, dynamic_step_size=True,
+            adapt_cov=True)
+        torch.cuda.synchronize()
+
+    return profile_generation(generation)
 
 
 def phase_correctness(log_dir):
@@ -552,6 +598,173 @@ def phase_correctness(log_dir):
     if not ok:
         raise AssertionError('2-D Gaussian logz off the analytic value: %s'
                              % out)
+    with open(os.path.join(sampler.log_dir, 'results',
+                           'diagnostics.json')) as f:
+        diag = json.load(f)
+    if set(diag) != DIAGNOSTICS_KEYS:
+        raise AssertionError('diagnostics.json keys differ: %s'
+                             % sorted(set(diag) ^ DIAGNOSTICS_KEYS))
+    if not math.isfinite(diag['logzerr_adjusted']):
+        raise AssertionError('logzerr_adjusted is %r'
+                             % diag['logzerr_adjusted'])
+    out['diagnostics'] = diag
+    return out
+
+
+def reset_counts():
+    from nnest_torch.ops import fused_spline
+    from nnest_torch.ops import spline_inverse as si
+    si.launches = si.launches_per_block = 0
+    fused_spline.calls = 0
+
+
+def read_counts(path):
+    """The launch counts after a path, checked: the whole-chain kernel
+    launched, the plain twin never called."""
+    from nnest_torch.ops import fused_spline
+    from nnest_torch.ops import spline_inverse as si
+    torch.cuda.synchronize()
+    launches, twin = si.launches, fused_spline.calls
+    if launches <= 0:
+        raise AssertionError('the %s path never launched the kernel' % path)
+    if twin != 0:
+        raise AssertionError('the %s path called the plain twin %d times on '
+                             'the card' % (path, twin))
+    return launches
+
+
+def phase_flow_rejection(records, log_dir):
+    """Flow rejection on the 16-D main-path model at 65536 trials a
+    generation, then one flow-density generation; each with its counts
+    reset just before and read just after."""
+    from nnest_torch import NestedSampler
+    from nnest_torch.likelihoods import Gaussian
+    d = 16
+    sampler = NestedSampler(d, Gaussian(d, 0.0), transform=lambda x: 5.0 * x,
+                            log_dir=os.path.join(log_dir, 'flow'), seed=3,
+                            device='cuda')
+    walls = []
+    real = sampler._rejection_flow_sample
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)   # ends in a device-to-host copy
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    sampler._rejection_flow_sample = timed
+    reset_counts()
+    t0 = time.time()
+    # max_iters < update_interval (500): one training, no retrain check
+    sampler.run(strategy=['rejection_flow', 'mcmc'], max_iters=499,
+                train_iters=100, rejection_batch_size=FLOW_TRIALS,
+                rejection_max_trials=FLOW_TRIALS)
+    wall = time.time() - t0
+    launches = read_counts('rejection_flow')
+    del sampler._rejection_flow_sample
+    stats = sampler.run_stats
+    if stats['rejection_flow_generations'] < 3 or stats['trainings'] < 1:
+        raise AssertionError('flow rejection did not reach 3 generations '
+                             'and a training: %s' % stats)
+    if not math.isfinite(sampler.logz):
+        raise AssertionError('non-finite logz %r' % sampler.logz)
+    by_path = {'rejection_flow': launches}
+
+    # one flow-density generation at the same width
+    u, logl = synthetic_shell(sampler)
+    loglstar = float(np.min(logl))
+    reset_counts()
+    t0 = time.perf_counter()
+    s_d, ll_d, _ = sampler._density_sample(loglstar, num_trials=FLOW_TRIALS)
+    density_ms = (time.perf_counter() - t0) * 1e3
+    by_path['density_flow'] = read_counts('density_flow')
+    if not np.all(ll_d > loglstar):
+        raise AssertionError('a density candidate is below its threshold')
+    records[0]['launches_by_path'].update(by_path)
+
+    def generation():
+        sampler._rejection_flow_sample(u, loglstar, cache=False,
+                                       num_trials=FLOW_TRIALS)
+        torch.cuda.synchronize()
+
+    profile = profile_generation(generation)
+    # the parts of a generation, each timed alone (eager, back to back)
+    kernels = sampler.kernels
+    live = torch.as_tensor(u.astype(np.float32), device='cuda')
+    packed_inverse = kernels._hot_inverse()
+    draws = kernels.rejection_flow_draws(sampler.generator, FLOW_TRIALS, d)
+    mld, mr = kernels.envelope(live, 1.1)
+    x, _ = packed_inverse(draws[0])
+    parts = {
+        'envelope_forward_ms': cuda_time_ms(
+            lambda: kernels.envelope(live, 1.1)),
+        'draws_ms': cuda_time_ms(lambda: kernels.rejection_flow_draws(
+            sampler.generator, FLOW_TRIALS, d)),
+        # a generation packs the flow's consts and the kernel's layout anew
+        'pack_and_spline_inverse_ms': cuda_time_ms(
+            lambda: kernels._hot_inverse()(draws[0])),
+        'spline_inverse_ms': cuda_time_ms(lambda: packed_inverse(draws[0])),
+        'likelihood_and_prior_ms': cuda_time_ms(
+            lambda: (kernels.like_fn(x), kernels.prior_fn(x))),
+        'body_ms': cuda_time_ms(lambda: kernels.rejection_flow_body(
+            *draws, loglstar, mld, mr, 1.1)),
+        'generation_wall_ms': profile['wall_ms'],
+    }
+    return {'wall_s': wall, 'launches': launches, 'iterations': sampler.niter,
+            'ncall': sampler.total_calls, 'logz_so_far': sampler.logz,
+            **stats, 'generation_walls_ms': walls,
+            'median_generation_ms': float(np.median(walls)),
+            'density_candidates': int(s_d.shape[0]),
+            'density_generation_ms': density_ms,
+            'density_launches': by_path['density_flow'],
+            'generation_profile': profile, 'generation_parts': parts}
+
+
+def phase_resume(log_dir):
+    """Kill-and-resume on the card: the 2-D Gaussian with
+    ['rejection_flow', 'mcmc'], uninterrupted against killed at
+    max_iters=120 and resumed by a sampler built with another seed."""
+    from nnest_torch import NestedSampler
+    from nnest_torch.likelihoods import Gaussian
+    like = Gaussian(2, 0.0, lim=3)
+    analytic = like.analytic_logz([-3.0, -3.0], [3.0, 3.0])
+    kw = dict(strategy=['rejection_flow', 'mcmc'], train_iters=30,
+              mcmc_num_chains=10, mcmc_steps=10, rejection_batch_size=32,
+              dlogz=0.5, retrain_nll_threshold=None)
+
+    def sampler(name, seed):
+        return NestedSampler(2, like, transform=lambda x: 3.0 * x,
+                             num_live_points=100,
+                             log_dir=os.path.join(log_dir, name),
+                             append_run_num=False, resume=True, seed=seed,
+                             device='cuda')
+
+    t0 = time.time()
+    whole = sampler('whole', 7)
+    whole.run(**kw)
+    again = sampler('again', 7)
+    again.run(**kw)
+    sampler('killed', 7).run(max_iters=120, **kw)
+    resumed = sampler('killed', 99)
+    resumed.run(**kw)
+    wall = time.time() - t0
+
+    def final(s):
+        return [float(s.logz), float(s.h), int(s.total_calls), int(s.niter)]
+
+    out = {'wall_s': wall, 'analytic_logz': analytic,
+           'uninterrupted': final(whole), 'uninterrupted_again': final(again),
+           'resumed': final(resumed),
+           'resume_bit_exact': final(resumed) == final(whole),
+           'rerun_bit_exact': final(again) == final(whole),
+           'trainings': whole.run_stats['trainings'],
+           'rejection_flow_generations':
+               whole.run_stats['rejection_flow_generations']}
+    for name, s in (('uninterrupted', whole), ('resumed', resumed)):
+        allowed = max(3.0 * s.logzerr, 0.15)
+        if abs(s.logz - analytic) > allowed:
+            raise AssertionError('%s run off the analytic logz: %s'
+                                 % (name, out))
     return out
 
 
@@ -568,15 +781,18 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import nnest_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    paths = ('mcmc', 'rejection_flow', 'density_flow', 'per_block')
     records = [
         {'name': 'spline_inverse', 'route': 'cuda',
          'source': 'nnest_torch/csrc/spline_inverse.cu',
          'replaces': 'nnest_tpu/ops/pallas_spline.py:338',
-         'launches': None, 'library_ms': None},
+         'launches': None, 'library_ms': None,
+         'launches_by_path': dict.fromkeys(paths, 0)},
         {'name': 'spline_inverse_per_block', 'route': 'cuda',
          'source': 'nnest_torch/csrc/spline_inverse.cu',
          'replaces': 'nnest_tpu/ops/pallas_spline.py:346',
-         'launches': None, 'library_ms': None},
+         'launches': None, 'library_ms': None,
+         'launches_by_path': dict.fromkeys(paths, 0)},
     ]
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as log_dir:
         earlier = (EarlierKernel(os.path.abspath(args.baseline), log_dir)
@@ -588,11 +804,17 @@ def main():
                                                          log_dir)),
                 (4, 'correctness', lambda: phase_correctness(log_dir)),
                 (5, 'per_block_entry',
-                 lambda: phase_per_block_entry(records[1]))):
+                 lambda: phase_per_block_entry(records[1])),
+                (6, 'flow_rejection',
+                 lambda: phase_flow_rejection(records, log_dir)),
+                (7, 'resume', lambda: phase_resume(log_dir))):
             t0 = time.time()
             out = fn()
             emit({'phase': num, 'name': name,
                   'seconds': time.time() - t0, **out})
+    for rec in records:
+        # launches on the paths that drive the kernel (phases 3, 5 and 6)
+        rec['launches'] = sum(rec['launches_by_path'].values())
     emit({'kernels': records})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

@@ -15,6 +15,11 @@ import torch
 
 from nnest_torch.bijectors import ActNorm, Invertible1x1Conv, SplineCoupling
 
+# Calls of the plain twin since import (or since a caller reset it):
+# chip_smoke.py sets it to 0 before a path on the card and checks that the
+# path never fell back to the twin.
+calls = 0
+
 
 def is_fusable_spline(model) -> bool:
     """True for single-speed spline chains: [ActNorm, Inv1x1Conv,
@@ -54,6 +59,8 @@ def _inverse_body(z, packed, first_block=0, num_blocks=None,
     """Chain inverse on a batch using packed consts (plain PyTorch): blocks
     [first_block, first_block + num_blocks) from last to first (all of them
     by default), plus the constant logdet when ``include_const``."""
+    global calls
+    calls += 1
     blocks = packed['blocks']
     if num_blocks is None:
         num_blocks = len(blocks) - first_block

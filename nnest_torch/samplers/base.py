@@ -10,12 +10,15 @@ Port of the main-path part of ``nnest_tpu/samplers/base.py``:
   ``LOG_NEG``) both call it. This replaces the JAX split between traced
   and ``io_callback`` likelihoods;
 - capacity autoscale of the conditioner width (16/32/64 by dimension);
-- the endpoint MCMC pool generation from the live set and batched prior
-  rejection, with their counters and chain statistics;
+- the endpoint MCMC pool generation from the live set, with the host
+  eigenbasis mixing ratio and latent condition number of each generation
+  (the inputs of ``adjusted_logzerr``);
+- batched prior rejection, flow rejection inside the cached Jacobian
+  envelope and flow-density draws, with their counters;
 - getdist-style ``chain.txt`` and ``params.txt``.
 
-Derived parameters, meshes, checkpoints and the other strategies are not
-ported yet (see ROADMAP.md).
+Derived parameters, meshes and the slice strategy are not ported yet (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ import torch
 from nnest_torch.samplers.kernels import LatentKernels
 from nnest_torch.training.trainer import Trainer
 from nnest_torch.utils.device import resolve_device
+from nnest_torch.utils.evaluation import (eig_mix_from_moments,
+                                          latent_cond_null,
+                                          metropolis_mix_null)
 from nnest_torch.utils.logger import create_logger, get_or_create_run_dir
 
 
@@ -53,6 +59,7 @@ class Sampler:
                  num_blocks=3,
                  learning_rate=0.001,
                  log_dir='logs/test',
+                 resume=True,
                  trainer=None,
                  log_level=logging.INFO,
                  param_names=None,
@@ -60,6 +67,7 @@ class Sampler:
                  device='cuda'):
         self.device = resolve_device(device)
         self.x_dim = x_dim
+        self.resume = resume
         self.param_names = param_names
         if param_names is not None and len(param_names) != x_dim:
             raise ValueError('param_names must have x_dim entries')
@@ -101,7 +109,16 @@ class Sampler:
         self.total_calls = 0
         self._kernels = None
         self._last_kernel_stats = None
+        # Per-generation mixing history of the current run() (see
+        # _consume_endpoint_out) and the flow-rejection envelope cache.
         self._mix_ratios = []
+        self._mix_ratios_eig = []
+        self._latent_conds = []
+        self._mix_rels = []
+        self._cond_rels = []
+        self._cond_infl = []
+        self._max_log_det_j = None
+        self._max_r = None
 
     # ------------------------------------------------------------ wrappers
 
@@ -152,19 +169,40 @@ class Sampler:
 
     # -------------------------------------------------------------- MCMC
 
-    def _consume_endpoint_out(self, out):
+    def _consume_endpoint_out(self, out, mix_null=None, cond_null=None,
+                              cond_inflates=False):
         """Counters and chain statistics of one endpoint kernel output;
-        returns host (u, logl, moved, scale, mean_jump, ncall)."""
+        returns host (u, logl, moved, scale, mean_jump, ncall).
+
+        The eigenbasis mixing ratio and latent condition number come from
+        the kernel's ``mix_cov``/``mix_msd`` in float64 on the host. With
+        ``mix_null`` (the healthy ratio at this step budget) the relative
+        ratio is recorded, the kinetic term of ``adjusted_logzerr``; with
+        ``cond_null`` the relative condition number, which also feeds the
+        structural term when ``cond_inflates`` (Metropolis generations)."""
         out = {k: _to_numpy(v) for k, v in out.items()}
         self.total_calls += int(out['ncall'])
         self.total_accepted += int(out['accepted'])
         self.total_rejected += int(out['rejected'])
-        self._mix_ratios.append(float(out['mix_ratio']))
+        mix = float(out['mix_ratio'])
+        self._mix_ratios.append(mix)
+        mix_eig, latent_cond = eig_mix_from_moments(out['mix_cov'],
+                                                    out['mix_msd'])
+        self._mix_ratios_eig.append(mix_eig)
+        self._latent_conds.append(latent_cond)
+        if mix_null is not None:
+            self._mix_rels.append(mix_eig / max(mix_null, 1e-6))
+        if cond_null is not None:
+            self._cond_rels.append(latent_cond / max(cond_null, 1e-6))
+            if cond_inflates:
+                self._cond_infl.append(self._cond_rels[-1])
         self._last_kernel_stats = {
             'ess': np.asarray(out['ess'], dtype=np.float64),
             'acceptance': float(out['acceptance']),
             'mean_jump': float(out['mean_jump']),
-            'mix_ratio': float(out['mix_ratio']),
+            'mix_ratio': mix,
+            'mix_ratio_eig': mix_eig,
+            'latent_cond': latent_cond,
         }
         return (np.asarray(out['final_x'], dtype=np.float64),
                 np.asarray(out['final_logl'], dtype=np.float64),
@@ -192,7 +230,11 @@ class Sampler:
                 step_size=step_size, mcmc_steps=mcmc_steps,
                 dynamic_step_size=dynamic_step_size,
                 prior_volume_steps=prior_volume_steps, adapt_cov=adapt_cov)
-        return self._consume_endpoint_out(out)
+        return self._consume_endpoint_out(
+            out, mix_null=metropolis_mix_null(mcmc_steps, self.x_dim,
+                                              adapt_cov=adapt_cov),
+            cond_null=latent_cond_null(self.x_dim, num_chains),
+            cond_inflates=True)
 
     # --------------------------------------------------------- rejection
 
@@ -202,12 +244,55 @@ class Sampler:
         trials = int(num_trials)
         x, logl, ok = self.kernels.rejection_prior(
             self._user_prior, self.generator, loglstar, trials)
+        return self._candidates(x, logl, ok, trials)
+
+    def _candidates(self, x, logl, ok, n_evals):
+        """Counters of one rejection or flow-density generation (``n_evals``
+        likelihood calls); returns the passing trials (u, logl) in float64
+        and the likelihood calls per passing trial."""
         ok = _to_numpy(ok)
-        self.total_calls += trials
+        n_evals = int(n_evals)
+        self.total_calls += n_evals
         n_ok = int(ok.sum())
-        nc = trials / max(n_ok, 1) if n_ok > 0 else trials
+        nc = n_evals / max(n_ok, 1) if n_ok > 0 else max(n_evals, 1)
         return (_to_numpy(x)[ok].astype(np.float64),
                 _to_numpy(logl).astype(np.float64)[ok], nc)
+
+    def _rejection_flow_sample(self, init_samples, loglstar,
+                               enlargement_factor=1.1,
+                               constant_efficiency_factor=None, cache=False,
+                               num_trials=512):
+        """Batched flow rejection: the envelope from the live set
+        ``init_samples`` (max-folded into the cached one when ``cache`` and
+        a cached one exists, else replacing it), then one generation of
+        ``num_trials`` trials in the latent ball. With
+        ``constant_efficiency_factor`` the draw's enlargement is
+        (1/factor)^(1/d) instead of ``enlargement_factor``. Returns
+        (samples, loglikes, effective_ncall) of the passing trials."""
+        self.trainer.ensure_init()
+        draw_enlargement = enlargement_factor
+        if constant_efficiency_factor is not None:
+            draw_enlargement = (
+                1.0 / constant_efficiency_factor) ** (1.0 / self.x_dim)
+        fold = bool(cache and self._max_log_det_j is not None)
+        x, logl, ok, n_evals, mld, mr = self.kernels.rejection_flow_live(
+            self.generator, loglstar,
+            torch.as_tensor(np.asarray(init_samples, dtype=np.float32),
+                            device=self.device),
+            self._max_log_det_j if fold else 0.0,
+            self._max_r if fold else 0.0, fold, enlargement_factor,
+            draw_enlargement, int(num_trials))
+        self._max_log_det_j = float(mld)
+        self._max_r = float(mr)
+        return self._candidates(x, logl, ok, n_evals)
+
+    def _density_sample(self, loglstar, num_trials=512):
+        """Batched flow-density draws: ``num_trials`` base draws through
+        the flow's inverse. Returns (samples, loglikes, effective_ncall)
+        of the passing draws."""
+        self.trainer.ensure_init()
+        return self._candidates(*self.kernels.density(
+            self.generator, loglstar, int(num_trials)))
 
     # ---------------------------------------------------------------- io
 

@@ -3,15 +3,17 @@
 Port of the main-path part of ``nnest_tpu/samplers/kernels.py``:
 constrained (nested) and full Metropolis-Hastings latent MCMC with the
 covariance-preconditioned proposal and dynamic step size, the red-black
-chain starts drawn from the live set, batched prior rejection, and the
+chain starts drawn from the live set, batched prior rejection, flow
+rejection inside the Jacobian envelope, flow-density draws, and the
 on-device chain diagnostics (ESS, start decorrelation, second moments).
 
 The JAX ``lax.scan`` becomes a Python loop over steps with the chains as
 the batch dimension; accept/reject stay masks (``torch.where``) and every
 counter stays a device tensor, so a step never waits on the host. Random
 numbers come from the caller's ``torch.Generator``. Every flow inverse
-inside a step goes through :meth:`LatentKernels._hot_inverse`, which on
-the GPU is the hand-written CUDA kernel (``ops/spline_inverse.py``).
+inside a step, and the one inverse of all trials of a flow-rejection or
+flow-density generation, goes through :meth:`LatentKernels._hot_inverse`,
+which on the GPU is the hand-written CUDA kernel (``ops/spline_inverse.py``).
 """
 
 from __future__ import annotations
@@ -331,3 +333,105 @@ class LatentKernels:
         ok = torch.isfinite(logl) & (logl > torch.tensor(
             loglstar, dtype=torch.float32, device=x.device))
         return x, logl, ok
+
+    # --------------------------------------------------- rejection/flow
+
+    @torch.no_grad()
+    def envelope(self, live_u, enlargement_factor=1.1):
+        """Jacobian envelope of flow rejection: ``enlargement_factor`` times
+        the largest ``-log|det dz/dx|`` over the live set (the flow's
+        forward), and the largest latent radius. Returns two 0-dim
+        tensors (max_log_det_j, max_r)."""
+        z, ldj = self.model(live_u)
+        return (enlargement_factor * torch.max(-ldj),
+                torch.max(torch.linalg.norm(z, dim=1)))
+
+    @staticmethod
+    def rejection_flow_draws(generator, num_trials, dim):
+        """The random draws of one flow-rejection generation: standard
+        normals (num_trials, dim) for the direction, uniforms
+        (num_trials, 1) for the radius and uniforms (num_trials,) for the
+        Jacobian accept."""
+        device = generator.device
+        g = torch.randn(num_trials, dim, generator=generator, device=device)
+        r = torch.rand(num_trials, 1, generator=generator, device=device)
+        u = torch.rand(num_trials, generator=generator, device=device)
+        return g, r, u
+
+    @torch.no_grad()
+    def rejection_flow_body(self, g, r, u, loglstar, max_log_det_j, max_r,
+                            enlargement_factor):
+        """Flow rejection on given draws (:meth:`rejection_flow_draws`):
+        z uniform in the latent ball of radius ``enlargement_factor *
+        max_r`` (direction g/|g|, radius r^(1/dim)), x = flow^-1(z) in one
+        call of the hot inverse over all trials, then the Jacobian accept
+        u < exp(min(ldj - max_log_det_j, 0)), the prior box and
+        logl > loglstar. Returns (x, logl, ok, n_evals); ``n_evals``
+        counts the trials that passed the prior and the Jacobian accept
+        (only those cost a likelihood call).
+
+        The JAX package's ``usample`` draw (uniform in a box, for flows
+        with a ``GeneralisedNormal`` base) comes with that base (ROADMAP
+        item 9); the port's flows all have the standard normal base."""
+        dim = g.shape[1]
+        r = r ** (1.0 / dim)
+        g = g / torch.linalg.norm(g, dim=1, keepdim=True)
+        z = enlargement_factor * max_r * g * r
+        x, ldj = self._hot_inverse()(z)
+        ok_prior = self.prior_fn(x) > -1e30
+        evaluated = ok_prior & _accept_mask(u, ldj - max_log_det_j)
+        logl = self.like_fn(x)
+        ok = evaluated & torch.isfinite(logl) & (logl > _f32(loglstar, x))
+        return x, logl, ok, torch.sum(evaluated.to(torch.int64))
+
+    def rejection_flow(self, generator, loglstar, max_log_det_j, max_r,
+                       enlargement_factor, num_trials):
+        """Batched latent rejection inside the Jacobian envelope (one
+        generation of ``num_trials`` trials); returns (x, logl, ok,
+        n_evals)."""
+        draws = self.rejection_flow_draws(generator, num_trials,
+                                          self.model.dim)
+        return self.rejection_flow_body(
+            *draws, loglstar, _f32(max_log_det_j, draws[0]),
+            _f32(max_r, draws[0]), enlargement_factor)
+
+    def rejection_flow_live(self, generator, loglstar, live_u, prev_mld,
+                            prev_mr, fold, enlargement_factor,
+                            draw_enlargement, num_trials):
+        """The envelope from the live set, max-folded into the carried
+        maxima when ``fold`` (else it replaces them), then one
+        flow-rejection generation drawn with ``draw_enlargement``. Returns
+        (x, logl, ok, n_evals, max_log_det_j, max_r)."""
+        mld, mr = self.envelope(live_u, enlargement_factor)
+        if fold:
+            mld = torch.maximum(_f32(prev_mld, mld), mld)
+            mr = torch.maximum(_f32(prev_mr, mr), mr)
+        draws = self.rejection_flow_draws(generator, num_trials,
+                                          self.model.dim)
+        return self.rejection_flow_body(*draws, loglstar, mld, mr,
+                                        draw_enlargement) + (mld, mr)
+
+    # ---------------------------------------------------------- density
+
+    @torch.no_grad()
+    def density_body(self, z, loglstar):
+        """Flow-density sampling on given base draws ``z``: x = flow^-1(z)
+        in one call of the hot inverse, kept when inside the prior box
+        with logl > loglstar. Returns (x, logl, ok, n_evals); ``n_evals``
+        counts the draws inside the prior box."""
+        x, _ = self._hot_inverse()(z)
+        ok_prior = self.prior_fn(x) > -1e30
+        logl = self.like_fn(x)
+        ok = ok_prior & torch.isfinite(logl) & (logl > _f32(loglstar, x))
+        return x, logl, ok, torch.sum(ok_prior.to(torch.int64))
+
+    def density(self, generator, loglstar, num_trials):
+        """One flow-density generation: ``num_trials`` draws from the
+        flow's base distribution; returns (x, logl, ok, n_evals)."""
+        return self.density_body(
+            self.model.base_dist.sample(num_trials, generator), loglstar)
+
+
+def _f32(value, like):
+    """``value`` as a float32 tensor on ``like``'s device."""
+    return torch.as_tensor(value, dtype=torch.float32, device=like.device)

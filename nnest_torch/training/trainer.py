@@ -13,6 +13,10 @@ Port of the training path of ``nnest_tpu/training/trainer.py``:
   training set, the last batch repeats rows with weight 0.
 - Auto-jitter ``0.2 x`` the mean nearest-neighbour distance, divided by
   sqrt(d) above 16-D (the JAX package's law, copied as it is).
+- ``save``/``load`` of the flow's ``state_dict``, and
+  ``snapshot_state``/``restore_state`` of everything a later ``train()``
+  reads (flow, Adam state, the trainer's generator, the early-stop
+  bookkeeping), so a retrain after a restore is bit-identical on the CPU.
 
 Training is the flow's forward plus autograd in plain PyTorch; the JAX
 package trains in plain XLA too, with no hand-written kernel.
@@ -91,10 +95,13 @@ class Trainer:
         x = (self._tensor(samples) if samples is not None
              else self.model.sample_base(64, self.generator))
         self.model.data_init(x)
+        self._new_optimizer()
+        self.initialized = True
+
+    def _new_optimizer(self):
         self.optimizer = torch.optim.Adam(
             self.model.parameters(), lr=self.learning_rate,
             weight_decay=self.weight_decay)
-        self.initialized = True
 
     def _validation_loss(self, valid):
         with torch.no_grad():
@@ -175,6 +182,62 @@ class Trainer:
                 'Best epoch [%i] validation loss [%5.4f] train time (s) '
                 '[%5.4f]' % (self.best_validation_epoch,
                              self.best_validation_loss, time.time() - start))
+
+    # --------------------------------------------------------- persistence
+
+    def save(self, path):
+        """The flow's parameters and buffers (``state_dict``) to ``path``."""
+        torch.save(self.model.state_dict(), path)
+
+    def load(self, path):
+        self.load_params(torch.load(path, map_location='cpu',
+                                    weights_only=True))
+
+    def load_params(self, state):
+        """Rebind the flow's parameters and buffers from a ``state_dict``;
+        the optimizer starts afresh, as after a data-dependent init."""
+        self.model.load_state_dict(state)
+        self._new_optimizer()
+        self.initialized = True
+
+    def snapshot_state(self):
+        """Everything a later ``train()`` reads, as CPU copies: the flow's
+        ``state_dict``, the Adam state, the generator state, the iteration
+        count, the best validation loss and epoch and the last jitter."""
+        def cpu(tree):
+            if isinstance(tree, torch.Tensor):
+                return tree.detach().to('cpu', copy=True)
+            if isinstance(tree, dict):
+                return {k: cpu(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(cpu(v) for v in tree)
+            return copy.deepcopy(tree)
+
+        return {
+            'initialized': self.initialized,
+            'model': cpu(self.model.state_dict()),
+            'optimizer': (None if self.optimizer is None
+                          else cpu(self.optimizer.state_dict())),
+            'generator': self.generator.get_state(),
+            'total_iters': self.total_iters,
+            'best_validation_loss': self.best_validation_loss,
+            'best_validation_epoch': self.best_validation_epoch,
+            'last_training_jitter': self.last_training_jitter,
+        }
+
+    def restore_state(self, snap):
+        """Inverse of :meth:`snapshot_state`; ``snap`` is left unchanged."""
+        self.load_params(snap['model'])
+        if snap['optimizer'] is None:
+            self.optimizer = None
+        else:
+            self.optimizer.load_state_dict(copy.deepcopy(snap['optimizer']))
+        self.initialized = bool(snap['initialized'])
+        self.generator.set_state(snap['generator'].cpu())
+        self.total_iters = int(snap['total_iters'])
+        self.best_validation_loss = snap['best_validation_loss']
+        self.best_validation_epoch = snap['best_validation_epoch']
+        self.last_training_jitter = snap['last_training_jitter']
 
     def log_probs(self, x, to_numpy=False):
         self.ensure_init()

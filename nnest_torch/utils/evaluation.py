@@ -1,0 +1,149 @@
+"""Run diagnostics of a nested-sampling run, in host numpy (float64).
+
+The port's own copy of the run-diagnostic functions of
+``nnest_tpu/utils/evaluation.py`` (the port imports nothing from the JAX
+package; these are pure numpy there too):
+
+- the insertion-index uniformity test (Fowlie, Handley & Su 2020,
+  arXiv:2006.03371): :func:`kolmogorov_pvalue`, :func:`insertion_ks`,
+  :func:`rolling_insertion_ks`;
+- the thread-bootstrap logZ error (Higson et al. 2019,
+  arXiv:1804.06406): :func:`bootstrap_logz_error`;
+- the calibrated single-run error bar: the healthy-run nulls
+  :func:`metropolis_mix_null` and :func:`latent_cond_null`,
+  :func:`eig_mix_from_moments` (the eigenbasis mixing ratio and latent
+  condition number of one MCMC generation) and :func:`adjusted_logzerr`.
+
+The slice kernel's null and the merge/birth functions of dynamic nested
+sampling come with the slice strategy and the dynamic sampler.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def kolmogorov_pvalue(d, n):
+    """Asymptotic two-sided Kolmogorov-Smirnov p-value for statistic ``d``
+    over ``n`` samples, with Stephens' small-sample correction."""
+    n = int(n)
+    if n <= 0 or d <= 0.0:
+        return 1.0
+    lam = (np.sqrt(n) + 0.12 + 0.11 / np.sqrt(n)) * float(d)
+    k = np.arange(1, 101)
+    p = 2.0 * np.sum((-1.0) ** (k - 1) * np.exp(-2.0 * (k * lam) ** 2))
+    return float(min(max(p, 0.0), 1.0))
+
+
+def insertion_ks(ranks, n_live):
+    """Insertion-index uniformity test. Under exact constrained sampling
+    the rank of each replacement among the surviving ``n_live - 1`` live
+    points is Uniform{0, ..., n_live-1}; under-mixed proposals skew it.
+
+    Returns ``(D, p)``: the KS distance of ``(ranks + 0.5) / n_live``
+    from U[0,1] and its asymptotic p-value."""
+    r = np.asarray(ranks, dtype=np.float64)
+    n = r.size
+    if n == 0:
+        return 0.0, 1.0
+    u = np.sort((r + 0.5) / float(n_live))
+    i = np.arange(1, n + 1)
+    d = float(np.max(np.maximum(i / n - u, u - (i - 1) / n)))
+    return d, kolmogorov_pvalue(d, n)
+
+
+def rolling_insertion_ks(ranks, n_live, block=None):
+    """The insertion test on each consecutive block of ``block`` ranks
+    (default ``n_live``), the smallest p Bonferroni-corrected: it catches
+    a failure confined to one likelihood regime that the whole-run test
+    averages away. Returns ``(min_corrected_p, n_blocks)``."""
+    r = np.asarray(ranks, dtype=np.float64)
+    if block is None:
+        block = int(n_live)
+    block = max(int(block), 1)
+    n_blocks = max(r.size // block, 1)
+    pmin = 1.0
+    for b in range(n_blocks):
+        chunk = r[b * block:(b + 1) * block] if b < n_blocks - 1 \
+            else r[(n_blocks - 1) * block:]
+        _, p = insertion_ks(chunk, n_live)
+        pmin = min(pmin, p)
+    return float(min(pmin * n_blocks, 1.0)), n_blocks
+
+
+def bootstrap_logz_error(saved_logl, slots, n_live, n_boot=200, seed=0):
+    """Single-run thread-bootstrap logZ error. A run with in-place
+    replacement decomposes into ``n_live`` single-live-point threads (the
+    live-set slots in ``slots``); resampling whole threads with
+    replacement and re-running the constant-N evidence sum estimates the
+    run's sampling error. ``saved_logl``/``slots`` cover the whole run,
+    the final live points included. Deterministic (fixed ``seed``, its
+    own numpy generator). Returns the std of logZ over ``n_boot``
+    replicates."""
+    saved_logl = np.asarray(saved_logl, dtype=np.float64)
+    slots = np.asarray(slots)
+    groups = [saved_logl[slots == k] for k in range(n_live)]
+    rng = np.random.RandomState(seed)
+    shell = np.log1p(-np.exp(-1.0 / n_live))
+    zs = np.empty(n_boot)
+    for b in range(n_boot):
+        pick = rng.randint(0, n_live, size=n_live)
+        logls = np.concatenate([groups[k] for k in pick])
+        logls.sort()
+        # ascending-logl deaths: the i-th death leaves log-volume -i/N
+        logwt = logls + shell - np.arange(logls.size) / n_live
+        m = logwt.max()
+        zs[b] = m + np.log(np.sum(np.exp(logwt - m)))
+    return float(np.std(zs))
+
+
+def metropolis_mix_null(steps, dim, adapt_cov=False):
+    """Expected healthy eigenbasis mixing ratio of the constrained
+    Metropolis kernel at this step budget: 0.31 steps / dim^1.35 for the
+    covariance-preconditioned proposal, 1.4 steps / dim^2 for the
+    isotropic one, never below its value at the default 5*dim steps
+    (a starved kernel must lower the ratio, not relax the bar)."""
+    if adapt_cov:
+        return min(1.0, 0.31 * max(steps, 5 * dim) / float(dim) ** 1.35)
+    return min(1.0, 1.4 * max(steps, 5 * dim) / float(dim) ** 2)
+
+
+def latent_cond_null(dim, n_chains):
+    """Healthy-run latent condition number of a chain-start population:
+    the Marchenko-Pastur edge ratio of a d-variate, n-sample
+    identity-covariance estimate, to the power 1.25."""
+    q = min(float(dim) / float(max(n_chains, dim + 1)), 0.98)
+    edge = ((1.0 + q ** 0.5) / (1.0 - q ** 0.5)) ** 2
+    return edge ** 1.25
+
+
+def adjusted_logzerr(logzerr, mix_rels, x_dim, cond_rels=None):
+    """Calibrated single-run logZ uncertainty: ``logzerr`` times the
+    larger of 1/R^2 (R the median relative eigenbasis mixing ratio, the
+    kinetic term) and the median relative latent condition number of
+    Metropolis generations (the structural term), clipped to [1, 100].
+    Applied only at ``x_dim >= 8`` and only when a chain kernel ran."""
+    if not mix_rels or x_dim < 8:
+        return float(logzerr)
+    r = float(np.median(mix_rels))
+    inflation = max(1.0, r ** -2)
+    if cond_rels:
+        inflation = max(inflation, float(np.median(cond_rels)))
+    return float(logzerr) * min(100.0, inflation)
+
+
+def eig_mix_from_moments(cov, msd):
+    """Eigenbasis mixing ratio and latent condition number from one
+    generation's start covariance C and displacement second moment M
+    (``samplers/kernels.mix_moments_device``), in float64:
+    r_eig = min_i (v_i^T M v_i) / (2 lambda_i) over eigenpairs of C, and
+    cond = lambda_max / lambda_min. Returns ``(r_eig, cond)``."""
+    c = np.asarray(cov, dtype=np.float64)
+    m = np.asarray(msd, dtype=np.float64)
+    dim = c.shape[0]
+    eps = 1e-6 * (np.trace(c) / dim + 1e-12)
+    c = c + eps * np.eye(dim)
+    w, v = np.linalg.eigh(c)
+    ratio = np.einsum('ij,jk,ki->i', v.T, m, v) / (2.0 * w + 1e-12)
+    cond = float(w[-1] / max(w[0], 1e-30))
+    return float(np.min(ratio)), cond

@@ -1,0 +1,136 @@
+"""nnest_torch's run diagnostics against nnest_tpu's on the same numbers:
+the numpy copies in ``nnest_torch/utils/evaluation.py`` to 1e-12
+relative, and the per-generation mixing fields the sampler records from
+one MCMC generation's second moments."""
+
+import numpy as np
+import pytest
+
+from nnest_tpu.utils import evaluation as je
+from nnest_torch.likelihoods import Gaussian
+from nnest_torch.samplers.nested import NestedSampler
+from nnest_torch.utils import evaluation as te
+
+RTOL = 1e-12
+
+
+def _ranks(kind, n_live, rs):
+    if kind == 'empty':
+        return np.empty(0, np.int64)
+    if kind == 'one':
+        return np.array([3])
+    if kind == 'constant':      # every replacement at the same rank
+        return np.full(250, 7)
+    if kind == 'skewed':        # under-mixed: ranks pile up low
+        return (n_live * rs.uniform(size=900) ** 3).astype(np.int64)
+    return rs.randint(0, n_live, size=1234)
+
+
+@pytest.mark.parametrize('kind', ['empty', 'one', 'constant', 'skewed',
+                                  'uniform'])
+def test_insertion_tests_match_jax(kind):
+    n_live = 50
+    r = _ranks(kind, n_live, np.random.RandomState(1))
+    for block in (None, 100, 1):
+        got = te.rolling_insertion_ks(r, n_live, block)
+        want = je.rolling_insertion_ks(r, n_live, block)
+        assert got[1] == want[1]
+        np.testing.assert_allclose(got[0], want[0], rtol=RTOL)
+    np.testing.assert_allclose(te.insertion_ks(r, n_live),
+                               je.insertion_ks(r, n_live), rtol=RTOL)
+    for d, n in ((0.0, 10), (0.05, 0), (0.03, 400), (0.5, 3), (2.0, 1000)):
+        np.testing.assert_allclose(te.kolmogorov_pvalue(d, n),
+                                   je.kolmogorov_pvalue(d, n), rtol=RTOL)
+
+
+@pytest.mark.parametrize('n_live', [1, 4, 30])
+def test_bootstrap_logz_error_matches_jax(n_live):
+    rs = np.random.RandomState(n_live)
+    n_dead = 6 * n_live
+    logl = np.sort(rs.normal(size=n_dead + n_live)) * 3.0
+    slots = np.concatenate([rs.randint(0, n_live, size=n_dead),
+                            np.arange(n_live)])
+    for seed, n_boot in ((0, 200), (5, 17)):
+        np.testing.assert_allclose(
+            te.bootstrap_logz_error(logl, slots, n_live, n_boot, seed),
+            je.bootstrap_logz_error(logl, slots, n_live, n_boot, seed),
+            rtol=RTOL)
+
+
+def test_nulls_and_adjusted_logzerr_match_jax():
+    for steps, dim in ((0, 2), (10, 2), (80, 16), (250, 50), (5, 100)):
+        for cov in (False, True):
+            np.testing.assert_allclose(
+                te.metropolis_mix_null(steps, dim, adapt_cov=cov),
+                je.metropolis_mix_null(steps, dim, adapt_cov=cov), rtol=RTOL)
+    for dim, chains in ((2, 10), (16, 256), (50, 10), (100, 101)):
+        np.testing.assert_allclose(te.latent_cond_null(dim, chains),
+                                   je.latent_cond_null(dim, chains),
+                                   rtol=RTOL)
+    rs = np.random.RandomState(3)
+    rels = list(rs.uniform(0.2, 1.5, size=7))
+    conds = list(rs.uniform(0.5, 9.0, size=5))
+    for mix, dim, cond in ((rels, 16, conds), (rels, 16, None),
+                           (rels, 7, conds), ([], 16, conds),
+                           ([0.001], 30, None), ([2.0], 8, [0.5])):
+        np.testing.assert_allclose(
+            te.adjusted_logzerr(0.13, mix, dim, cond_rels=cond),
+            je.adjusted_logzerr(0.13, mix, dim, cond_rels=cond), rtol=RTOL)
+
+
+@pytest.mark.parametrize('case', ['random', 'degenerate', 'identity'])
+def test_eig_mix_from_moments_matches_jax(case):
+    rs = np.random.RandomState(4)
+    d = 6
+    if case == 'identity':
+        cov, msd = np.eye(d), 2.0 * np.eye(d)
+    else:
+        a = rs.normal(size=(40, d))
+        if case == 'degenerate':   # rank-deficient start covariance
+            a[:, -2:] = a[:, :2]
+        cov = a.T @ a / 40
+        b = rs.normal(size=(40, d))
+        msd = b.T @ b / 40
+    got = te.eig_mix_from_moments(cov.astype(np.float32),
+                                  msd.astype(np.float32))
+    want = je.eig_mix_from_moments(cov.astype(np.float32),
+                                   msd.astype(np.float32))
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+
+
+def test_sampler_records_eigenbasis_mixing_of_a_generation():
+    """One MCMC generation through ``_mcmc_sample_live``: the fields it
+    appends equal nnest_tpu's eigenbasis function on the kernel's own
+    mix_cov/mix_msd, divided by nnest_tpu's nulls."""
+    d, chains, steps = 3, 12, 6
+    sampler = NestedSampler(d, Gaussian(d, 0.0), num_live_points=40,
+                            log_dir=None, seed=2, device='cpu')
+    kernels = sampler.kernels
+    outs = []
+    real = kernels.mcmc_from_live
+
+    def capture(*args, **kwargs):
+        outs.append(real(*args, **kwargs))
+        return outs[-1]
+
+    kernels.mcmc_from_live = capture
+    u = np.random.RandomState(5).uniform(-0.5, 0.5, size=(40, d))
+    logl = sampler.loglike(u)
+    for adapt in (True, False):
+        sampler._mcmc_sample_live(steps, u, logl, chains, float(logl.min()),
+                                  0.5, adapt_cov=adapt)
+        out = outs[-1]
+        r_eig, cond = je.eig_mix_from_moments(out['mix_cov'].numpy(),
+                                              out['mix_msd'].numpy())
+        mix_null = je.metropolis_mix_null(steps, d, adapt_cov=adapt)
+        cond_null = je.latent_cond_null(d, chains)
+        assert sampler._mix_ratios_eig[-1] == pytest.approx(r_eig, rel=RTOL)
+        assert sampler._latent_conds[-1] == pytest.approx(cond, rel=RTOL)
+        assert sampler._mix_rels[-1] == pytest.approx(r_eig / mix_null,
+                                                      rel=RTOL)
+        assert sampler._cond_rels[-1] == pytest.approx(cond / cond_null,
+                                                       rel=RTOL)
+        assert sampler._cond_infl[-1] == sampler._cond_rels[-1]
+        assert sampler._last_kernel_stats['mix_ratio_eig'] == \
+            sampler._mix_ratios_eig[-1]
+    assert len(sampler._mix_rels) == len(sampler._cond_infl) == 2

@@ -19,11 +19,23 @@ import torch
 import nnest_torch
 from nnest_torch import NestedSampler, Trainer, build_flow
 import nnest_torch.likelihoods, nnest_torch.priors
+import nnest_torch.utils.evaluation, nnest_torch.samplers.nested
+from nnest_torch.likelihoods import (DoubleGaussianShell, Eggbox,
+                                     GaussianMix, GaussianShell, Himmelblau)
 from nnest_torch.ops.fused_spline import pack_inverse_consts
 from nnest_torch.ops.spline_inverse import spline_inverse
+from nnest_torch.samplers.kernels import LatentKernels
 model = build_flow(3, device='cpu')
 x, logdet = spline_inverse(torch.randn(5, 3), pack_inverse_consts(model))
 assert x.shape == (5, 3) and bool(torch.isfinite(logdet).all())
+kernels = LatentKernels(model, GaussianMix(3),
+                        lambda u: torch.zeros(u.shape[0]))
+g = torch.Generator().manual_seed(0)
+out = kernels.rejection_flow_live(g, -50.0, torch.rand(8, 3), 0.0, 0.0,
+                                  False, 1.1, 1.1, 16)
+out = kernels.density(g, -50.0, 16)
+trainer = Trainer(3, device='cpu', log=False)
+trainer.restore_state(trainer.snapshot_state())
 loaded = [m for m in sys.modules
           if m.split('.')[0] in ('jax', 'jaxlib', 'nnest_tpu')
           and sys.modules[m] is not None]

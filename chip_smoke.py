@@ -666,6 +666,13 @@ def phase_flow_rejection(records, log_dir):
     if stats['rejection_flow_generations'] < 3 or stats['trainings'] < 1:
         raise AssertionError('flow rejection did not reach 3 generations '
                              'and a training: %s' % stats)
+    # every launch of the run is a flow-rejection one: one a generation
+    if stats['mcmc_generations'] != 0:
+        raise AssertionError('the ladder reached mcmc; its launches would '
+                             'count as rejection_flow ones: %s' % stats)
+    if launches != stats['rejection_flow_generations']:
+        raise AssertionError('%d launches for %d rejection_flow generations'
+                             % (launches, stats['rejection_flow_generations']))
     if not math.isfinite(sampler.logz):
         raise AssertionError('non-finite logz %r' % sampler.logz)
     by_path = {'rejection_flow': launches}

@@ -259,21 +259,14 @@ class Sampler:
                 _to_numpy(logl).astype(np.float64)[ok], nc)
 
     def _rejection_flow_sample(self, init_samples, loglstar,
-                               enlargement_factor=1.1,
-                               constant_efficiency_factor=None, cache=False,
+                               enlargement_factor=1.1, cache=False,
                                num_trials=512):
         """Batched flow rejection: the envelope from the live set
         ``init_samples`` (max-folded into the cached one when ``cache`` and
         a cached one exists, else replacing it), then one generation of
-        ``num_trials`` trials in the latent ball. With
-        ``constant_efficiency_factor`` the draw's enlargement is
-        (1/factor)^(1/d) instead of ``enlargement_factor``. Returns
-        (samples, loglikes, effective_ncall) of the passing trials."""
+        ``num_trials`` trials in the latent ball. Returns (samples,
+        loglikes, effective_ncall) of the passing trials."""
         self.trainer.ensure_init()
-        draw_enlargement = enlargement_factor
-        if constant_efficiency_factor is not None:
-            draw_enlargement = (
-                1.0 / constant_efficiency_factor) ** (1.0 / self.x_dim)
         fold = bool(cache and self._max_log_det_j is not None)
         x, logl, ok, n_evals, mld, mr = self.kernels.rejection_flow_live(
             self.generator, loglstar,
@@ -281,7 +274,7 @@ class Sampler:
                             device=self.device),
             self._max_log_det_j if fold else 0.0,
             self._max_r if fold else 0.0, fold, enlargement_factor,
-            draw_enlargement, int(num_trials))
+            int(num_trials))
         self._max_log_det_j = float(mld)
         self._max_r = float(mr)
         return self._candidates(x, logl, ok, n_evals)

@@ -384,24 +384,13 @@ class LatentKernels:
         ok = evaluated & torch.isfinite(logl) & (logl > _f32(loglstar, x))
         return x, logl, ok, torch.sum(evaluated.to(torch.int64))
 
-    def rejection_flow(self, generator, loglstar, max_log_det_j, max_r,
-                       enlargement_factor, num_trials):
-        """Batched latent rejection inside the Jacobian envelope (one
-        generation of ``num_trials`` trials); returns (x, logl, ok,
-        n_evals)."""
-        draws = self.rejection_flow_draws(generator, num_trials,
-                                          self.model.dim)
-        return self.rejection_flow_body(
-            *draws, loglstar, _f32(max_log_det_j, draws[0]),
-            _f32(max_r, draws[0]), enlargement_factor)
-
     def rejection_flow_live(self, generator, loglstar, live_u, prev_mld,
-                            prev_mr, fold, enlargement_factor,
-                            draw_enlargement, num_trials):
+                            prev_mr, fold, enlargement_factor, num_trials):
         """The envelope from the live set, max-folded into the carried
         maxima when ``fold`` (else it replaces them), then one
-        flow-rejection generation drawn with ``draw_enlargement``. Returns
-        (x, logl, ok, n_evals, max_log_det_j, max_r)."""
+        flow-rejection generation in the ball enlarged by
+        ``enlargement_factor``. Returns (x, logl, ok, n_evals,
+        max_log_det_j, max_r)."""
         mld, mr = self.envelope(live_u, enlargement_factor)
         if fold:
             mld = torch.maximum(_f32(prev_mld, mld), mld)
@@ -409,7 +398,7 @@ class LatentKernels:
         draws = self.rejection_flow_draws(generator, num_trials,
                                           self.model.dim)
         return self.rejection_flow_body(*draws, loglstar, mld, mr,
-                                        draw_enlargement) + (mld, mr)
+                                        enlargement_factor) + (mld, mr)
 
     # ---------------------------------------------------------- density
 

@@ -16,7 +16,8 @@ calibrated ``logzerr_adjusted``, with ``run_quality_flags``.
 
 Artifacts under ``<log_dir>/runN/``: ``info/params.txt``,
 ``results/{results.csv,final.csv,diagnostics.json,insertion_ranks.npy,
-threads.npz}``, ``chains/chain.txt`` and ``checkpoint/``. Checkpoints
+threads.npz}``, ``chains/chain.txt`` (at the end of the run) and
+``checkpoint/``. Checkpoints
 follow a geometric cadence, written in this order: ``active_{u,v,logl}
 _<it>.npy`` and ``saved_{v,logl,logwt,slots}.npy``, then one exact-state
 file (``exact_state.pt``: the sampler's generator, the trainer snapshot,
@@ -146,7 +147,6 @@ class NestedSampler(Sampler):
             jitter=-1.0,
             rejection_cache_interval=10,
             rejection_enlargement_factor=1.1,
-            rejection_trials=None,
             rejection_batch_size=512,
             rejection_max_trials=65536,
             rejection_adapt_trials=True,
@@ -193,8 +193,6 @@ class NestedSampler(Sampler):
                     % (mcmc_steps, 10 * self.x_dim))
         if step_size <= 0.0:
             step_size = 1.0 / self.x_dim ** 0.5
-        if rejection_trials is not None:
-            rejection_batch_size = int(rejection_trials)
         rejection_max_trials = max(int(rejection_max_trials),
                                    rejection_batch_size)
         self.logger.info('MCMC steps [%d]' % mcmc_steps)
@@ -290,22 +288,29 @@ class NestedSampler(Sampler):
             return {'need_pool': bool(need_pool), 'pool': pool,
                     'pool_pos': int(pool_pos)}
 
+        # counts, and host wall seconds of the phases (each ends in a device
+        # to host copy, so the clock covers the device work)
+        self.run_stats = {'trainings': 0, 'retrains_skipped': 0,
+                          'train_s': 0.0, 'checkpoints': 0,
+                          'checkpoint_s': 0.0}
+        for stem in _STAT_KEY.values():
+            self.run_stats[stem + '_generations'] = 0
+            self.run_stats[stem + '_s'] = 0.0
+
         def checkpoint():
+            if self.logs is None:
+                return
+            t0 = time.perf_counter()
             self._write_checkpoint(
                 it, active_u, active_v, active_logl, saved_v, saved_logl,
                 saved_logwt, saved_slots, logz, h, logvol, fraction_remain,
                 strategy, expired, controller_snapshot(), pool_snapshot(),
                 insertion_ranks)
+            self.run_stats['checkpoint_s'] += time.perf_counter() - t0
+            self.run_stats['checkpoints'] += 1
 
         if state is None:
             checkpoint()
-        # counts, and host wall seconds of the phases (each ends in a device
-        # to host copy, so the clock covers the device work)
-        self.run_stats = {'trainings': 0, 'retrains_skipped': 0,
-                          'train_s': 0.0}
-        for stem in _STAT_KEY.values():
-            self.run_stats[stem + '_generations'] = 0
-            self.run_stats[stem + '_s'] = 0.0
 
         while fraction_remain > dlogz and it <= max_iters:
             worst = int(np.argmin(active_logl))
@@ -480,9 +485,6 @@ class NestedSampler(Sampler):
                                               last_io_it // 10):
                         last_io_it = it
                         checkpoint()
-                        self._save_samples(
-                            np.asarray(saved_v), np.asarray(saved_logl),
-                            weights=np.exp(np.asarray(saved_logwt) - logz))
 
         # Integrate the remaining live points.
         logvol = (-len(saved_v) / self.num_live_points
@@ -697,8 +699,6 @@ class NestedSampler(Sampler):
         stamped with ``it``), then the ``checkpoint_<it>.txt`` marker. The
         cumulative ``saved_*`` files may run ahead of an older marker; the
         loader cuts them to its iteration."""
-        if self.logs is None:
-            return
         ck = self.logs['checkpoint']
         for name, a in (('active_u', active_u), ('active_v', active_v),
                         ('active_logl', active_logl)):

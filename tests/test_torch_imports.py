@@ -32,7 +32,7 @@ kernels = LatentKernels(model, GaussianMix(3),
                         lambda u: torch.zeros(u.shape[0]))
 g = torch.Generator().manual_seed(0)
 out = kernels.rejection_flow_live(g, -50.0, torch.rand(8, 3), 0.0, 0.0,
-                                  False, 1.1, 1.1, 16)
+                                  False, 1.1, 16)
 out = kernels.density(g, -50.0, 16)
 trainer = Trainer(3, device='cpu', log=False)
 trainer.restore_state(trainer.snapshot_state())

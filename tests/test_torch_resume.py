@@ -51,6 +51,9 @@ def test_kill_and_resume_is_bit_exact(tmp_path, strategy, extra):
     assert killed.niter < whole.niter
     ck = os.path.join(killed.log_dir, 'checkpoint')
     assert os.path.exists(os.path.join(ck, 'checkpoint_120.txt'))
+    markers = [f for f in os.listdir(ck) if f.startswith('checkpoint_')]
+    assert killed.run_stats['checkpoints'] == len(markers) > 1
+    assert killed.run_stats['checkpoint_s'] > 0.0
     for name in ('active_u_120.npy', 'active_v_120.npy',
                  'active_logl_120.npy', 'saved_v.npy', 'saved_logl.npy',
                  'saved_logwt.npy', 'saved_slots.npy', EXACT_STATE):

@@ -14,6 +14,10 @@ from nnest_torch.flows import build_flow
 from nnest_torch.ops import spline_inverse as si
 from nnest_torch.ops.fused_spline import _inverse_body, pack_inverse_consts
 
+# One intra-op thread a process: the suite runs in parallel workers that
+# share the cores.
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 

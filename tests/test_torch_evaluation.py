@@ -5,11 +5,16 @@ one MCMC generation's second moments."""
 
 import numpy as np
 import pytest
+import torch
 
 from nnest_tpu.utils import evaluation as je
 from nnest_torch.likelihoods import Gaussian
 from nnest_torch.samplers.nested import NestedSampler
 from nnest_torch.utils import evaluation as te
+
+# One intra-op thread a process: the suite runs in parallel workers that
+# share the cores.
+torch.set_num_threads(1)
 
 RTOL = 1e-12
 

@@ -18,6 +18,10 @@ import torch
 
 from tests.test_torch_kernels import BOX, kernel_pair  # noqa: F401
 
+# One intra-op thread a process: the suite runs in parallel workers that
+# share the cores.
+torch.set_num_threads(1)
+
 TOL_X = 2e-5
 TOL_LDJ = 1e-4
 

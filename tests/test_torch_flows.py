@@ -18,6 +18,10 @@ from nnest_tpu.flows import build_flow as jax_build_flow
 from nnest_torch.bijectors.rqs import knots, rqs
 from nnest_torch.flows import build_flow, params_from_jax, params_to_jax
 
+# One intra-op thread a process: the suite runs in parallel workers that
+# share the cores.
+torch.set_num_threads(1)
+
 TOL_X = 1e-5
 TOL_LOGDET = 1e-4
 # An input exactly on a knot: the two frameworks round the knot apart by an

@@ -23,6 +23,10 @@ from nnest_torch.ops.fused_spline import (
     _inverse_body, is_fusable_spline, pack_inverse_consts)
 from tests.test_torch_flows import flow_pair
 
+# One intra-op thread a process: the suite runs in parallel workers that
+# share the cores.
+torch.set_num_threads(1)
+
 
 def _z(n, d, seed=1):
     return (2.0 * np.random.RandomState(seed).normal(size=(n, d))).astype(

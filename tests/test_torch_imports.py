@@ -9,6 +9,10 @@ import sys
 import pytest
 import torch
 
+# One intra-op thread a process: the suite runs in parallel workers that
+# share the cores.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_RUN = """
@@ -46,7 +50,8 @@ print('ok')
 
 def test_imports_and_runs_with_jax_blocked():
     proc = subprocess.run([sys.executable, '-c', _BLOCKED_RUN], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, OMP_NUM_THREADS='1'))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith('ok')
 

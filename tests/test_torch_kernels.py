@@ -19,6 +19,10 @@ from nnest_torch.priors import UniformPrior
 from nnest_torch.samplers import kernels as tk
 from tests.test_torch_flows import flow_pair
 
+# One intra-op thread a process: the suite runs in parallel workers that
+# share the cores.
+torch.set_num_threads(1)
+
 BOX = 2.0
 
 

@@ -9,6 +9,10 @@ from nnest_tpu import likelihoods as jl
 from nnest_torch import likelihoods as tl
 from nnest_torch.priors import UniformPrior
 
+# One intra-op thread a process: the suite runs in parallel workers that
+# share the cores.
+torch.set_num_threads(1)
+
 ZOO = [
     ('Himmelblau', (2,), {}),
     ('Eggbox', (2,), {}),

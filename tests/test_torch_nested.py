@@ -21,6 +21,10 @@ from nnest_torch.flows import params_from_jax, params_to_jax
 from nnest_torch.priors import UniformPrior
 from tests.test_torch_flows import flow_pair
 
+# One intra-op thread a process: the suite runs in parallel workers that
+# share the cores.
+torch.set_num_threads(1)
+
 
 def test_likelihoods_and_prior_match_jax():
     x = np.random.RandomState(0).uniform(-3, 3, size=(64, 3))

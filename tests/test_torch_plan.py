@@ -12,8 +12,13 @@ at most 232,448 bytes of shared memory a block, and a grid that covers N.
 import re
 
 import pytest
+import torch
 
 from nnest_torch.ops import spline_inverse as si
+
+# One intra-op thread a process: the suite runs in parallel workers that
+# share the cores.
+torch.set_num_threads(1)
 
 K = 8
 

@@ -18,6 +18,10 @@ from nnest_torch import NestedSampler
 from nnest_torch.likelihoods import Gaussian
 from nnest_torch.samplers.nested import EXACT_STATE
 
+# One intra-op thread a process: the suite runs in parallel workers that
+# share the cores.
+torch.set_num_threads(1)
+
 LIKE = Gaussian(2, 0.0, lim=3)
 ANALYTIC = LIKE.analytic_logz([-3.0, -3.0], [3.0, 3.0])
 RUN = dict(train_iters=30, mcmc_num_chains=10, mcmc_steps=10,

@@ -10,10 +10,15 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from nnest_tpu.utils import evaluation as je
 from nnest_torch import NestedSampler
 from nnest_torch.likelihoods import Gaussian
+
+# One intra-op thread a process: the suite runs in parallel workers that
+# share the cores.
+torch.set_num_threads(1)
 
 # the keys of nnest_tpu's results/diagnostics.json
 DIAGNOSTICS_KEYS = {

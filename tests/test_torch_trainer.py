@@ -8,6 +8,10 @@ import torch
 
 from nnest_torch import Trainer
 
+# One intra-op thread a process: the suite runs in parallel workers that
+# share the cores.
+torch.set_num_threads(1)
+
 
 def _trainer(seed):
     return Trainer(2, batch_size=20, learning_rate=1e-2, log=False,

@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs seven phases, printing one JSON line per
+from JAX or ``nnest_tpu`` and runs nine phases, printing one JSON line per
 phase with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the build
@@ -10,13 +10,14 @@ phase with its seconds:
    registers and spills of every instantiation;
 2. kernel: the CUDA spline-flow inverse against its plain PyTorch twin on
    the card, at d in {2, 5, 16, 50, 100} (hidden 16/16/32/64/64) and N in
-   {1, 128, 256, 1000, 4096, 4097}, and at d in {16, 50} with N in
+   {1, 128, 256, 512, 1000, 4096, 4097}, and at d in {16, 50} with N in
    {65536, 65537} (the flow strategies' trials), with inputs beyond ±3,
    exactly at ±3 and on spline knots; max |dx| <= 3e-5 and max |dlogdet|
    <= 3e-4. The per-block entry against the twin (the same limits) and
    against the whole-chain kernel (1e-6, 1e-5) at d in {5, 16}. Then the
    kernel is timed by CUDA-graph replay (and eagerly, back to back) and
-   the twin eagerly, at the main path's shapes (N = 65536 included)
+   the twin eagerly, at the main path's shapes (N = 512, a slice
+   expansion's 2 x 256 stacked rows, and N = 65536 included)
    beside the least time the card could take; the per-block entry at
    d = 16; and the rows a thread block takes and the ring's stages are
    swept (N = 65536: 32, 64 and 128 rows);
@@ -41,7 +42,21 @@ phase with its seconds:
 7. resume: the 2-D Gaussian with ``['rejection_flow', 'mcmc']``,
    uninterrupted against killed at ``max_iters=120`` and resumed by a
    sampler built with another seed; both within max(3 logzerr, 0.15) of
-   the analytic logz, and whether (logz, h, ncall, niter) are equal.
+   the analytic logz, and whether (logz, h, ncall, niter) are equal;
+8. slice: the phase-3 model (1000 live points, 256 chains) with
+   ``['rejection_prior', 'slice']``, switched to slice at iteration 4000
+   by ``volume_switch`` and cut by ``max_iters=5000`` after at least three
+   slice generations and a training; the kernel's launches on the path
+   (> 0, all of them in the slice generations), the twin's calls (0), no
+   MCMC generation; the launches and wall of each generation and a profile
+   of one; then the 2-D Gaussian with ``['rejection_prior', 'slice']`` to
+   its analytic logz within max(3 logzerr, 0.15);
+9. other flows: one run each of ``flow='nvp'`` (2-D), ``flow='cholesky'``
+   (2-D) and ``flow='spline', num_slow=2`` (4-D) on the Gaussian
+   (transform 3x, 200 live points, MCMC after a volume switch) to its
+   analytic logz within the same bound; their inverse is ``model.inverse``
+   in plain PyTorch, so the kernel's launches and the twin's calls must
+   both be 0.
 
 ``--baseline SRC`` also builds SRC, an earlier version of the kernel with
 its own C entry point (the unpadded layout, no launch plan), checks it
@@ -50,7 +65,8 @@ and the sweep's, in turns (earlier, this, this, earlier).
 
 Before the last line it prints the ``{"kernels": [...]}`` record, with each
 kernel's launches by path (``mcmc``: phase 3, ``rejection_flow`` and
-``density_flow``: phase 6, ``per_block``: phase 5); the last line is
+``density_flow``: phase 6, ``per_block``: phase 5, ``slice``: phase 8);
+the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before that line.
 """
@@ -343,7 +359,7 @@ SWEEP_SHAPES = ((16, 256), (16, 4096), (50, 256), (50, 4096),
 SWEEP_ROWS = {256: (1, 2, 4, 8), 4096: (8, 16, 32, 64),
               FLOW_TRIALS: (32, 64, 128)}
 TIMED_SHAPES = ((16, 256), (16, 4096), (2, 128), (50, 256), (50, 4096),
-                (16, FLOW_TRIALS), (50, FLOW_TRIALS))
+                (16, FLOW_TRIALS), (50, FLOW_TRIALS), (16, 512))
 
 
 def phase_kernel(records, earlier):
@@ -368,7 +384,7 @@ def phase_kernel(records, earlier):
         model = random_flow(d, seed=100 + d, device=device)
         packed = models[d] = pack_inverse_consts(model)
         wide = (FLOW_TRIALS, FLOW_TRIALS + 1) if d in (16, 50) else ()
-        for n in (1, 128, 256, 1000, 4096, 4097) + wide:
+        for n in (1, 128, 256, 512, 1000, 4096, 4097) + wide:
             z = kernel_inputs(model, n, seed=7 * n + d, device=device)
             got = si.spline_inverse(z, packed)
             ref = _inverse_body(z, packed)
@@ -775,6 +791,128 @@ def phase_resume(log_dir):
     return out
 
 
+def phase_slice(record, log_dir):
+    """Slice on the 16-D main-path model, its counts reset just before
+    the run and read just after; the launches and wall of each slice
+    generation, a profile of one; then the 2-D slice evidence check."""
+    from nnest_torch import NestedSampler
+    from nnest_torch.likelihoods import Gaussian
+    from nnest_torch.ops import spline_inverse as si
+    d = 16
+    sampler = NestedSampler(d, Gaussian(d, 0.0), transform=lambda x: 5.0 * x,
+                            log_dir=os.path.join(log_dir, 'slice'), seed=4,
+                            device='cuda')
+    gens = []
+    real = sampler._slice_sample_live
+
+    def timed(*args, **kwargs):
+        n0 = si.launches
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)   # ends in a device-to-host copy
+        gens.append({'ms': (time.perf_counter() - t0) * 1e3,
+                     'launches': si.launches - n0})
+        return out
+
+    sampler._slice_sample_live = timed
+    reset_counts()
+    t0 = time.time()
+    # prior rejection until the expected volume falls below e^-4 (it =
+    # 4000), then slice; the training comes with the switch
+    sampler.run(strategy=['rejection_prior', 'slice'], max_iters=5000,
+                train_iters=30, volume_switch=math.exp(-4.0))
+    wall = time.time() - t0
+    launches = read_counts('slice')
+    del sampler._slice_sample_live
+    stats = sampler.run_stats
+    if stats['slice_generations'] < 3 or stats['trainings'] < 1:
+        raise AssertionError('the slice path did not reach 3 generations '
+                             'and a training: %s' % stats)
+    if stats['mcmc_generations'] != 0:
+        raise AssertionError('an MCMC generation ran: %s' % stats)
+    if launches != sum(g['launches'] for g in gens):
+        raise AssertionError('%d launches, %d of them in slice generations'
+                             % (launches, sum(g['launches'] for g in gens)))
+    if not math.isfinite(sampler.logz):
+        raise AssertionError('non-finite logz %r' % sampler.logz)
+    record['launches_by_path']['slice'] = launches
+
+    u, logl = synthetic_shell(sampler)
+
+    def generation():
+        sampler._slice_sample_live(2 * d, u, logl, 256, float(np.min(logl)),
+                                   1.0, adapt_cov=True)
+        torch.cuda.synchronize()
+
+    profile = profile_generation(generation)
+    evidence = evidence_run('slice2', log_dir, 2, {},
+                            ['rejection_prior', 'slice'])
+    if evidence['slice_generations'] < 1:
+        raise AssertionError('the 2-D run never reached slice: %s'
+                             % evidence)
+    return {'wall_s': wall, 'launches': launches,
+            'iterations': sampler.niter, 'ncall': sampler.total_calls,
+            'logz_so_far': sampler.logz, **stats, 'generations': gens,
+            'launches_per_generation': float(np.median(
+                [g['launches'] for g in gens])),
+            'median_generation_ms': float(np.median([g['ms'] for g in gens])),
+            'generation_profile': profile, 'evidence_2d': evidence}
+
+
+def evidence_run(name, log_dir, d, flow_kw, strategy):
+    """The d-D Gaussian (transform 3x, 200 live points) with ``strategy``
+    (the within-shell kernel after a volume switch at 0.5) to completion;
+    its logz must lie within max(3 logzerr, 0.15) of the analytic value."""
+    from nnest_torch import NestedSampler
+    from nnest_torch.likelihoods import Gaussian
+    like = Gaussian(d, 0.0, lim=3)
+    sampler = NestedSampler(d, like, transform=lambda x: 3.0 * x,
+                            num_live_points=200,
+                            log_dir=os.path.join(log_dir, name), seed=42,
+                            device='cuda', **flow_kw)
+    t0 = time.time()
+    sampler.run(strategy=strategy, train_iters=50, volume_switch=0.5,
+                dlogz=0.1)
+    analytic = like.analytic_logz([-3.0] * d, [3.0] * d)
+    allowed = max(3.0 * sampler.logzerr, 0.15)
+    out = {'d': d, **flow_kw, 'wall_s': time.time() - t0,
+           'logz': sampler.logz, 'logzerr': sampler.logzerr,
+           'analytic_logz': analytic, 'allowed': allowed,
+           'niter': sampler.niter, 'ncall': sampler.total_calls,
+           **sampler.run_stats}
+    if not abs(sampler.logz - analytic) <= allowed:
+        raise AssertionError('%s: logz off the analytic value: %s'
+                             % (name, out))
+    return out
+
+
+def phase_other_flows(log_dir):
+    """NVP, Cholesky and fast-slow spline runs to their analytic evidence,
+    each with the counts reset just before and read just after: their
+    inverse is plain PyTorch, so neither the kernel nor its twin runs."""
+    from nnest_torch.ops import fused_spline
+    from nnest_torch.ops import spline_inverse as si
+    runs = []
+    for flow, d, kw in (('nvp', 2, {}), ('cholesky', 2, {}),
+                        ('spline', 4, {'num_slow': 2})):
+        reset_counts()
+        out = evidence_run(flow, log_dir, d, dict(flow=flow, **kw),
+                           ['rejection_prior', 'mcmc'])
+        torch.cuda.synchronize()
+        out.update({'launches': si.launches,
+                    'twin_calls': fused_spline.calls})
+        if si.launches != 0 or fused_spline.calls != 0:
+            raise AssertionError('flow %r ran the spline kernel or its twin: '
+                                 '%s' % (flow, out))
+        if out['mcmc_generations'] < 1 or out['trainings'] < 1:
+            raise AssertionError('flow %r never trained or reached mcmc: %s'
+                                 % (flow, out))
+        if (out['total_fast_calls'] > 0) != bool(kw):
+            raise AssertionError('flow %r: fast calls %d'
+                                 % (flow, out['total_fast_calls']))
+        runs.append(out)
+    return {'runs': runs}
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -788,7 +926,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import nnest_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    paths = ('mcmc', 'rejection_flow', 'density_flow', 'per_block')
+    paths = ('mcmc', 'rejection_flow', 'density_flow', 'per_block', 'slice')
     records = [
         {'name': 'spline_inverse', 'route': 'cuda',
          'source': 'nnest_torch/csrc/spline_inverse.cu',
@@ -814,13 +952,15 @@ def main():
                  lambda: phase_per_block_entry(records[1])),
                 (6, 'flow_rejection',
                  lambda: phase_flow_rejection(records, log_dir)),
-                (7, 'resume', lambda: phase_resume(log_dir))):
+                (7, 'resume', lambda: phase_resume(log_dir)),
+                (8, 'slice', lambda: phase_slice(records[0], log_dir)),
+                (9, 'other_flows', lambda: phase_other_flows(log_dir))):
             t0 = time.time()
             out = fn()
             emit({'phase': num, 'name': name,
                   'seconds': time.time() - t0, **out})
     for rec in records:
-        # launches on the paths that drive the kernel (phases 3, 5 and 6)
+        # launches on the paths that drive the kernel (phases 3, 5, 6, 8)
         rec['launches'] = sum(rec['launches_by_path'].values())
     emit({'kernels': records})
     emit({'ok': True, 'device': {'platform': 'gpu',

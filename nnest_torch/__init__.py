@@ -3,9 +3,10 @@
 A port of ``nnest_tpu`` (the JAX reference, kept beside this package) to
 PyTorch on an NVIDIA H100. Flows are ``nn.Module``s, random numbers come
 from explicit ``torch.Generator``s, and the spline-flow inverse that every
-MCMC proposal runs is a hand-written CUDA kernel
-(``ops/spline_inverse.py`` + ``csrc/spline_inverse.cu``) with a plain
-PyTorch twin that serves CPU tensors.
+Metropolis, slice and flow-rejection proposal of a single-speed spline flow
+runs is a hand-written CUDA kernel (``ops/spline_inverse.py`` +
+``csrc/spline_inverse.cu``) with a plain PyTorch twin that serves CPU
+tensors. The NVP, Cholesky and fast-slow flows invert in plain PyTorch.
 
 Entry points run on ``device='cuda'`` unless the caller asks for the CPU;
 with no GPU they raise instead of falling back. This package never imports

@@ -1,10 +1,11 @@
 """Small MLP conditioners used inside coupling layers.
 
-Port of ``nnest_tpu/bijectors/mlp.py`` for the spline conditioner: linear
-layers with LeakyReLU(0.2) after every layer but the last. Weights keep the
-JAX layout ``(n_in, n_out)`` and the layer computes ``x @ w + b``, so a JAX
-parameter tree loads leaf by leaf (``flows/convert.py``) and the CUDA kernel
-reads the same layout. Init follows ``nn.Linear``'s default (uniform
+Port of ``nnest_tpu/bijectors/mlp.py``: linear layers with an activation
+after every layer but the last, LeakyReLU(0.2) for the spline conditioner
+and tanh (scale) or ReLU (translation) for the NVP coupling. Weights keep
+the JAX layout ``(n_in, n_out)`` and the layer computes ``x @ w + b``, so a
+JAX parameter tree loads leaf by leaf (``flows/convert.py``) and the CUDA
+kernel reads the same layout. Init follows ``nn.Linear``'s default (uniform
 ±1/sqrt(fan_in) for weight and bias), as the JAX package does.
 """
 
@@ -20,12 +21,23 @@ def leaky_relu(x):
     return torch.where(x >= 0, x, 0.2 * x)
 
 
-class MLP(nn.Module):
-    """``sizes = [n_in, h1, ..., n_out]``; one (w, b) pair per layer."""
+_ACTS = {
+    'relu': torch.relu,
+    'tanh': torch.tanh,
+    'sigmoid': torch.sigmoid,
+    'leaky_relu': leaky_relu,
+}
 
-    def __init__(self, sizes, generator=None):
+
+class MLP(nn.Module):
+    """``sizes = [n_in, h1, ..., n_out]``; one (w, b) pair per layer and
+    the activation ``act`` after every layer but the last."""
+
+    def __init__(self, sizes, generator=None, act='leaky_relu'):
         super().__init__()
         self.sizes = tuple(int(s) for s in sizes)
+        self.act = act
+        self._act = _ACTS[act]
         self.w = nn.ParameterList()
         self.b = nn.ParameterList()
         for n_in, n_out in zip(self.sizes[:-1], self.sizes[1:]):
@@ -42,5 +54,5 @@ class MLP(nn.Module):
         for i in range(n):
             x = x @ self.w[i] + self.b[i]
             if i < n - 1:
-                x = leaky_relu(x)
+                x = self._act(x)
         return x

@@ -1,3 +1,4 @@
-from nnest_torch.distributions.base import DiagNormal
+from nnest_torch.distributions.base import (DiagNormal, GeneralisedNormal,
+                                            LogitUniform)
 
-__all__ = ['DiagNormal']
+__all__ = ['DiagNormal', 'GeneralisedNormal', 'LogitUniform']

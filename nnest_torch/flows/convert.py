@@ -1,14 +1,18 @@
 """Parameter exchange with the JAX package's pytree layout.
 
-A single-speed spline flow's JAX params are a tuple with one entry per
-bijector, in chain order::
+A chain's JAX params are a tuple with one entry per bijector, in chain
+order, each a dict with numpy (or array-like) leaves:
 
-    ({'s', 't'}, {'_P', 'L', 'S', 'U'}, {'f1': [{'w', 'b'}, ...],
-                                         'f2': [...]}) × blocks
+- ``ActNorm``: ``{'s', 't'}``; ``Invertible1x1Conv``: ``{'_P', 'L', 'S',
+  'U'}``; ``SplineCoupling``: ``{'f1': [{'w', 'b'}, ...], 'f2': [...]}``;
+- ``AffineCoupling``: ``{'t_net': [{'w', 'b'}, ...], 's_net': [...]}``
+  (no ``'s_net'`` when translation-only); ``ScaleLayer``: ``{'s'}`` (a
+  scalar); ``CholeskyLinear``: ``{'bias', 'lower', 'udiag'}``.
 
-with numpy (or array-like) leaves. The port keeps the same tensor layouts
-(MLP weights are ``(n_in, n_out)``), so conversion is a leaf-by-leaf copy.
-Nothing here imports JAX: callers hand over numpy leaves.
+A fast-slow flow's params are ``{'slow': chain, 'fast': chain, 'combine':
+coupling}``. The port keeps the same tensor layouts (MLP weights are
+``(n_in, n_out)``), so conversion is a leaf-by-leaf copy. Nothing here
+imports JAX: callers hand over numpy leaves.
 """
 
 from __future__ import annotations
@@ -16,7 +20,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nnest_torch.bijectors import ActNorm, Invertible1x1Conv, SplineCoupling
+from nnest_torch.bijectors import (ActNorm, AffineCoupling, CholeskyLinear,
+                                   Invertible1x1Conv, ScaleLayer,
+                                   SplineCoupling)
+from nnest_torch.flows.model import FastSlowFlowModel
+
+# the tensors of each bijector type, by their JAX names; MLPs apart
+_LEAVES = {ActNorm: ('s', 't'), Invertible1x1Conv: ('_P', 'L', 'S', 'U'),
+           ScaleLayer: ('s',), CholeskyLinear: ('bias', 'lower', 'udiag')}
+
+
+def _nets(b):
+    """(name, MLP) pairs of a coupling, in the JAX layout."""
+    if isinstance(b, SplineCoupling):
+        return [('f1', b.f1), ('f2', b.f2)]
+    if isinstance(b, AffineCoupling):
+        return [('t_net', b.t_net)] + ([] if b.s_net is None
+                                       else [('s_net', b.s_net)])
+    return []
+
+
+def _check(b):
+    if type(b) not in _LEAVES and not _nets(b):
+        raise TypeError('unsupported bijector %s' % type(b).__name__)
 
 
 def _copy(dst, src):
@@ -36,27 +62,32 @@ def _mlp_from(mlp, layers):
         _copy(mlp.b[i], layer['b'])
 
 
-@torch.no_grad()
-def params_from_jax(model, tree):
-    """Load a JAX spline-flow param tree (numpy leaves) into ``model``."""
-    bijs = list(model.chain.bijectors)
+def _bijector_from(b, p):
+    _check(b)
+    for name in _LEAVES.get(type(b), ()):
+        _copy(getattr(b, name), p[name])
+    for name, mlp in _nets(b):
+        _mlp_from(mlp, p[name])
+
+
+def _chain_from(chain, tree):
+    bijs = list(chain.bijectors)
     if len(tree) != len(bijs):
         raise ValueError('chain length mismatch: %d vs %d'
                          % (len(tree), len(bijs)))
     for b, p in zip(bijs, tree):
-        if isinstance(b, ActNorm):
-            _copy(b.s, p['s'])
-            _copy(b.t, p['t'])
-        elif isinstance(b, Invertible1x1Conv):
-            _copy(b._P, p['_P'])
-            _copy(b.L, p['L'])
-            _copy(b.S, p['S'])
-            _copy(b.U, p['U'])
-        elif isinstance(b, SplineCoupling):
-            _mlp_from(b.f1, p['f1'])
-            _mlp_from(b.f2, p['f2'])
-        else:
-            raise TypeError('unsupported bijector %s' % type(b).__name__)
+        _bijector_from(b, p)
+
+
+@torch.no_grad()
+def params_from_jax(model, tree):
+    """Load a JAX flow param tree (numpy leaves) into ``model``."""
+    if isinstance(model, FastSlowFlowModel):
+        _chain_from(model.slow, tree['slow'])
+        _chain_from(model.fast, tree['fast'])
+        _bijector_from(model.combine, tree['combine'])
+    else:
+        _chain_from(model.chain, tree)
     return model
 
 
@@ -64,22 +95,23 @@ def _np(t):
     return t.detach().cpu().numpy().copy()
 
 
-def _mlp_to(mlp):
-    return [{'w': _np(w), 'b': _np(b)} for w, b in zip(mlp.w, mlp.b)]
+def _bijector_to(b):
+    _check(b)
+    out = {name: _np(getattr(b, name)) for name in _LEAVES.get(type(b), ())}
+    for name, mlp in _nets(b):
+        out[name] = [{'w': _np(w), 'b': _np(bias)}
+                     for w, bias in zip(mlp.w, mlp.b)]
+    return out
+
+
+def _chain_to(chain):
+    return tuple(_bijector_to(b) for b in chain.bijectors)
 
 
 def params_to_jax(model):
-    """The inverse of :func:`params_from_jax`: a tuple of per-bijector
-    dicts with numpy leaves, in the JAX package's layout."""
-    out = []
-    for b in model.chain.bijectors:
-        if isinstance(b, ActNorm):
-            out.append({'s': _np(b.s), 't': _np(b.t)})
-        elif isinstance(b, Invertible1x1Conv):
-            out.append({'_P': _np(b._P), 'L': _np(b.L), 'S': _np(b.S),
-                        'U': _np(b.U)})
-        elif isinstance(b, SplineCoupling):
-            out.append({'f1': _mlp_to(b.f1), 'f2': _mlp_to(b.f2)})
-        else:
-            raise TypeError('unsupported bijector %s' % type(b).__name__)
-    return tuple(out)
+    """The inverse of :func:`params_from_jax`: the JAX package's layout
+    with numpy leaves."""
+    if isinstance(model, FastSlowFlowModel):
+        return {'slow': _chain_to(model.slow), 'fast': _chain_to(model.fast),
+                'combine': _bijector_to(model.combine)}
+    return _chain_to(model.chain)

@@ -10,15 +10,18 @@ Port of the main-path part of ``nnest_tpu/samplers/base.py``:
   ``LOG_NEG``) both call it. This replaces the JAX split between traced
   and ``io_callback`` likelihoods;
 - capacity autoscale of the conditioner width (16/32/64 by dimension);
-- the endpoint MCMC pool generation from the live set, with the host
-  eigenbasis mixing ratio and latent condition number of each generation
-  (the inputs of ``adjusted_logzerr``);
+- the flows of ``build_flow`` (``flow``, ``num_slow``, ``num_layers``,
+  ``scale``, ``base_dist``), and the fast-slow Metropolis proposal with
+  ``oversample_rate`` (default: the fast dims' share) and the
+  ``total_fast_calls`` counter;
+- the endpoint MCMC and slice pool generations from the live set, with the
+  host eigenbasis mixing ratio and latent condition number of each
+  generation (the inputs of ``adjusted_logzerr``);
 - batched prior rejection, flow rejection inside the cached Jacobian
   envelope and flow-density draws, with their counters;
 - getdist-style ``chain.txt`` and ``params.txt``.
 
-Derived parameters, meshes and the slice strategy are not ported yet (see
-ROADMAP.md).
+Derived parameters and meshes are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from nnest_torch.training.trainer import Trainer
 from nnest_torch.utils.device import resolve_device
 from nnest_torch.utils.evaluation import (eig_mix_from_moments,
                                           latent_cond_null,
-                                          metropolis_mix_null)
+                                          metropolis_mix_null, slice_mix_null)
 from nnest_torch.utils.logger import create_logger, get_or_create_run_dir
 
 
@@ -54,13 +57,18 @@ class Sampler:
                  prior=None,
                  append_run_num=True,
                  hidden_dim=0,
+                 num_slow=0,
                  batch_size=100,
                  flow='spline',
                  num_blocks=3,
+                 num_layers=1,
                  learning_rate=0.001,
                  log_dir='logs/test',
                  resume=True,
+                 base_dist=None,
+                 scale='',
                  trainer=None,
+                 oversample_rate=-1,
                  log_level=logging.INFO,
                  param_names=None,
                  seed=0,
@@ -71,6 +79,14 @@ class Sampler:
         self.param_names = param_names
         if param_names is not None and len(param_names) != x_dim:
             raise ValueError('param_names must have x_dim entries')
+        if not 0 <= num_slow < x_dim:
+            raise ValueError('num_slow must be in [0, x_dim)')
+        # Fast-slow proposals: the share of Metropolis proposals that move
+        # the fast dims only, by default the fast dims' share of x_dim.
+        self.num_slow = num_slow
+        self.num_fast = x_dim - num_slow
+        self.oversample_rate = (oversample_rate if oversample_rate > 0
+                                else self.num_fast / x_dim)
         # Capacity autoscale: hidden_dim=0 derives the conditioner width
         # from x_dim; an explicit hidden_dim always wins.
         if not hidden_dim:
@@ -99,14 +115,18 @@ class Sampler:
         self.logger = create_logger(__name__, level=log_level)
 
         self.trainer = trainer if trainer is not None else Trainer(
-            x_dim, hidden_dim=hidden_dim, batch_size=batch_size, flow=flow,
-            num_blocks=num_blocks, learning_rate=learning_rate,
+            x_dim, hidden_dim=hidden_dim, num_slow=num_slow,
+            batch_size=batch_size, flow=flow, scale=scale,
+            num_blocks=num_blocks, num_layers=num_layers,
+            base_dist=base_dist, learning_rate=learning_rate,
             log_level=log_level, seed=seed + 1, device=self.device)
         self.logger.info('Num params [%d]' % self.x_dim)
 
         self.total_accepted = 0
         self.total_rejected = 0
         self.total_calls = 0
+        # likelihood calls of fast-only Metropolis proposals
+        self.total_fast_calls = 0
         self._kernels = None
         self._last_kernel_stats = None
         # Per-generation mixing history of the current run() (see
@@ -162,9 +182,9 @@ class Sampler:
     @property
     def kernels(self) -> LatentKernels:
         if self._kernels is None:
-            self._kernels = LatentKernels(self.trainer.model,
-                                          self._device_loglike,
-                                          self._device_prior)
+            self._kernels = LatentKernels(
+                self.trainer.model, self._device_loglike, self._device_prior,
+                num_slow=self.num_slow, oversample_rate=self.oversample_rate)
         return self._kernels
 
     # -------------------------------------------------------------- MCMC
@@ -182,6 +202,7 @@ class Sampler:
         structural term when ``cond_inflates`` (Metropolis generations)."""
         out = {k: _to_numpy(v) for k, v in out.items()}
         self.total_calls += int(out['ncall'])
+        self.total_fast_calls += int(out['fast_calls'])
         self.total_accepted += int(out['accepted'])
         self.total_rejected += int(out['rejected'])
         mix = float(out['mix_ratio'])
@@ -235,6 +256,30 @@ class Sampler:
                                               adapt_cov=adapt_cov),
             cond_null=latent_cond_null(self.x_dim, num_chains),
             cond_inflates=True)
+
+    def _slice_sample_live(self, slice_steps, active_u, active_logl,
+                           num_chains, loglstar, width, max_expand=4,
+                           max_shrink=10, adapt_cov=False):
+        """One slice pool generation from the live set; the slice
+        analogue of :meth:`_mcmc_sample_live`. Its latent condition number
+        is recorded but does not inflate ``logzerr_adjusted`` (the JAX
+        package's calibration: the slice kernel's kinetic term alone
+        covers curved degeneracies).
+
+        Returns (u, logl, moved, scale, mean_jump, ncall)."""
+        self.trainer.ensure_init()
+        with torch.no_grad():
+            f32 = np.float32
+            out = self.kernels.slice_from_live(
+                self.generator,
+                torch.as_tensor(active_u.astype(f32), device=self.device),
+                torch.as_tensor(active_logl.astype(f32), device=self.device),
+                num_chains=num_chains, loglstar=loglstar, width=width,
+                slice_steps=slice_steps, max_expand=max_expand,
+                max_shrink=max_shrink, adapt_cov=adapt_cov)
+        return self._consume_endpoint_out(
+            out, mix_null=slice_mix_null(slice_steps, self.x_dim),
+            cond_null=latent_cond_null(self.x_dim, num_chains))
 
     # --------------------------------------------------------- rejection
 

@@ -1,8 +1,11 @@
 """Nested sampler: evidence (logZ) and posterior samples.
 
 Port of ``nnest_tpu/samplers/nested.py`` without meshes: the strategy
-ladder over ``'rejection_prior'``, ``'rejection_flow'``, ``'density_flow'``
-and ``'mcmc'`` with efficiency-based expiry, the adaptive rejection trial
+ladder over ``'rejection_prior'``, ``'rejection_flow'``, ``'density_flow'``,
+``'mcmc'`` and ``'slice'`` with efficiency-based expiry (a rejection phase
+expires once its likelihood calls per candidate pass those of the
+downstream kernel: ``mcmc_steps``, or ``slice_steps * (1 +
+slice_max_expand)`` for slice), the adaptive rejection trial
 ladder, the NLL-gated flow retrain (which also invalidates the
 flow-rejection envelope), one candidate pool generation per call consumed
 across iterations, and the float64 host evidence (logz, h, logzerr). The
@@ -30,7 +33,12 @@ the CPU when the exact state's stamp matches the marker, and statistically
 exact (pool and controller dropped, a warning logged) otherwise. This
 port reads only its own checkpoints.
 
-Not ported yet (ROADMAP.md): meshes, the slice strategy, multi-generation
+Every flow of ``build_flow`` runs through it (``flow``, ``num_slow``,
+``num_layers``, ``scale``, ``base_dist``); a fast-slow flow's Metropolis
+proposals move the fast dims only with probability ``oversample_rate``,
+and ``run_stats['total_fast_calls']`` counts their likelihood calls.
+
+Not ported yet (ROADMAP.md): meshes, derived parameters, multi-generation
 prefetch and speculation, the background checkpoint writer, dynamic-batch
 hooks, plots and TensorBoard.
 """
@@ -53,11 +61,13 @@ from nnest_torch.utils.evaluation import (adjusted_logzerr,
                                           bootstrap_logz_error, insertion_ks,
                                           rolling_insertion_ks)
 
-_PORTED_METHODS = ('rejection_prior', 'rejection_flow', 'density_flow',
-                   'mcmc')
+# the strategy ladder's methods, in nnest_tpu's order
+_METHODS = ('rejection_prior', 'rejection_flow', 'density_flow', 'mcmc',
+            'slice')
 # run_stats key stem of each candidate generator
 _STAT_KEY = {'rejection_prior': 'rejection', 'rejection_flow':
-             'rejection_flow', 'density_flow': 'density', 'mcmc': 'mcmc'}
+             'rejection_flow', 'density_flow': 'density', 'mcmc': 'mcmc',
+             'slice': 'slice'}
 EXACT_STATE = 'exact_state.pt'
 
 
@@ -88,13 +98,18 @@ class NestedSampler(Sampler):
                  transform=None,
                  append_run_num=True,
                  hidden_dim=0,
+                 num_slow=0,
                  batch_size=100,
                  flow='spline',
                  num_blocks=3,
+                 num_layers=1,
                  learning_rate=0.001,
                  log_dir='logs/test',
                  resume=True,
+                 base_dist=None,
+                 scale='',
                  trainer=None,
+                 oversample_rate=-1,
                  log_level=logging.INFO,
                  param_names=None,
                  num_live_points=1000,
@@ -117,10 +132,12 @@ class NestedSampler(Sampler):
         super().__init__(
             x_dim, loglike, transform=transform, prior=prior,
             append_run_num=append_run_num, hidden_dim=hidden_dim,
-            batch_size=batch_size, flow=flow, num_blocks=num_blocks,
+            num_slow=num_slow, batch_size=batch_size, flow=flow,
+            num_blocks=num_blocks, num_layers=num_layers,
             learning_rate=learning_rate, log_dir=log_dir, resume=resume,
-            trainer=trainer, log_level=log_level, param_names=param_names,
-            seed=seed, device=device)
+            base_dist=base_dist, scale=scale, trainer=trainer,
+            oversample_rate=oversample_rate, log_level=log_level,
+            param_names=param_names, seed=seed, device=device)
         self.num_live_points = num_live_points
         self._save_params({'num_live_points': num_live_points})
         self.logger.info('Num live points [%d]' % self.num_live_points)
@@ -151,13 +168,18 @@ class NestedSampler(Sampler):
             rejection_max_trials=65536,
             rejection_adapt_trials=True,
             retrain_nll_threshold=0.5,
-            mcmc_adapt='cov'):
+            mcmc_adapt='cov',
+            slice_steps=0,
+            slice_width=1.0,
+            slice_max_expand=4,
+            slice_max_shrink=10,
+            slice_adapt='cov'):
         if strategy is None or len(strategy) == 0:
             strategy = ['rejection_prior', 'mcmc']
-        unknown = [m for m in strategy if m not in _PORTED_METHODS]
+        unknown = [m for m in strategy if m not in _METHODS]
         if unknown:
-            raise ValueError('strategy method(s) %s are not ported; choose '
-                             'from %s' % (unknown, list(_PORTED_METHODS)))
+            raise ValueError('unknown strategy method(s) %s; choose from %s'
+                             % (unknown, list(_METHODS)))
         if mcmc_adapt not in ('cov', 'iso'):
             raise ValueError("mcmc_adapt must be 'cov' or 'iso'")
 
@@ -193,6 +215,16 @@ class NestedSampler(Sampler):
                     % (mcmc_steps, 10 * self.x_dim))
         if step_size <= 0.0:
             step_size = 1.0 / self.x_dim ** 0.5
+        if slice_steps <= 0:
+            # one slice move decorrelates along one latent direction: ~2
+            # passes over the basis
+            slice_steps = 2 * self.x_dim
+        if slice_adapt not in ('cov', 'iso'):
+            raise ValueError("slice_adapt must be 'cov' or 'iso'")
+        # Likelihood calls per accept of the downstream kernel when it is
+        # 'slice': each step pays ~1 shrink hit and up to max_expand
+        # stepping-out probes. The rejection phases expire past it.
+        slice_calls = slice_steps * (1 + slice_max_expand)
         rejection_max_trials = max(int(rejection_max_trials),
                                    rejection_batch_size)
         self.logger.info('MCMC steps [%d]' % mcmc_steps)
@@ -339,7 +371,12 @@ class NestedSampler(Sampler):
             if current_method != old_method:
                 need_pool = True
                 cur_trials = int(rejection_batch_size)
-            mcmc_like = 'mcmc' if 'mcmc' in strategy else None
+            # The downstream within-shell kernel ('mcmc' or 'slice'; the
+            # first not expired) and its likelihood calls per accept.
+            mcmc_like = next((m for m in strategy if m in ('mcmc', 'slice')
+                              and m not in expired), None)
+            switch_calls = (slice_calls if mcmc_like == 'slice'
+                            else mcmc_steps)
 
             if current_method != 'rejection_prior' and (
                     first_time or (it % update_interval == 0
@@ -374,13 +411,22 @@ class NestedSampler(Sampler):
             if need_pool:
                 stem = _STAT_KEY[current_method]
                 t0 = time.perf_counter()
-                if current_method == 'mcmc':
-                    u_f, logl_f, moved, mcmc_scale, _, _ = \
-                        self._mcmc_sample_live(
-                            mcmc_steps, active_u, active_logl,
-                            mcmc_num_chains, loglstar, step_size,
-                            dynamic_step_size=mcmc_dynamic_step_size,
-                            adapt_cov=mcmc_adapt == 'cov')
+                if current_method in ('mcmc', 'slice'):
+                    if current_method == 'mcmc':
+                        u_f, logl_f, moved, mcmc_scale, _, _ = \
+                            self._mcmc_sample_live(
+                                mcmc_steps, active_u, active_logl,
+                                mcmc_num_chains, loglstar, step_size,
+                                dynamic_step_size=mcmc_dynamic_step_size,
+                                adapt_cov=mcmc_adapt == 'cov')
+                    else:
+                        u_f, logl_f, moved, mcmc_scale, _, _ = \
+                            self._slice_sample_live(
+                                slice_steps, active_u, active_logl,
+                                mcmc_num_chains, loglstar, slice_width,
+                                max_expand=slice_max_expand,
+                                max_shrink=slice_max_shrink,
+                                adapt_cov=slice_adapt == 'cov')
                     # Chain endpoints are the candidates: a chain that
                     # never moved contributes nothing.
                     pool = {'u': u_f[moved], 'logl': logl_f[moved],
@@ -420,7 +466,8 @@ class NestedSampler(Sampler):
                     ncs.extend([nc] * min(max(s.shape[0], 1), 5))
                     mean_calls = (float(np.mean(ncs[-20:])) if len(ncs) > 20
                                   else 0.0)
-                    switch = mean_calls > mcmc_steps and mcmc_like is not None
+                    switch = (mean_calls > switch_calls
+                              and mcmc_like is not None)
                     if current_method == 'rejection_prior':
                         switch = (0 <= volume_switch > expected_vol) or (
                             volume_switch < 0 and switch)
@@ -501,6 +548,7 @@ class NestedSampler(Sampler):
             if saved_slots is not None:
                 saved_slots.append(i)   # slot i's final point closes thread i
 
+        self.run_stats['total_fast_calls'] = self.total_fast_calls
         self.logz = logz
         self.h = h
         self.logzerr = float(np.sqrt(h / self.num_live_points))
@@ -727,7 +775,8 @@ class NestedSampler(Sampler):
                        'strategy': list(strategy),
                        'expired_strategies': list(expired),
                        'total_accepted': self.total_accepted,
-                       'total_rejected': self.total_rejected}, f)
+                       'total_rejected': self.total_rejected,
+                       'total_fast_calls': self.total_fast_calls}, f)
 
     def _load_checkpoint(self):
         """The newest valid checkpoint of this run directory, or None (no
@@ -776,6 +825,7 @@ class NestedSampler(Sampler):
         self.total_calls = int(meta['ncall'])
         self.total_accepted = int(meta['total_accepted'])
         self.total_rejected = int(meta['total_rejected'])
+        self.total_fast_calls = int(meta.get('total_fast_calls', 0))
         exact = self._restore_exact_state(ck, it)
         return {'it': it, 'active_u': active_u,
                 'active_v': self.transform(active_u),

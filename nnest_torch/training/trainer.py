@@ -1,6 +1,7 @@
 """Flow trainer: maximum-likelihood training of a normalizing flow.
 
-Port of the training path of ``nnest_tpu/training/trainer.py``:
+Port of the training path of ``nnest_tpu/training/trainer.py``, for any
+flow ``build_flow`` makes (spline, NVP, Cholesky, fast-slow):
 
 - Adam with coupled L2 weight decay (decay added to the gradient before the
   Adam moments): ``torch.optim.Adam(weight_decay=...)`` over the flow's
@@ -52,9 +53,13 @@ class Trainer:
     def __init__(self,
                  x_dim,
                  hidden_dim=16,
+                 num_slow=0,
                  batch_size=100,
                  flow='spline',
+                 scale='',
                  num_blocks=3,
+                 num_layers=1,
+                 base_dist=None,
                  learning_rate=0.0001,
                  weight_decay=1e-6,
                  log=True,
@@ -68,7 +73,9 @@ class Trainer:
         self.batch_size = batch_size
         self.total_iters = 0
         self.model = build_flow(x_dim, flow=flow, hidden_dim=hidden_dim,
-                                num_blocks=num_blocks, num_bins=num_bins,
+                                num_slow=num_slow, num_blocks=num_blocks,
+                                num_layers=num_layers, scale=scale,
+                                base_dist=base_dist, num_bins=num_bins,
                                 tail_bound=tail_bound, seed=seed,
                                 device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(

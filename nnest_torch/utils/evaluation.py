@@ -108,6 +108,15 @@ def metropolis_mix_null(steps, dim, adapt_cov=False):
     return min(1.0, 1.4 * max(steps, 5 * dim) / float(dim) ** 2)
 
 
+def slice_mix_null(steps, dim):
+    """Expected healthy eigenbasis mixing ratio of the latent slice kernel:
+    1 - exp(-1.3 steps / dim^1.6), never below its value at the default
+    2*dim moves (a starved kernel must lower the ratio, not relax the
+    bar)."""
+    return min(1.0, 1.0 - float(
+        np.exp(-1.3 * max(steps, 2 * dim) / float(dim) ** 1.6)))
+
+
 def latent_cond_null(dim, n_chains):
     """Healthy-run latent condition number of a chain-start population:
     the Marchenko-Pastur edge ratio of a d-variate, n-sample

@@ -38,6 +38,18 @@ g = torch.Generator().manual_seed(0)
 out = kernels.rejection_flow_live(g, -50.0, torch.rand(8, 3), 0.0, 0.0,
                                   False, 1.1, 16)
 out = kernels.density(g, -50.0, 16)
+out = kernels.slice_from_live(g, torch.rand(8, 3), torch.zeros(8),
+                              num_chains=4, loglstar=-50.0, width=1.0,
+                              slice_steps=1, adapt_cov=True)
+from nnest_torch.distributions import GeneralisedNormal
+for kw in (dict(flow='nvp', scale='constant'), dict(flow='cholesky'),
+           dict(flow='spline', num_slow=1),
+           dict(flow='nvp', base_dist=GeneralisedNormal(3))):
+    other = LatentKernels(build_flow(3, device='cpu', **kw), GaussianMix(3),
+                          lambda u: torch.zeros(u.shape[0]), num_slow=1)
+    out = other.rejection_flow_live(g, -50.0, torch.rand(8, 3), 0.0, 0.0,
+                                    False, 1.1, 16)
+    out = other.density(g, -50.0, 16)
 trainer = Trainer(3, device='cpu', log=False)
 trainer.restore_state(trainer.snapshot_state())
 loaded = [m for m in sys.modules

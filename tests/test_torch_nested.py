@@ -126,5 +126,5 @@ def test_gaussian_2d_analytic_logz(tmp_path, strategy):
 def test_unported_strategy_is_refused(tmp_path):
     sampler = NestedSampler(2, port_likes.Gaussian(2, 0.0), log_dir=None,
                             device='cpu')
-    with pytest.raises(ValueError, match='not ported'):
-        sampler.run(strategy=['slice'])
+    with pytest.raises(ValueError, match='unknown strategy'):
+        sampler.run(strategy=['rejection_prior', 'slcie'])

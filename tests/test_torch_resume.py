@@ -45,6 +45,9 @@ def _final(s):
     # flow rejection with a retrain every update_interval (no NLL gate):
     # the envelope cache, the trainer and its Adam state cross the resume
     (['rejection_flow', 'mcmc'], {'retrain_nll_threshold': None}),
+    # slice generations after a volume switch: the shrinkage loop's
+    # data-dependent draws and the slice pool cross the resume
+    (['rejection_prior', 'slice'], {'volume_switch': 0.5}),
 ])
 def test_kill_and_resume_is_bit_exact(tmp_path, strategy, extra):
     kw = dict(RUN, strategy=strategy, **extra)
@@ -70,6 +73,9 @@ def test_kill_and_resume_is_bit_exact(tmp_path, strategy, extra):
     np.testing.assert_array_equal(resumed.thread_slots, whole.thread_slots)
     if strategy is None:
         assert whole.run_stats['mcmc_generations'] > 0
+    elif 'slice' in strategy:
+        assert whole.run_stats['slice_generations'] > 0
+        assert resumed.run_stats['slice_generations'] > 0
     else:
         assert whole.run_stats['rejection_flow_generations'] > 0
         assert resumed.run_stats['trainings'] > 0

@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs nine phases, printing one JSON line per
+from JAX or ``nnest_tpu`` and runs ten phases, printing one JSON line per
 phase with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the build
@@ -11,16 +11,17 @@ phase with its seconds:
 2. kernel: the CUDA spline-flow inverse against its plain PyTorch twin on
    the card, at d in {2, 5, 16, 50, 100} (hidden 16/16/32/64/64) and N in
    {1, 128, 256, 512, 1000, 4096, 4097}, and at d in {16, 50} with N in
-   {65536, 65537} (the flow strategies' trials), with inputs beyond ±3,
-   exactly at ±3 and on spline knots; max |dx| <= 3e-5 and max |dlogdet|
-   <= 3e-4. The per-block entry against the twin (the same limits) and
-   against the whole-chain kernel (1e-6, 1e-5) at d in {5, 16}. Then the
-   kernel is timed by CUDA-graph replay (and eagerly, back to back) and
-   the twin eagerly, at the main path's shapes (N = 512, a slice
-   expansion's 2 x 256 stacked rows, and N = 65536 included)
-   beside the least time the card could take; the per-block entry at
-   d = 16; and the rows a thread block takes and the ring's stages are
-   swept (N = 65536: 32, 64 and 128 rows);
+   {65536, 65537} (the flow strategies' trials), and at d = 16 with N in
+   {16, 32, 32064} (phase 10's shapes), with inputs beyond ±3, exactly at
+   ±3 and on spline knots; max |dx| <= 3e-5 and max |dlogdet| <= 3e-4.
+   The per-block entry against the twin (the same limits) and against the
+   whole-chain kernel (1e-6, 1e-5) at d in {5, 16}. Then the kernel is
+   timed by CUDA-graph replay (and eagerly, back to back) and the twin
+   eagerly, at the main path's shapes (N = 512, a slice expansion's
+   2 x 256 stacked rows, N = 65536, and phase 10's N = 16, 32 and 32064
+   included) beside the least time the card could take; the per-block
+   entry at d = 16; and the rows a thread block takes and the ring's
+   stages are swept (N = 65536: 32, 64 and 128 rows);
 3. main path: ``NestedSampler`` on a 16-D Gaussian (transform 5x, hidden 32,
    256 chains x 80 steps, default strategy and retrain gate) until the
    ladder has reached 'mcmc', the flow has been trained and at least three
@@ -56,7 +57,17 @@ phase with its seconds:
    (transform 3x, 200 live points, MCMC after a volume switch) to its
    analytic logz within the same bound; their inverse is ``model.inverse``
    in plain PyTorch, so the kernel's launches and the twin's calls must
-   both be 0.
+   both be 0;
+10. posterior samplers: ``MCMCSampler.run`` (2000 full-MH steps, 16 chains)
+   and ``EnsembleSampler.bootstrap`` (200 steps, 64 walkers, one phase)
+   then ``run`` (500 steps) on the 16-D Gaussian with correlation 0.9 in
+   the box [-5, 5]^16, trained on 1000 exact draws (hidden 32, 50 epochs
+   at most); the kernel's launches equal to one a step plus one a call
+   (MCMC) and two a step plus two a call (ensemble), the twin's calls 0,
+   the moments within bounds from each run's ESS, the final step size
+   finite and positive; the wall and launches of every sampler call and a
+   profile of one ``_mcmc_sample`` (500 steps) and one ``_ensemble_sample``
+   (100 steps) call.
 
 ``--baseline SRC`` also builds SRC, an earlier version of the kernel with
 its own C entry point (the unpadded layout, no launch plan), checks it
@@ -65,7 +76,8 @@ and the sweep's, in turns (earlier, this, this, earlier).
 
 Before the last line it prints the ``{"kernels": [...]}`` record, with each
 kernel's launches by path (``mcmc``: phase 3, ``rejection_flow`` and
-``density_flow``: phase 6, ``per_block``: phase 5, ``slice``: phase 8);
+``density_flow``: phase 6, ``per_block``: phase 5, ``slice``: phase 8,
+``mcmc_sampler`` and ``ensemble``: phase 10);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before that line.
@@ -90,6 +102,11 @@ TOL_X = 3e-5
 TOL_LOGDET = 3e-4
 # the flow strategies' trials a generation (bench.py's workload D)
 FLOW_TRIALS = 65536
+# phase 10's sizes: the CLI's widths (examples/ensemble/run.py: 16 chains,
+# 64 walkers), depth cut to these steps and training epochs
+MCMC_STEPS, MCMC_CHAINS = 2000, 16
+BOOT_STEPS, RUN_STEPS, WALKERS = 200, 500, 64
+POSTERIOR_TRAIN_ITERS = 50
 # the keys of results/diagnostics.json (nnest_tpu's set)
 DIAGNOSTICS_KEYS = {
     'insertion_D', 'insertion_p', 'insertion_rolling_p', 'logzerr',
@@ -358,8 +375,15 @@ SWEEP_SHAPES = ((16, 256), (16, 4096), (50, 256), (50, 4096),
                 (16, FLOW_TRIALS), (50, FLOW_TRIALS))
 SWEEP_ROWS = {256: (1, 2, 4, 8), 4096: (8, 16, 32, 64),
               FLOW_TRIALS: (32, 64, 128)}
+# the posterior samplers' shapes at d = 16 (phase 10): a full-MH step's 16
+# chains, an ensemble half-update's 32 walkers and the trajectory inverse
+# of a 64-walker, 500-step ensemble
+TRAJECTORY_ROWS = (RUN_STEPS + 1) * WALKERS
+POSTERIOR_SHAPES = ((16, MCMC_CHAINS), (16, WALKERS // 2),
+                    (16, TRAJECTORY_ROWS))
 TIMED_SHAPES = ((16, 256), (16, 4096), (2, 128), (50, 256), (50, 4096),
-                (16, FLOW_TRIALS), (50, FLOW_TRIALS), (16, 512))
+                (16, FLOW_TRIALS), (50, FLOW_TRIALS), (16, 512)) \
+    + POSTERIOR_SHAPES
 
 
 def phase_kernel(records, earlier):
@@ -384,6 +408,8 @@ def phase_kernel(records, earlier):
         model = random_flow(d, seed=100 + d, device=device)
         packed = models[d] = pack_inverse_consts(model)
         wide = (FLOW_TRIALS, FLOW_TRIALS + 1) if d in (16, 50) else ()
+        if d == 16:
+            wide += tuple(n for _, n in POSTERIOR_SHAPES)
         for n in (1, 128, 256, 512, 1000, 4096, 4097) + wide:
             z = kernel_inputs(model, n, seed=7 * n + d, device=device)
             got = si.spline_inverse(z, packed)
@@ -913,6 +939,139 @@ def phase_other_flows(log_dir):
     return {'runs': runs}
 
 
+def ess_bounded_moments(chains, corr, name):
+    """Check posterior chains (chains, steps, d) of the correlated Gaussian
+    (unit variances, pairwise correlation ``corr``) against bounds from
+    their own ESS (``utils/evaluation.effective_sample_size`` times the
+    chains): each dim's mean within 5/sqrt(ESS) of 0, its std within
+    5/sqrt(2 ESS) of 1, and the mean pairwise correlation within
+    5 (1 - corr^2)/sqrt(min ESS) of ``corr``; the smallest ESS at least
+    50. Returns the moments, the bounds and the ESS range."""
+    from nnest_torch.utils.evaluation import effective_sample_size
+    flat = chains.reshape(-1, chains.shape[2])
+    ess = chains.shape[0] * effective_sample_size(
+        chains, flat.mean(axis=0), flat.var(axis=0))
+    mean, std = flat.mean(axis=0), flat.std(axis=0)
+    c = np.corrcoef(flat, rowvar=False)
+    mean_corr = float(c[np.triu_indices_from(c, k=1)].mean())
+    out = {'ess_min': float(ess.min()), 'ess_max': float(ess.max()),
+           'max_abs_mean_over_bound': float(np.max(
+               np.abs(mean) * np.sqrt(ess) / 5.0)),
+           'max_abs_std_dev_over_bound': float(np.max(
+               np.abs(std - 1.0) * np.sqrt(2.0 * ess) / 5.0)),
+           'mean_corr': mean_corr,
+           'corr_bound': 5.0 * (1.0 - corr ** 2) / math.sqrt(ess.min())}
+    ok = (out['ess_min'] >= 50 and out['max_abs_mean_over_bound'] <= 1.0
+          and out['max_abs_std_dev_over_bound'] <= 1.0
+          and abs(mean_corr - corr) <= out['corr_bound'])
+    if not ok:
+        raise AssertionError('%s posterior moments out of their ESS bounds: '
+                             '%s' % (name, out))
+    return out
+
+
+def phase_mcmc_ensemble(record, log_dir):
+    """MCMCSampler and EnsembleSampler (bootstrap, then run) on the 16-D
+    Gaussian with pairwise correlation 0.9 in the box [-5, 5]^16, each
+    with its counts reset just before and read just after: MCMCSampler
+    launches the kernel once a step and once a call (the starts),
+    EnsembleSampler twice a step (the two half-updates) and twice a call
+    (the starts' target and the trajectory's inverse); its bootstrap's
+    phase 0 runs in real space without the flow. Posterior moments within
+    bounds from each run's ESS; the final step size finite and positive.
+    Then one ``_mcmc_sample`` and one ``_ensemble_sample`` call profiled."""
+    from nnest_torch import EnsembleSampler, MCMCSampler
+    from nnest_torch.likelihoods import Gaussian
+    from nnest_torch.ops import spline_inverse as si
+    from nnest_torch.priors import UniformPrior
+    d, corr = 16, 0.9
+    cov = np.eye(d) + corr * (1.0 - np.eye(d))
+    # exact posterior draws as the training set (rejection from the box is
+    # hopeless at 16-D)
+    training = np.random.default_rng(10).multivariate_normal(
+        np.zeros(d), cov, size=1000)
+
+    def sampler(cls, name, seed):
+        s = cls(d, Gaussian(d, corr), prior=UniformPrior(d, -5.0, 5.0),
+                log_dir=os.path.join(log_dir, name), seed=seed,
+                device='cuda')
+        calls = s.calls = []
+        for method in ('_mcmc_sample', '_ensemble_sample'):
+            real = getattr(s, method)
+
+            def timed(*args, _real=real, _method=method, **kwargs):
+                n0 = si.launches
+                t0 = time.perf_counter()
+                # ends in device-to-host copies
+                out = _real(*args, **kwargs)
+                calls.append({'call': _method, 'steps': args[0],
+                              'ms': (time.perf_counter() - t0) * 1e3,
+                              'launches': si.launches - n0})
+                return out
+
+            setattr(s, method, timed)
+        return s
+
+    mcmc = sampler(MCMCSampler, 'mcmc_sampler', 10)
+    reset_counts()
+    t0 = time.time()
+    mcmc.run(MCMC_STEPS, MCMC_CHAINS, training,
+             train_iters=POSTERIOR_TRAIN_ITERS)
+    mcmc_wall = time.time() - t0
+    mcmc_launches = read_counts('mcmc_sampler')
+    if mcmc_launches != MCMC_STEPS + 1:
+        raise AssertionError('MCMCSampler launched the kernel %d times, '
+                             'expected %d (one a step, one for the starts)'
+                             % (mcmc_launches, MCMC_STEPS + 1))
+    if not (math.isfinite(mcmc.scale) and mcmc.scale > 0):
+        raise AssertionError('final step size %r' % mcmc.scale)
+    burn = MCMC_STEPS // 10
+    mcmc_moments = ess_bounded_moments(mcmc.samples[:, burn:], corr,
+                                       'MCMCSampler')
+
+    ens = sampler(EnsembleSampler, 'ensemble', 11)
+    reset_counts()
+    t0 = time.time()
+    boot = ens.bootstrap(BOOT_STEPS, WALKERS, iters=1,
+                         train_iters=POSTERIOR_TRAIN_ITERS)
+    boot_wall = time.time() - t0
+    if not (boot.shape[1] == d and np.all(np.isfinite(boot))):
+        raise AssertionError('bootstrap training set %s' % (boot.shape,))
+    t0 = time.time()
+    ens.run(RUN_STEPS, WALKERS, training, train_iters=POSTERIOR_TRAIN_ITERS)
+    run_wall = time.time() - t0
+    ens_launches = read_counts('ensemble')
+    expected = 2 * (BOOT_STEPS + RUN_STEPS) + 2 * 2
+    if ens_launches != expected:
+        raise AssertionError('EnsembleSampler launched the kernel %d times, '
+                             'expected %d (two a step, two a call)'
+                             % (ens_launches, expected))
+    ens_moments = ess_bounded_moments(ens.samples[:, RUN_STEPS // 5:], corr,
+                                      'EnsembleSampler')
+    record['launches_by_path'].update(mcmc_sampler=mcmc_launches,
+                                      ensemble=ens_launches)
+
+    def mcmc_call():
+        mcmc._mcmc_sample(500, num_chains=MCMC_CHAINS,
+                          dynamic_step_size=True)
+        torch.cuda.synchronize()
+
+    def ensemble_call():
+        ens._ensemble_sample(100, WALKERS)
+        torch.cuda.synchronize()
+
+    return {'mcmc_wall_s': mcmc_wall, 'mcmc_launches': mcmc_launches,
+            'mcmc_scale': mcmc.scale, 'mcmc_calls': mcmc.calls,
+            'mcmc_moments': mcmc_moments, 'bootstrap_wall_s': boot_wall,
+            'bootstrap_rows': int(boot.shape[0]), 'run_wall_s': run_wall,
+            'ensemble_launches': ens_launches, 'ensemble_calls': ens.calls,
+            'ensemble_moments': ens_moments, 'total_calls': {
+                'mcmc': mcmc.total_calls, 'ensemble': ens.total_calls},
+            'mcmc_call_profile_500_steps': profile_generation(mcmc_call),
+            'ensemble_call_profile_100_steps': profile_generation(
+                ensemble_call)}
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -926,7 +1085,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import nnest_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    paths = ('mcmc', 'rejection_flow', 'density_flow', 'per_block', 'slice')
+    paths = ('mcmc', 'rejection_flow', 'density_flow', 'per_block', 'slice',
+             'mcmc_sampler', 'ensemble')
     records = [
         {'name': 'spline_inverse', 'route': 'cuda',
          'source': 'nnest_torch/csrc/spline_inverse.cu',
@@ -954,13 +1114,16 @@ def main():
                  lambda: phase_flow_rejection(records, log_dir)),
                 (7, 'resume', lambda: phase_resume(log_dir)),
                 (8, 'slice', lambda: phase_slice(records[0], log_dir)),
-                (9, 'other_flows', lambda: phase_other_flows(log_dir))):
+                (9, 'other_flows', lambda: phase_other_flows(log_dir)),
+                (10, 'mcmc_ensemble',
+                 lambda: phase_mcmc_ensemble(records[0], log_dir))):
             t0 = time.time()
             out = fn()
             emit({'phase': num, 'name': name,
                   'seconds': time.time() - t0, **out})
     for rec in records:
-        # launches on the paths that drive the kernel (phases 3, 5, 6, 8)
+        # launches on the paths that drive the kernel (phases 3, 5, 6, 8,
+        # 10)
         rec['launches'] = sum(rec['launches_by_path'].values())
     emit({'kernels': records})
     emit({'ok': True, 'device': {'platform': 'gpu',

@@ -3,8 +3,8 @@
 A port of ``nnest_tpu`` (the JAX reference, kept beside this package) to
 PyTorch on an NVIDIA H100. Flows are ``nn.Module``s, random numbers come
 from explicit ``torch.Generator``s, and the spline-flow inverse that every
-Metropolis, slice and flow-rejection proposal of a single-speed spline flow
-runs is a hand-written CUDA kernel (``ops/spline_inverse.py`` +
+Metropolis, slice, ensemble and flow-rejection proposal of a single-speed
+spline flow runs is a hand-written CUDA kernel (``ops/spline_inverse.py`` +
 ``csrc/spline_inverse.cu``) with a plain PyTorch twin that serves CPU
 tensors. The NVP, Cholesky and fast-slow flows invert in plain PyTorch.
 
@@ -22,10 +22,13 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = '0.1.0'
 
-__all__ = ['NestedSampler', 'Trainer', 'build_flow', '__version__']
+__all__ = ['NestedSampler', 'MCMCSampler', 'EnsembleSampler', 'Trainer',
+           'build_flow', '__version__']
 
 _LAZY = {
     'NestedSampler': 'nnest_torch.samplers.nested',
+    'MCMCSampler': 'nnest_torch.samplers.mcmc',
+    'EnsembleSampler': 'nnest_torch.samplers.ensemble',
     'Trainer': 'nnest_torch.training.trainer',
     'build_flow': 'nnest_torch.flows.factory',
 }

@@ -1,10 +1,11 @@
-"""Priors: the box prior the nested sampler draws its unit cube from.
+"""Priors: the box prior (the nested sampler's unit cube, or a physical
+prior of the MCMC and ensemble samplers).
 
 Port of ``UniformPrior`` in ``nnest_tpu/priors.py``. ``logpdf`` takes a
 (batch, d) tensor and returns 0 inside the box and -inf outside;
 ``sample`` draws host points from a seeded numpy generator (the initial
-live set) and ``sample_torch`` draws on a ``torch.Generator``'s device
-(batched prior rejection).
+live set, the ensemble bootstrap's walkers) and ``sample_torch`` draws on a
+``torch.Generator``'s device (batched prior rejection).
 """
 
 from __future__ import annotations
@@ -27,10 +28,21 @@ class UniformPrior:
         self.minimum = np.asarray(minimum, dtype=np.float64)
         self.maximum = np.asarray(maximum, dtype=np.float64)
         self._rng = np.random.default_rng(0)
+        # the bounds as tensors, by dtype and device: a chain step on the
+        # GPU evaluates the prior without a host-to-device copy
+        self._bounds = {}
+
+    def bounds(self, dtype, device):
+        """(lo, hi) as tensors of ``dtype`` on ``device``."""
+        key = (dtype, str(device))
+        if key not in self._bounds:
+            self._bounds[key] = (
+                torch.as_tensor(self.minimum, dtype=dtype, device=device),
+                torch.as_tensor(self.maximum, dtype=dtype, device=device))
+        return self._bounds[key]
 
     def logpdf(self, x):
-        lo = torch.as_tensor(self.minimum, dtype=x.dtype, device=x.device)
-        hi = torch.as_tensor(self.maximum, dtype=x.dtype, device=x.device)
+        lo, hi = self.bounds(x.dtype, x.device)
         inside = torch.all((x >= lo) & (x <= hi), dim=-1)
         return torch.where(inside, torch.zeros_like(x[:, 0]),
                            torch.full_like(x[:, 0], -np.inf))
@@ -44,8 +56,7 @@ class UniformPrior:
 
     def sample_torch(self, num_samples, generator):
         device = generator.device
-        lo = torch.as_tensor(self.minimum, dtype=torch.float32, device=device)
-        hi = torch.as_tensor(self.maximum, dtype=torch.float32, device=device)
+        lo, hi = self.bounds(torch.float32, device)
         u = torch.rand(num_samples, self.x_dim, generator=generator,
                        device=device)
         return lo + (hi - lo) * u

@@ -1,14 +1,19 @@
 """Sampler base: user-callable wrapping, trainer, kernels, artifacts.
 
-Port of the main-path part of ``nnest_tpu/samplers/base.py``:
+Port of ``nnest_tpu/samplers/base.py`` without meshes:
 
 - one likelihood convention: the user's ``loglike`` receives a (batch, d)
-  float32 tensor on the sampler's device (after ``transform``) and returns
-  a (batch,) log likelihood. The host wrapper (numpy in, float64 out,
-  non-finite values clamped to -1e100, calls counted) and the device
-  function used inside the kernels (non-finite values sanitized to
+  float32 tensor on the sampler's device (after the sampler transform)
+  and returns a (batch,) log likelihood. The host wrapper (numpy in,
+  float64 out, non-finite values clamped to -1e100, calls counted) and the
+  device function used inside the kernels (non-finite values sanitized to
   ``LOG_NEG``) both call it. This replaces the JAX split between traced
   and ``io_callback`` likelihoods;
+- one sampler transform, set in one place (:meth:`Sampler.set_transform`;
+  the MCMC and ensemble samplers' ``run`` make it the de-normalisation of
+  their training set): the device likelihood, the device prior (on the
+  transformed point when ``transform_prior``), the host ``loglike`` and
+  ``prior`` and :meth:`Sampler.transform` all read it;
 - capacity autoscale of the conditioner width (16/32/64 by dimension);
 - the flows of ``build_flow`` (``flow``, ``num_slow``, ``num_layers``,
   ``scale``, ``base_dist``), and the fast-slow Metropolis proposal with
@@ -19,9 +24,17 @@ Port of the main-path part of ``nnest_tpu/samplers/base.py``:
   generation (the inputs of ``adjusted_logzerr``);
 - batched prior rejection, flow rejection inside the cached Jacobian
   envelope and flow-density draws, with their counters;
-- getdist-style ``chain.txt`` and ``params.txt``.
+- the posterior samplers' entry points: ``_mcmc_sample`` (full-MH or
+  constrained Metropolis chains with their trajectories) and
+  ``_ensemble_sample`` (the latent ensemble), both started by ``_mcmc_init``
+  style starts (given points re-projected through forward and inverse, or
+  base draws until prior and likelihood are finite), and the chain
+  statistics of ``utils/evaluation.py``;
+- getdist-style ``chain.txt`` (``chain_<i>.txt`` a chain for trajectories)
+  and ``params.txt``.
 
-Derived parameters and meshes are not ported yet (see ROADMAP.md).
+Derived parameters, meshes and trace plots are not ported yet (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,8 +49,12 @@ import torch
 from nnest_torch.samplers.kernels import LatentKernels
 from nnest_torch.training.trainer import Trainer
 from nnest_torch.utils.device import resolve_device
-from nnest_torch.utils.evaluation import (eig_mix_from_moments,
+from nnest_torch.utils.evaluation import (acceptance_rate,
+                                          effective_sample_size,
+                                          eig_mix_from_moments,
+                                          gelman_rubin_diagnostic,
                                           latent_cond_null,
+                                          mean_jump_distance,
                                           metropolis_mix_null, slice_mix_null)
 from nnest_torch.utils.logger import create_logger, get_or_create_run_dir
 
@@ -46,6 +63,10 @@ def _to_numpy(a):
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def _identity(u):
+    return u
 
 
 class Sampler:
@@ -68,6 +89,7 @@ class Sampler:
                  base_dist=None,
                  scale='',
                  trainer=None,
+                 transform_prior=True,
                  oversample_rate=-1,
                  log_level=logging.INFO,
                  param_names=None,
@@ -93,9 +115,14 @@ class Sampler:
             hidden_dim = 16 if x_dim < 16 else (32 if x_dim < 32 else 64)
 
         self._user_loglike = loglike
-        self._user_transform = transform if transform is not None else (
-            lambda x: x)
         self._user_prior = prior
+        # the prior is of transform(u) (the MCMC and ensemble samplers'
+        # physical points), else of u itself (the nested sampler's cube)
+        self._transform_prior = transform_prior
+        self.sample_prior = getattr(prior, 'sample', None)
+        if not callable(self.sample_prior):
+            self.sample_prior = None
+        self.set_transform(transform)
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(seed))
 
@@ -127,7 +154,6 @@ class Sampler:
         self.total_calls = 0
         # likelihood calls of fast-only Metropolis proposals
         self.total_fast_calls = 0
-        self._kernels = None
         self._last_kernel_stats = None
         # Per-generation mixing history of the current run() (see
         # _consume_endpoint_out) and the flow-rejection envelope cache.
@@ -151,16 +177,34 @@ class Sampler:
         with open(os.path.join(self.logs['info'], 'params.txt'), 'w') as f:
             json.dump({k: str(v) for k, v in d.items()}, f, indent=4)
 
+    def set_transform(self, transform):
+        """Make ``transform`` the sampler transform, the map from the space
+        the chains move in to the likelihood's: a function of a (batch, d)
+        tensor that keeps its dtype and device, or None for the identity.
+        It is kept here only: the device likelihood, the device prior
+        (when ``transform_prior``), the host :meth:`loglike`,
+        :meth:`prior` and :meth:`transform` all read it, so they cannot
+        disagree. The cached kernels are dropped."""
+        self._transform_fn = transform if transform is not None else (
+            _identity)
+        self.invalidate_kernels()
+
+    def invalidate_kernels(self):
+        """Drop the cached :class:`LatentKernels`; the next use builds them
+        anew on the trainer's flow."""
+        self._kernels = None
+
     def transform(self, u):
-        """Unit-cube points (numpy) → physical points (numpy float64)."""
+        """Points of the chains' space (numpy) → the likelihood's space
+        (numpy float64, computed in float64)."""
         u = torch.as_tensor(np.atleast_2d(np.asarray(u, dtype=np.float64)),
                             device=self.device)
-        return np.asarray(_to_numpy(self._user_transform(u)),
+        return np.asarray(_to_numpy(self._transform_fn(u)),
                           dtype=np.float64)
 
     def _device_loglike(self, u):
         """(batch, d) float32 tensor → (batch,) float32 log likelihood."""
-        logl = self._user_loglike(self._user_transform(u))
+        logl = self._user_loglike(self._transform_fn(u))
         return torch.as_tensor(logl, dtype=torch.float32, device=u.device)
 
     def loglike(self, u):
@@ -175,9 +219,22 @@ class Sampler:
         return logl
 
     def _device_prior(self, u):
+        """(batch, d) tensor → (batch,) log prior, of ``transform(u)`` when
+        ``transform_prior``."""
         if self._user_prior is None:
-            return torch.zeros(u.shape[0], device=u.device)
+            return torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
+        if self._transform_prior:
+            u = self._transform_fn(u)
         return self._user_prior.logpdf(u)
+
+    def prior(self, u):
+        """Host log prior: numpy points in (computed in float64), float64
+        out."""
+        u = torch.as_tensor(np.atleast_2d(np.asarray(u, dtype=np.float64)),
+                            device=self.device)
+        with torch.no_grad():
+            lp = self._device_prior(u)
+        return np.asarray(_to_numpy(lp), dtype=np.float64).reshape(-1)
 
     @property
     def kernels(self) -> LatentKernels:
@@ -281,6 +338,149 @@ class Sampler:
             out, mix_null=slice_mix_null(slice_steps, self.x_dim),
             cond_null=latent_cond_null(self.x_dim, num_chains))
 
+    # ------------------------------------------- posterior chains, ensemble
+
+    def _mcmc_init(self, num_chains, init_samples, init_loglikes,
+                   max_start_tries):
+        """Latent chain starts: given points ``init_samples`` re-projected
+        through forward then inverse (numerical consistency), with their
+        host log likelihoods unless ``init_loglikes`` gives them; else base
+        draws through the flow's inverse until every start has a finite
+        prior and likelihood (``max_start_tries`` tries, then a
+        RuntimeError). Returns (z0, logl0, logl_prior0, the likelihood
+        calls this paid), the first three as float32 tensors."""
+        self.trainer.ensure_init()
+        model = self.trainer.model
+        f32 = torch.float32
+        ncall = 0
+        with torch.no_grad():
+            if init_samples is not None:
+                z, _ = model(torch.as_tensor(
+                    np.asarray(init_samples, dtype=np.float32),
+                    device=self.device))
+                x, _ = model.inverse(z)
+                lp_prior = self._device_prior(x)
+                if init_loglikes is None:
+                    logl = self.loglike(_to_numpy(x))
+                    ncall += z.shape[0]
+                else:
+                    logl = np.asarray(init_loglikes)
+            else:
+                for i in range(max_start_tries):
+                    z = model.sample_base(num_chains, self.generator)
+                    x = _to_numpy(model.inverse(z)[0])
+                    logl = self.loglike(x)
+                    ncall += num_chains
+                    lp_prior = self.prior(x)
+                    if np.all(logl > -1e30) and np.all(lp_prior > -1e30):
+                        break
+                    if i == max_start_tries - 1:
+                        raise RuntimeError('Could not find starting value')
+        return (z, torch.as_tensor(logl, dtype=f32, device=self.device),
+                torch.as_tensor(lp_prior, dtype=f32, device=self.device),
+                ncall)
+
+    def _mcmc_sample(self, mcmc_steps, step_size=0.0,
+                     dynamic_step_size=False, num_chains=1,
+                     init_samples=None, init_loglikes=None, loglstar=None,
+                     max_start_tries=100, output_interval=None,
+                     prior_volume_steps=1):
+        """Metropolis chains in the latent space, with their trajectories:
+        full MH, or constrained by ``loglstar``; starts from
+        :meth:`_mcmc_init`, step size 2/sqrt(x_dim) unless given. The
+        whole trajectory stays on the device and is fetched once at the
+        end. With ``output_interval`` (any value) the transformed chains
+        are written as ``chains/chain_<i>.txt``.
+
+        Returns (samples, latent, loglikes, scale, ncall): samples and
+        latent (chains, steps + 1, x_dim) and loglikes (chains, steps + 1)
+        in float64, samples in the chains' space (before the transform);
+        ncall includes the starts' likelihood calls."""
+        if step_size <= 0.0:
+            step_size = 2.0 / self.x_dim ** 0.5
+        z0, logl0, lp_prior0, ncall_init = self._mcmc_init(
+            num_chains, init_samples, init_loglikes, max_start_tries)
+        out = self.kernels.mcmc(
+            self.generator, z0, logl0, lp_prior0, loglstar=loglstar,
+            step_size=step_size, mcmc_steps=mcmc_steps,
+            dynamic_step_size=dynamic_step_size,
+            prior_volume_steps=prior_volume_steps, collect_chains=True)
+        out = {k: _to_numpy(v) for k, v in out.items()}
+        samples = out['samples'].astype(np.float64)
+        loglikes = out['loglikes'].astype(np.float64)
+        self.total_calls += int(out['ncall'])
+        self.total_fast_calls += int(out['fast_calls'])
+        self.total_accepted += int(out['accepted'])
+        self.total_rejected += int(out['rejected'])
+        if output_interval is not None:
+            self._save_samples(self._physical(samples), loglikes)
+        return (samples, out['latent'].astype(np.float64), loglikes,
+                float(out['scale']), int(out['ncall']) + ncall_init)
+
+    def _ensemble_sample(self, mcmc_steps, num_walkers, init_samples=None,
+                         loglstar=None, max_start_tries=100, moves=None):
+        """The latent ensemble (:meth:`LatentKernels.stretch`) with the
+        move zoo: ``moves`` a dict {name: weight} or (name, weight) pairs,
+        by default the stretch move alone. The walkers start at the
+        forward images of ``init_samples``, or at base draws through the
+        inverse once all lie inside the prior.
+
+        Returns (samples, latent, loglikes, ncall): samples and latent
+        (walkers, steps + 1, x_dim) and loglikes (walkers, steps + 1) in
+        float64, samples before the transform."""
+        if moves is None:
+            moves = (('stretch', 1.0),)
+        elif isinstance(moves, dict):
+            moves = tuple(moves.items())
+        else:
+            moves = tuple(moves)
+        self.trainer.ensure_init()
+        model = self.trainer.model
+        with torch.no_grad():
+            if init_samples is not None:
+                z, _ = model(torch.as_tensor(
+                    np.asarray(init_samples, dtype=np.float32),
+                    device=self.device))
+            else:
+                for i in range(max_start_tries):
+                    z = model.sample_base(num_walkers, self.generator)
+                    x = _to_numpy(model.inverse(z)[0])
+                    if np.all(self.prior(x) > -1e30):
+                        break
+                    if i == max_start_tries - 1:
+                        raise RuntimeError('Could not find starting value')
+        out = self.kernels.stretch(self.generator, z, mcmc_steps=mcmc_steps,
+                                   loglstar=loglstar, moves=moves)
+        out = {k: _to_numpy(v) for k, v in out.items()}
+        samples = out['samples'].astype(np.float64)
+        ncall = int(out['ncall'])
+        self.total_calls += ncall
+        self.total_accepted += int(out['accepted'])
+        self.total_rejected += int(out['rejected'])
+        return (samples, out['latent'].astype(np.float64),
+                out['loglikes'].astype(np.float64), ncall)
+
+    def _physical(self, samples):
+        """Chains (chains, steps, x_dim) through the sampler transform."""
+        return self.transform(samples.reshape(-1, self.x_dim)).reshape(
+            samples.shape)
+
+    def _chain_stats(self, samples):
+        """Log the acceptance, ESS range, mean jump and largest R-hat of
+        chains (chains, steps, dim); returns (acceptance, ess, jump)."""
+        flat = samples.reshape(-1, samples.shape[2])
+        ess = effective_sample_size(samples, np.mean(flat, axis=0),
+                                    np.std(flat, axis=0) ** 2)
+        acceptance = acceptance_rate(samples)
+        jump = mean_jump_distance(samples)
+        rhat = (float(np.max(gelman_rubin_diagnostic(samples)))
+                if samples.shape[0] > 1 else float('nan'))
+        self.logger.info(
+            'Acceptance [%5.4f] min ESS [%5.4f] max ESS [%5.4f] average '
+            'jump [%5.4f] max R-hat [%5.4f]' % (
+                acceptance, np.min(ess), np.max(ess), jump, rhat))
+        return acceptance, ess, jump
+
     # --------------------------------------------------------- rejection
 
     def _rejection_prior_sample(self, loglstar, num_trials=512):
@@ -336,7 +536,9 @@ class Sampler:
 
     def _save_samples(self, samples, loglikes, weights=None,
                       min_weight=1e-30, outfile='chain'):
-        """getdist/CosmoMC text chain: rows of `weight -loglike params`."""
+        """getdist/CosmoMC text chain: rows of `weight -loglike params`.
+        Samples (chains, steps, dim) write one file a chain,
+        ``<outfile>_<i>.txt`` with i from 1."""
         if self.logs is None:
             return
         if weights is None:
@@ -344,7 +546,17 @@ class Sampler:
         header = ''
         if self.param_names is not None:
             header = 'weight minusloglike ' + ' '.join(self.param_names)
-        mat = np.hstack([np.maximum(weights, min_weight)[:, None],
-                         -np.asarray(loglikes)[:, None], samples])
-        np.savetxt(os.path.join(self.logs['chains'], outfile + '.txt'), mat,
-                   fmt='%.5E', header=header, comments='#' if header else '')
+
+        def write(name, s, ll, w):
+            mat = np.hstack([np.maximum(w, min_weight)[:, None],
+                             -np.asarray(ll)[:, None], s])
+            np.savetxt(os.path.join(self.logs['chains'], name + '.txt'), mat,
+                       fmt='%.5E', header=header,
+                       comments='#' if header else '')
+
+        if samples.ndim == 2:
+            write(outfile, samples, loglikes, weights)
+        else:
+            for i in range(samples.shape[0]):
+                write('%s_%d' % (outfile, i + 1), samples[i], loglikes[i],
+                      weights[i])

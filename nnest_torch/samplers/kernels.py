@@ -3,27 +3,32 @@
 Port of the single-device part of ``nnest_tpu/samplers/kernels.py``:
 constrained (nested) and full Metropolis-Hastings latent MCMC with the
 covariance-preconditioned proposal, dynamic step size and the fast-slow
-proposal mask, constrained latent slice sampling (stepping-out and
-shrinkage to acceptance, with covariance-adapted directions), the
-red-black chain starts drawn from the live set, batched prior rejection,
-flow rejection inside the Jacobian envelope (in the latent ball, or in the
-base's box where it has ``usample``), flow-density draws, and the
-on-device chain diagnostics (ESS, start decorrelation, second moments).
+proposal mask, in endpoint or collect-chains mode, constrained latent
+slice sampling (stepping-out and shrinkage to acceptance, with
+covariance-adapted directions), the red-black chain starts drawn from the
+live set, the latent ensemble (red-black half updates with the stretch,
+DE, DE-snooker and KDE moves), batched prior rejection, flow rejection
+inside the Jacobian envelope (in the latent ball, or in the base's box
+where it has ``usample``), flow-density draws, and the on-device chain
+diagnostics (ESS, start decorrelation, second moments).
 
 The JAX ``lax.scan`` becomes a Python loop over steps with the chains as
 the batch dimension; accept/reject stay masks (``torch.where``) and every
-counter stays a device tensor, so a Metropolis step never waits on the
-host (a slice step reads one flag a shrinkage iteration to stop the loop).
-Random numbers come from the caller's ``torch.Generator``; the slice and
+counter stays a device tensor, so a Metropolis or ensemble step never
+waits on the host (a slice step reads one flag a shrinkage iteration to
+stop the loop; an ensemble call reads its moves once). Random numbers come
+from the caller's ``torch.Generator``; the slice, ensemble and
 flow-rejection kernels draw them in one function and take them as tensors
 in a deterministic body. Every flow inverse inside a step, and the one
-inverse of all trials of a flow-rejection or flow-density generation, goes
-through :meth:`LatentKernels._hot_inverse`, which for a single-speed
-spline flow on the GPU is the hand-written CUDA kernel
-(``ops/spline_inverse.py``).
+inverse of all trials of a flow-rejection or flow-density generation or of
+an ensemble's trajectory, goes through :meth:`LatentKernels._hot_inverse`,
+which for a single-speed spline flow on the GPU is the hand-written CUDA
+kernel (``ops/spline_inverse.py``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -176,7 +181,8 @@ class LatentKernels:
         them in constrained mode): standard normals, accept uniforms and
         the 0-dim fast-move uniform (None for a single-speed flow).
         Returns the new state, the accept mask, the proposal's x and the
-        likelihood-call count."""
+        likelihood-call count (a tensor in constrained mode, the chain
+        count as an int in full MH: a step makes no host tensor)."""
         z, x, ldj, logl, logl_prior = state
 
         def propose(dz, u_fast):
@@ -217,7 +223,7 @@ class LatentKernels:
             log_ratio = ((ldj_new - ldj) + (logl_prop - logl)
                          + (lp_prior_new - logl_prior))
             accept = _accept_mask(u, log_ratio)
-            n_evals = torch.tensor(z.shape[0], device=z.device)
+            n_evals = z.shape[0]
 
         acol = accept[:, None]
         new_state = (torch.where(acol, z_new, z), torch.where(acol, x_new, x),
@@ -230,14 +236,27 @@ class LatentKernels:
     def mcmc(self, generator, z0, logl0, logl_prior0, *, loglstar=None,
              step_size, mcmc_steps, dynamic_step_size=False,
              prior_volume_steps=1, stat_moments=None, cov_from=None,
-             cov_mask=None):
-        """Multi-chain latent Metropolis, endpoint mode: returns each
-        chain's final state, a per-chain ``moved`` flag and statistics over
-        all chains and steps (ESS, acceptance, mean jump, start
-        decorrelation). Constrained (nested) mode when ``loglstar`` is
-        given: accept on the prior+Jacobian ratio, then require
-        logl > loglstar. ``cov_from``/``cov_mask`` enable the proposal
-        dz ~ N(0, scale^2 C) with C from the masked live rows."""
+             cov_mask=None, collect_chains=False, draws=None):
+        """Multi-chain latent Metropolis. Constrained (nested) mode when
+        ``loglstar`` is given: accept on the prior+Jacobian ratio, then
+        require logl > loglstar; full Metropolis-Hastings otherwise (the
+        ratio of logl + log prior + log|dx/dz|). ``cov_from``/``cov_mask``
+        enable the proposal dz ~ N(0, scale^2 C) with C from the masked
+        live rows.
+
+        Endpoint mode returns each chain's final state, a per-chain
+        ``moved`` flag and statistics over all chains and steps (ESS,
+        acceptance, mean jump, start decorrelation). ``collect_chains``
+        returns the trajectories instead, stacked (chains, steps + 1, .)
+        with the start first: ``samples`` (x), ``latent`` (z) and
+        ``loglikes``; they stay on the device until the caller fetches
+        them. Both return ``scale``, ``ncall``, ``fast_calls``,
+        ``accepted`` and ``rejected``.
+
+        The step loop reads nothing back to the host. Each step draws its
+        (dz, u, u_fast) triples from ``generator`` (one triple per
+        proposal, see :meth:`step`); ``draws``, a list of one such list a
+        step, replaces them (the tests feed the JAX package's numbers)."""
         constrained = loglstar is not None
         device = z0.device
         num_chains, dim = z0.shape
@@ -256,34 +275,37 @@ class LatentKernels:
         total_acc = torch.zeros((), dtype=torch.int64, device=device)
         moved = torch.zeros(num_chains, dtype=torch.bool, device=device)
         jump = torch.zeros((), device=device)
-        xs = [x0]
+        xs, zs, logls = [x0], [z0], [state[3]]
         n_draws = prior_volume_steps if constrained else 1
-        for _ in range(mcmc_steps):
-            draws = [(torch.randn(num_chains, dim, generator=generator,
-                                  device=device),
-                      torch.rand(num_chains, generator=generator,
-                                 device=device),
-                      torch.rand((), generator=generator, device=device)
-                      if self.num_slow > 0 else None)
-                     for _ in range(n_draws)]
+        for s in range(mcmc_steps):
+            step_draws = draws[s] if draws is not None else [
+                (torch.randn(num_chains, dim, generator=generator,
+                             device=device),
+                 torch.rand(num_chains, generator=generator, device=device),
+                 torch.rand((), generator=generator, device=device)
+                 if self.num_slow > 0 else None)
+                for _ in range(n_draws)]
             x_old = state[1]
             state, accept, x_new, n_evals = self.step(
-                state, inverse, draws, loglstar=ll_star, scale=scale,
+                state, inverse, step_draws, loglstar=ll_star, scale=scale,
                 cov_chol=cov_chol)
             ncall = ncall + n_evals
             if self.num_slow > 0:
                 # the calls of a step whose (last) proposal moved the fast
                 # dims only
                 fast_calls = fast_calls + torch.where(
-                    draws[-1][2] < self.oversample_rate, n_evals,
-                    torch.zeros_like(n_evals))
+                    step_draws[-1][2] < self.oversample_rate, n_evals, 0)
             n_acc = torch.sum(accept.to(torch.int64))
             total_acc = total_acc + n_acc
-            moved = moved | accept
-            jump = jump + torch.sum(torch.where(
-                accept, torch.linalg.norm(x_new - x_old, dim=-1),
-                torch.zeros_like(jump)))
             xs.append(state[1])
+            if collect_chains:
+                zs.append(state[0])
+                logls.append(state[3])
+            else:
+                moved = moved | accept
+                jump = jump + torch.sum(torch.where(
+                    accept, torch.linalg.norm(x_new - x_old, dim=-1),
+                    torch.zeros_like(jump)))
             if dynamic_step_size:
                 # adapt toward 50% acceptance
                 win = 2 * n_acc > num_chains
@@ -296,26 +318,30 @@ class LatentKernels:
                                     scale / torch.exp(1.0 / (1.0 + rej_ctr)),
                                     scale)
 
-        z_end, x_end, _, logl_end, _ = state
+        common = {'scale': scale, 'ncall': ncall, 'fast_calls': fast_calls,
+                  'accepted': total_acc,
+                  'rejected': mcmc_steps * num_chains - total_acc}
         chains = torch.stack(xs, dim=1)
+        if collect_chains:
+            return dict(common, samples=chains,
+                        latent=torch.stack(zs, dim=1),
+                        loglikes=torch.stack(logls, dim=1))
+        z_end, x_end, _, logl_end, _ = state
         if stat_moments is None:
             mu = torch.mean(chains, dim=(0, 1))
             var = torch.var(chains, dim=(0, 1), unbiased=False)
         else:
             mu, var = stat_moments
         mix_cov, mix_msd = mix_moments_device(z_end, z0)
-        return {
+        return dict(common, **{
             'final_x': x_end, 'final_z': z_end, 'final_logl': logl_end,
-            'moved': moved, 'scale': scale, 'ncall': ncall,
-            'fast_calls': fast_calls,
+            'moved': moved,
             'mean_jump': jump / torch.clamp(total_acc, min=1),
             'mix_ratio': mix_ratio_device(z_end, z0),
             'mix_cov': mix_cov, 'mix_msd': mix_msd,
             'ess': ess_device(chains, mu, var),
             'acceptance': total_acc / float(mcmc_steps * num_chains),
-            'accepted': total_acc,
-            'rejected': mcmc_steps * num_chains - total_acc,
-        }
+        })
 
     @staticmethod
     def _red_black_split(generator, n_live):
@@ -555,6 +581,133 @@ class LatentKernels:
             max_expand=max_expand, stat_moments=(mu, var),
             cov_from=active_u if adapt_cov else None, cov_mask=cov_mask)
 
+    # --------------------------------------------------------- ensemble
+
+    def latent_log_prob(self, z, loglstar=None, inverse=None):
+        """The ensemble's latent target at z, with x = flow^-1(z): (log
+        prob, logl). The log prob is logl(x) + log|dx/dz| + log prior(x);
+        with ``loglstar`` (a 0-dim tensor) it is the constrained variant,
+        log|dx/dz| + log prior(x) where logl > loglstar and ``LOG_NEG``
+        elsewhere."""
+        if inverse is None:
+            inverse = self._hot_inverse()
+        x, ldj = inverse(z)
+        logl = self.like_fn(x)
+        lp_prior = self.prior_fn(x)
+        if loglstar is not None:
+            lp = torch.where(logl > loglstar, ldj + lp_prior,
+                             torch.full_like(ldj, LOG_NEG))
+        else:
+            lp = logl + ldj + lp_prior
+        return lp, logl
+
+    @staticmethod
+    def stretch_draws(generator, mcmc_steps, num_walkers, dim,
+                      moves=(('stretch', 1.0),)):
+        """Every random draw of one ensemble call, as a dict: ``move``
+        (steps,) the index into ``moves`` of each step's move, drawn by
+        weight; then, for each step and half-update (half 0 moves the
+        first n = num_walkers / 2 walkers, half 1 the rest): ``idx``
+        (steps, 2, 3, n) partner rows of the other half (stretch and kde
+        take the first, de two, snooker three), ``zeta`` (steps, 2, n) the
+        stretch factor's uniforms, ``normal`` (steps, 2, n, dim) the de and
+        kde noise and ``accept`` (steps, 2, n) the accept uniforms. A
+        step's unused draws are drawn all the same."""
+        if num_walkers % 2:
+            raise ValueError('the ensemble needs an even number of walkers, '
+                             'got %d' % num_walkers)
+        device = generator.device
+        half = num_walkers // 2
+        weights = torch.tensor([float(w) for _, w in moves], device=device)
+        move = (torch.multinomial(weights, mcmc_steps, replacement=True,
+                                  generator=generator) if mcmc_steps > 0
+                else torch.zeros(0, dtype=torch.int64, device=device))
+        shape = (mcmc_steps, 2)
+        return {
+            'move': move,
+            'idx': torch.randint(0, half, shape + (3, half),
+                                 generator=generator, device=device),
+            'zeta': torch.rand(shape + (half,), generator=generator,
+                               device=device),
+            'normal': torch.randn(shape + (half, dim), generator=generator,
+                                  device=device),
+            'accept': torch.rand(shape + (half,), generator=generator,
+                                 device=device),
+        }
+
+    @torch.no_grad()
+    def stretch_body(self, draws, z0, *, loglstar=None, a=2.0,
+                     moves=(('stretch', 1.0),)):
+        """Affine-invariant ensemble sampling in the latent space on given
+        draws (:meth:`stretch_draws`): red-black half-ensemble updates, the
+        first half against the second, then the second against the first
+        half's new positions, with one move a step from the zoo of
+        ``moves`` ((name, weight) pairs): 'stretch' (Goodman & Weare, scale
+        ``a``), 'de' (differential evolution), 'snooker' (DE-snooker) and
+        'kde' (an independence proposal from the other half's Gaussian KDE
+        with a diagonal Scott's-rule bandwidth, the JAX package's
+        documented departure from scipy's full-covariance KDE).
+
+        The move indices are copied to the host once, so each step's move
+        is a Python branch with no device read; every half-update is one
+        launch of the hot inverse, and one more inverse over the whole
+        latent trajectory ((steps + 1) x walkers rows) gives the samples.
+
+        Returns ``samples`` and ``latent`` (walkers, steps + 1, dim),
+        ``loglikes`` and ``log_probs`` (walkers, steps + 1), ``ncall``
+        (steps x walkers, an int), ``accepted`` and ``rejected``."""
+        names = [name.lower() for name, _ in moves]
+        unknown = sorted(set(names) - set(_MOVES))
+        if unknown:
+            raise ValueError('unknown ensemble move(s) %s; choose from %s'
+                             % (unknown, list(_MOVES)))
+        num_walkers, dim = z0.shape
+        half = num_walkers // 2
+        steps = draws['move'].shape[0]
+        ll_star = None if loglstar is None else _f32(loglstar, z0)
+        inverse = self._hot_inverse()
+        lp, logl = self.latent_log_prob(z0, ll_star, inverse)
+        z = z0
+        zs, logls, lps = [z0], [logl], [lp]
+        total_acc = torch.zeros((), dtype=torch.int64, device=z0.device)
+        # the call's one device-to-host read: every step's move
+        for s, m in enumerate(draws['move'].tolist()):
+            propose = _MOVES[names[m]]
+            parts = []
+            for h, (lo, hi) in enumerate(((0, half), (half, num_walkers))):
+                other = z[half:] if h == 0 else parts[0][0]
+                prop, extra = propose(z[lo:hi], other, draws['idx'][s, h],
+                                      draws['zeta'][s, h],
+                                      draws['normal'][s, h], a)
+                lp_prop, logl_prop = self.latent_log_prob(prop, ll_star,
+                                                          inverse)
+                acc = _accept_mask(draws['accept'][s, h],
+                                   extra + lp_prop - lp[lo:hi])
+                parts.append((torch.where(acc[:, None], prop, z[lo:hi]),
+                              torch.where(acc, lp_prop, lp[lo:hi]),
+                              torch.where(acc, logl_prop, logl[lo:hi])))
+                total_acc = total_acc + torch.sum(acc.to(torch.int64))
+            z, lp, logl = (torch.cat(t) for t in zip(*parts))
+            zs.append(z)
+            lps.append(lp)
+            logls.append(logl)
+        latent = torch.stack(zs, dim=1)
+        samples, _ = inverse(latent.reshape(-1, dim))
+        return {'samples': samples.reshape(latent.shape), 'latent': latent,
+                'loglikes': torch.stack(logls, dim=1),
+                'log_probs': torch.stack(lps, dim=1),
+                'ncall': steps * num_walkers, 'accepted': total_acc,
+                'rejected': steps * num_walkers - total_acc}
+
+    def stretch(self, generator, z0, *, mcmc_steps, loglstar=None, a=2.0,
+                moves=(('stretch', 1.0),)):
+        """One ensemble call from the walkers' latent starts ``z0``:
+        :meth:`stretch_draws`, then :meth:`stretch_body`."""
+        draws = self.stretch_draws(generator, mcmc_steps, z0.shape[0],
+                                   z0.shape[1], moves)
+        return self.stretch_body(draws, z0, loglstar=loglstar, a=a,
+                                 moves=moves)
+
     # -------------------------------------------------------- rejection
 
     @torch.no_grad()
@@ -662,3 +815,66 @@ class LatentKernels:
 def _f32(value, like):
     """``value`` as a float32 tensor on ``like``'s device."""
     return torch.as_tensor(value, dtype=torch.float32, device=like.device)
+
+
+# The ensemble's moves: each maps (the moving walkers, the other half, the
+# step's partner rows, stretch uniforms, normals, a) to (proposal, log of
+# the MH factor), the proposal algorithms emcee implements.
+
+def _stretch_move(z, other, idx, zeta_u, normal, a):
+    """Goodman & Weare: z' = p + zeta (z - p), g(zeta) ~ 1/sqrt(zeta) on
+    [1/a, a], factor zeta^(dim - 1)."""
+    zeta = ((a - 1.0) * zeta_u + 1.0) ** 2 / a
+    partner = other[idx[0]]
+    return (partner + zeta[:, None] * (z - partner),
+            (z.shape[1] - 1.0) * torch.log(zeta))
+
+
+def _de_move(z, other, idx, zeta_u, normal, a):
+    """Differential evolution: z' = z + g0 (p1 - p2) + 1e-5 n, g0 =
+    2.38 / sqrt(2 dim); symmetric."""
+    g0 = 2.38 / math.sqrt(2.0 * z.shape[1])
+    return (z + g0 * (other[idx[0]] - other[idx[1]]) + 1e-5 * normal,
+            torch.zeros_like(zeta_u))
+
+
+def _snooker_move(z, other, idx, zeta_u, normal, a):
+    """DE-snooker (ter Braak & Vrugt 2008): along u = (z - p1)/|z - p1|,
+    z' = z + 1.7 ((p2 - p3) . u) u, factor (|z' - p1| / |z - p1|)^(dim-1)."""
+    p1, p2, p3 = other[idx[0]], other[idx[1]], other[idx[2]]
+    d_vec = z - p1
+    norm = torch.clamp(torch.linalg.norm(d_vec, dim=1, keepdim=True),
+                       min=1e-12)
+    d_hat = d_vec / norm
+    proj = torch.sum((p2 - p3) * d_hat, dim=1, keepdim=True)
+    prop = z + 1.7 * proj * d_hat
+    norm_new = torch.clamp(torch.linalg.norm(prop - p1, dim=1), min=1e-12)
+    return prop, (z.shape[1] - 1.0) * (torch.log(norm_new)
+                                       - torch.log(norm[:, 0]))
+
+
+def _kde_logq(pts, other, h):
+    """Log density at ``pts`` of the Gaussian KDE of ``other`` with the
+    diagonal bandwidth ``h``: pairwise |p|^2 + |o|^2 - 2 p.o (scaled by
+    h), clamped at 0, then logsumexp."""
+    m, dim = other.shape
+    ph, oh = pts / h, other / h
+    d2 = (torch.sum(ph ** 2, dim=1)[:, None] + torch.sum(oh ** 2, dim=1)[None]
+          - 2.0 * (ph @ oh.T))
+    return (torch.logsumexp(-0.5 * torch.clamp(d2, min=0.0), dim=1)
+            - math.log(m) - torch.sum(torch.log(h))
+            - 0.5 * dim * math.log(2.0 * math.pi))
+
+
+def _kde_move(z, other, idx, zeta_u, normal, a):
+    """Independence proposal from the other half's KDE (Scott's-rule
+    diagonal bandwidth): z' = p + h n, factor q(z) / q(z')."""
+    m, dim = other.shape
+    h = ((torch.std(other, dim=0, unbiased=False) + 1e-6)
+         * m ** (-1.0 / (dim + 4)))
+    prop = other[idx[0]] + h * normal
+    return prop, _kde_logq(z, other, h) - _kde_logq(prop, other, h)
+
+
+_MOVES = {'stretch': _stretch_move, 'de': _de_move,
+          'snooker': _snooker_move, 'kde': _kde_move}

@@ -136,8 +136,9 @@ class NestedSampler(Sampler):
             num_blocks=num_blocks, num_layers=num_layers,
             learning_rate=learning_rate, log_dir=log_dir, resume=resume,
             base_dist=base_dist, scale=scale, trainer=trainer,
-            oversample_rate=oversample_rate, log_level=log_level,
-            param_names=param_names, seed=seed, device=device)
+            transform_prior=False, oversample_rate=oversample_rate,
+            log_level=log_level, param_names=param_names, seed=seed,
+            device=device)
         self.num_live_points = num_live_points
         self._save_params({'num_live_points': num_live_points})
         self.logger.info('Num live points [%d]' % self.num_live_points)

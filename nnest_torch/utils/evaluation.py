@@ -1,9 +1,15 @@
-"""Run diagnostics of a nested-sampling run, in host numpy (float64).
+"""Chain and run diagnostics, in host numpy (float64).
 
-The port's own copy of the run-diagnostic functions of
+The port's own copy of the diagnostic functions of
 ``nnest_tpu/utils/evaluation.py`` (the port imports nothing from the JAX
-package; these are pure numpy there too):
+package; these are pure numpy there too, where the JAX package's optional
+C++ runtime does not take them):
 
+- the chain diagnostics of the MCMC and ensemble samplers, on chains shaped
+  (num_chains, num_steps, dim): :func:`auto_correlation_time`,
+  :func:`effective_sample_size`, :func:`acceptance_rate`,
+  :func:`mean_jump_distance`, :func:`gelman_rubin_diagnostic` and
+  :func:`integrated_autocorr_time` (the bootstrap's thinning);
 - the insertion-index uniformity test (Fowlie, Handley & Su 2020,
   arXiv:2006.03371): :func:`kolmogorov_pvalue`, :func:`insertion_ks`,
   :func:`rolling_insertion_ks`;
@@ -12,15 +18,92 @@ package; these are pure numpy there too):
 - the calibrated single-run error bar: the healthy-run nulls
   :func:`metropolis_mix_null` and :func:`latent_cond_null`,
   :func:`eig_mix_from_moments` (the eigenbasis mixing ratio and latent
-  condition number of one MCMC generation) and :func:`adjusted_logzerr`.
+  condition number of one MCMC generation), :func:`slice_mix_null` and
+  :func:`adjusted_logzerr`.
 
-The slice kernel's null and the merge/birth functions of dynamic nested
-sampling come with the slice strategy and the dynamic sampler.
+The merge/birth functions of dynamic nested sampling come with the dynamic
+sampler.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def auto_correlation_time(x, s, mu, var):
+    """Lag-s autocorrelation per dim, averaged over chains and steps."""
+    x = np.asarray(x)
+    y = x - mu
+    p, n = y[:, :-s, :], y[:, s:, :]
+    return np.mean(p * n, axis=(0, 1)) / var
+
+
+def effective_sample_size(x, mu, var):
+    """Truncated-autocorrelation ESS per dim (per chain): accumulate
+    2 rho_s (1 - s/t) over the dims with rho_s > 0.05 while any has it,
+    then ESS = t / (1 + sum)."""
+    x = np.asarray(x)
+    _, t, d = x.shape
+    ess = np.ones(d)
+    for s in range(1, t):
+        p = auto_correlation_time(x, s, mu, var)
+        active = p > 0.05
+        if not np.any(active):
+            break
+        ess[active] += 2.0 * p[active] * (1.0 - float(s) / t)
+    return t / ess
+
+
+def acceptance_rate(x):
+    """Fraction of steps in which a chain moved."""
+    x = np.asarray(x)
+    moved = np.any(x[:, 1:, :] != x[:, :-1, :], axis=-1)
+    return float(np.mean(moved))
+
+
+def mean_jump_distance(x):
+    """Mean Euclidean length of a step, moves and stays alike."""
+    x = np.asarray(x)
+    jumps = np.linalg.norm(x[:, 1:, :] - x[:, :-1, :], axis=-1)
+    return float(np.mean(jumps))
+
+
+def gelman_rubin_diagnostic(x, mu=None):
+    """Gelman-Rubin R-hat per dim (with the reference's 1e-5
+    regularizer in the within-chain term)."""
+    x = np.asarray(x)
+    m, n = x.shape[0], x.shape[1]
+    theta = np.mean(x, axis=1)
+    sigma = np.var(x, axis=1)
+    theta_m = mu if mu is not None else np.mean(theta, axis=0)
+    b = float(n) / float(m - 1) * np.sum((theta - theta_m) ** 2, axis=0)
+    w = 1.0 / (float(m) * np.sum(sigma, axis=0) + 1e-5)
+    v = float(n - 1) / float(n) * w + float(m + 1) / float(m * n) * b
+    return np.sqrt(v / w)
+
+
+def integrated_autocorr_time(x, c: float = 5.0):
+    """Integrated autocorrelation time per dim, emcee's estimator: the
+    chain-averaged normalised autocorrelation from one FFT a chain, then
+    Sokal's window (the first lag M with M >= c tau(M)); at least 1."""
+    x = np.asarray(x, dtype=np.float64)
+    m, t, d = x.shape
+    taus = np.empty(d)
+    for j in range(d):
+        f = np.zeros(t)
+        for i in range(m):
+            y = x[i, :, j] - np.mean(x[i, :, j])
+            n = 1 << (2 * t - 1).bit_length()
+            fy = np.fft.fft(y, n=n)
+            acf = np.fft.ifft(fy * np.conjugate(fy))[:t].real
+            if acf[0] > 0:
+                f += acf / acf[0]
+        f /= m
+        taus_cum = 2.0 * np.cumsum(f) - 1.0
+        window = np.arange(len(taus_cum)) >= c * taus_cum
+        idx = np.argmax(window) if np.any(window) else len(taus_cum) - 1
+        taus[j] = max(taus_cum[idx], 1.0)
+    return taus
 
 
 def kolmogorov_pvalue(d, n):

@@ -137,3 +137,41 @@ def test_nested_sampler_launches_the_kernel(tmp_path):
     analytic = like.analytic_logz([-3.0, -3.0], [3.0, 3.0])
     assert abs(sampler.logz - analytic) <= max(3 * sampler.logzerr, 0.15)
     assert np.isfinite(sampler.logzerr)
+
+
+@pytest.mark.parametrize('n', [16, 32, 501 * 64])
+def test_kernel_at_the_posterior_samplers_shapes(n):
+    """A full-MH step's 16 chains, an ensemble half-update's 32 walkers and
+    a 64-walker, 500-step ensemble's trajectory inverse, at d = 16."""
+    _needs_gpu()
+    packed = pack_inverse_consts(_flow(16, seed=n))
+    z = 2.0 * torch.randn(n, 16, device='cuda')
+    x_k, ld_k = si.spline_inverse(z, packed)
+    x_p, ld_p = _inverse_body(z, packed)
+    torch.cuda.synchronize()
+    assert float((x_k - x_p).abs().max()) <= 3e-5
+    assert float((ld_k - ld_p).abs().max()) <= 3e-4
+
+
+def test_posterior_samplers_launch_the_kernel(tmp_path):
+    """MCMCSampler: one launch a step and one a call; EnsembleSampler.run:
+    two a step (the half-updates) and two a call (the starts' target and
+    the trajectory inverse); the plain twin is never called."""
+    _needs_gpu()
+    from nnest_torch import EnsembleSampler, MCMCSampler
+    from nnest_torch.likelihoods import Gaussian
+    from nnest_torch.ops import fused_spline
+    from nnest_torch.priors import UniformPrior
+    training = np.random.RandomState(0).normal(size=(500, 4))
+    for cls, per_step, per_call in ((MCMCSampler, 1, 1),
+                                    (EnsembleSampler, 2, 2)):
+        s = cls(4, Gaussian(4, 0.0), prior=UniformPrior(4, -5, 5),
+                log_dir=str(tmp_path / cls.__name__), seed=1)
+        before, twin = si.launches, fused_spline.calls
+        s.run(200, 16, training, train_iters=20)
+        torch.cuda.synchronize()
+        assert si.launches - before == 200 * per_step + per_call
+        assert fused_spline.calls == twin
+        samp = s.samples[:, 50:].reshape(-1, 4)
+        assert np.all(np.abs(samp.mean(axis=0)) < 0.3)
+        assert np.all(np.abs(samp.std(axis=0) - 1.0) < 0.3)

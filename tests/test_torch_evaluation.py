@@ -139,3 +139,50 @@ def test_sampler_records_eigenbasis_mixing_of_a_generation():
         assert sampler._last_kernel_stats['mix_ratio_eig'] == \
             sampler._mix_ratios_eig[-1]
     assert len(sampler._mix_rels) == len(sampler._cond_infl) == 2
+
+
+def _chains(kind, rs):
+    """(chains, steps, dim) test chains: iid normals, AR(1) walks with
+    rho 0.9, or Metropolis-like chains that stay put on 60% of steps."""
+    b, t, d = 6, 300, 3
+    if kind == 'iid':
+        return rs.normal(size=(b, t, d))
+    x = np.zeros((b, t, d))
+    for s in range(1, t):
+        if kind == 'ar':
+            x[:, s] = 0.9 * x[:, s - 1] + rs.normal(size=(b, d))
+        else:
+            stay = rs.uniform(size=(b, 1)) < 0.6
+            x[:, s] = np.where(stay, x[:, s - 1],
+                               0.5 * x[:, s - 1] + rs.normal(size=(b, d)))
+    return x
+
+
+@pytest.mark.parametrize('kind', ['iid', 'ar', 'sticky'])
+def test_chain_statistics_match_jax(kind):
+    """The MCMC and ensemble samplers' chain statistics: ESS (and the lag
+    autocorrelation under it), acceptance, mean jump, R-hat and the
+    bootstrap's integrated autocorrelation time."""
+    x = _chains(kind, np.random.RandomState(3))
+    mu, var = x.mean(axis=(0, 1)), x.var(axis=(0, 1))
+    for s in (1, 5, 40):
+        np.testing.assert_allclose(te.auto_correlation_time(x, s, mu, var),
+                                   je.auto_correlation_time(x, s, mu, var),
+                                   rtol=RTOL)
+    pairs = [(te.effective_sample_size(x, mu, var),
+              je.effective_sample_size(x, mu, var)),
+             (te.acceptance_rate(x), je.acceptance_rate(x)),
+             (te.mean_jump_distance(x), je.mean_jump_distance(x)),
+             (te.gelman_rubin_diagnostic(x), je.gelman_rubin_diagnostic(x)),
+             (te.gelman_rubin_diagnostic(x, mu=np.zeros(3)),
+              je.gelman_rubin_diagnostic(x, mu=np.zeros(3))),
+             (te.integrated_autocorr_time(x), je.integrated_autocorr_time(x)),
+             (te.integrated_autocorr_time(x, c=2.0),
+              je.integrated_autocorr_time(x, c=2.0))]
+    for got, ref in pairs:
+        np.testing.assert_allclose(got, ref, rtol=RTOL)
+    if kind == 'sticky':
+        assert 0.3 < te.acceptance_rate(x) < 0.5
+    if kind == 'ar':   # correlated chains: a smaller ESS, a longer tau
+        assert np.all(te.effective_sample_size(x, mu, var) < 100)
+        assert np.all(te.integrated_autocorr_time(x) > 5)

@@ -52,6 +52,19 @@ for kw in (dict(flow='nvp', scale='constant'), dict(flow='cholesky'),
     out = other.density(g, -50.0, 16)
 trainer = Trainer(3, device='cpu', log=False)
 trainer.restore_state(trainer.snapshot_state())
+from nnest_torch import EnsembleSampler, MCMCSampler
+import nnest_torch.samplers.ensemble, nnest_torch.samplers.mcmc
+from nnest_torch.likelihoods import Gaussian
+from nnest_torch.priors import UniformPrior
+training = torch.randn(60, 2, generator=g).numpy()
+for cls, kw in ((MCMCSampler, {}), (EnsembleSampler, {})):
+    s = cls(2, Gaussian(2, 0.0), prior=UniformPrior(2, -5, 5), log_dir=None,
+            device='cpu', log_level=30)
+    assert s.run(3, 4, training, train_iters=1).shape == (4, 4, 2)
+boot = EnsembleSampler(2, Gaussian(2, 0.0), prior=UniformPrior(2, -5, 5),
+                       log_dir=None, device='cpu', log_level=30)
+assert boot.bootstrap(3, 4, iters=1, thin=1, train_iters=1,
+                      moves={'stretch': 1, 'kde': 1}).shape[1] == 2
 loaded = [m for m in sys.modules
           if m.split('.')[0] in ('jax', 'jaxlib', 'nnest_tpu')
           and sys.modules[m] is not None]
@@ -92,11 +105,13 @@ def test_tf32_is_off():
 def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip('a GPU is present: the default device is usable')
-    from nnest_torch import NestedSampler, Trainer, build_flow
+    from nnest_torch import (EnsembleSampler, MCMCSampler, NestedSampler,
+                             Trainer, build_flow)
     from nnest_torch.likelihoods import Gaussian
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         build_flow(2)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         Trainer(2)
-    with pytest.raises(RuntimeError, match='CUDA is not available'):
-        NestedSampler(2, Gaussian(2, 0.0), log_dir=None)
+    for cls in (NestedSampler, MCMCSampler, EnsembleSampler):
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            cls(2, Gaussian(2, 0.0), log_dir=None)

@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs ten phases, printing one JSON line per
+from JAX or ``nnest_tpu`` and runs eleven phases, printing one JSON line per
 phase with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the build
@@ -12,14 +12,16 @@ phase with its seconds:
    the card, at d in {2, 5, 16, 50, 100} (hidden 16/16/32/64/64) and N in
    {1, 128, 256, 512, 1000, 4096, 4097}, and at d in {16, 50} with N in
    {65536, 65537} (the flow strategies' trials), and at d = 16 with N in
-   {16, 32, 32064} (phase 10's shapes), with inputs beyond ±3, exactly at
+   {16, 32, 32064} (phase 10's shapes) and N = 200 (phase 11's seed
+   refresh), with inputs beyond ±3, exactly at
    ±3 and on spline knots; max |dx| <= 3e-5 and max |dlogdet| <= 3e-4.
    The per-block entry against the twin (the same limits) and against the
    whole-chain kernel (1e-6, 1e-5) at d in {5, 16}. Then the kernel is
    timed by CUDA-graph replay (and eagerly, back to back) and the twin
    eagerly, at the main path's shapes (N = 512, a slice expansion's
-   2 x 256 stacked rows, N = 65536, and phase 10's N = 16, 32 and 32064
-   included) beside the least time the card could take; the per-block
+   2 x 256 stacked rows, N = 65536, phase 10's N = 16, 32 and 32064 and
+   phase 11's N = 200 included) beside the least time the card could take;
+   the per-block
    entry at d = 16; and the rows a thread block takes and the ring's
    stages are swept (N = 65536: 32, 64 and 128 rows);
 3. main path: ``NestedSampler`` on a 16-D Gaussian (transform 5x, hidden 32,
@@ -67,7 +69,21 @@ phase with its seconds:
    the moments within bounds from each run's ESS, the final step size
    finite and positive; the wall and launches of every sampler call and a
    profile of one ``_mcmc_sample`` (500 steps) and one ``_ensemble_sample``
-   (100 steps) call.
+   (100 steps) call;
+11. dynamic: ``DynamicNestedSampler`` on the phase-3 model (1000 live points
+   in batch 0, batches of the default 200, 256 chains x 80 steps), each
+   batch switched to MCMC at iteration ~2000 by ``volume_switch`` and cut at
+   ``max_iters=2400`` (``dlogz=1e-3``), ``train_iters=20``, one batch above
+   a finite floor (``G=1``): every seeded logl above the floor, the seed
+   refresh one launch a step plus one at N = 200, the batch ended above its
+   ceiling or at ``max_iters``, the kernel's launches on the path (> 0) and
+   the twin's calls (0); then the 2-D Gaussian dynamic run (200 live points,
+   batches of 100) to its analytic logz within max(3 logzerr, 0.15),
+   uninterrupted and killed after batch 1 then resumed, and whether (logz,
+   h, ncall, niter) are equal; then a 2-D nested run with a numpy-only
+   likelihood (called on the host with float64 numpy) to its analytic logz
+   within the same bound, with the kernel's launches (> 0) and the twin's
+   calls (0).
 
 ``--baseline SRC`` also builds SRC, an earlier version of the kernel with
 its own C entry point (the unpadded layout, no launch plan), checks it
@@ -77,7 +93,8 @@ and the sweep's, in turns (earlier, this, this, earlier).
 Before the last line it prints the ``{"kernels": [...]}`` record, with each
 kernel's launches by path (``mcmc``: phase 3, ``rejection_flow`` and
 ``density_flow``: phase 6, ``per_block``: phase 5, ``slice``: phase 8,
-``mcmc_sampler`` and ``ensemble``: phase 10);
+``mcmc_sampler`` and ``ensemble``: phase 10, ``dynamic`` and
+``host_likelihood``: phase 11);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before that line.
@@ -107,6 +124,12 @@ FLOW_TRIALS = 65536
 MCMC_STEPS, MCMC_CHAINS = 2000, 16
 BOOT_STEPS, RUN_STEPS, WALKERS = 200, 500, 64
 POSTERIOR_TRAIN_ITERS = 50
+# phase 11's sizes: the phase-3 model with 1000 live points in batch 0 and
+# the default 1000 // 5 = 200 in a batch; depth cut by a volume switch to
+# MCMC at iteration ~2000 and these iterations and training epochs a batch
+DYN_LIVE, DYN_BATCH_LIVE = 1000, 200
+DYN_MAX_ITERS, DYN_TRAIN_ITERS = 2400, 20
+DYN_SWITCH = math.exp(-2.0)
 # the keys of results/diagnostics.json (nnest_tpu's set)
 DIAGNOSTICS_KEYS = {
     'insertion_D', 'insertion_p', 'insertion_rolling_p', 'logzerr',
@@ -383,7 +406,7 @@ POSTERIOR_SHAPES = ((16, MCMC_CHAINS), (16, WALKERS // 2),
                     (16, TRAJECTORY_ROWS))
 TIMED_SHAPES = ((16, 256), (16, 4096), (2, 128), (50, 256), (50, 4096),
                 (16, FLOW_TRIALS), (50, FLOW_TRIALS), (16, 512)) \
-    + POSTERIOR_SHAPES
+    + POSTERIOR_SHAPES + ((16, DYN_BATCH_LIVE),)
 
 
 def phase_kernel(records, earlier):
@@ -409,7 +432,7 @@ def phase_kernel(records, earlier):
         packed = models[d] = pack_inverse_consts(model)
         wide = (FLOW_TRIALS, FLOW_TRIALS + 1) if d in (16, 50) else ()
         if d == 16:
-            wide += tuple(n for _, n in POSTERIOR_SHAPES)
+            wide += tuple(n for _, n in POSTERIOR_SHAPES) + (DYN_BATCH_LIVE,)
         for n in (1, 128, 256, 512, 1000, 4096, 4097) + wide:
             z = kernel_inputs(model, n, seed=7 * n + d, device=device)
             got = si.spline_inverse(z, packed)
@@ -1072,6 +1095,179 @@ def phase_mcmc_ensemble(record, log_dir):
                 ensemble_call)}
 
 
+class NumpyOnlyGaussian:
+    """The 2-D standard normal as a host likelihood: numpy and a scipy row
+    loop (``tests/test_blackbox_likelihood.py``'s); ``np.asarray`` of a
+    CUDA tensor raises, so the sampler calls it with float64 numpy."""
+
+    def __init__(self, dim):
+        self.x_dim = dim
+        self.calls = 0
+
+    def __call__(self, x):
+        from scipy.stats import multivariate_normal
+        x = np.asarray(x, dtype=np.float64)
+        self.calls += x.shape[0]
+        return np.array([multivariate_normal.logpdf(
+            row, mean=np.zeros(self.x_dim), cov=np.eye(self.x_dim))
+            for row in x])
+
+
+def dynamic_2d_resume(log_dir):
+    """The 2-D Gaussian dynamic run, uninterrupted against stopped after
+    batch 1 and resumed (from ``dynamic_state.pkl``) to batch 2; both within
+    max(3 logzerr, 0.15) of the analytic logz."""
+    from nnest_torch import DynamicNestedSampler
+    from nnest_torch.likelihoods import Gaussian
+    like = Gaussian(2, 0.0, lim=3)
+    analytic = like.analytic_logz([-3.0, -3.0], [3.0, 3.0])
+    kw = dict(G=0.5, num_batches=2, num_live_batch=100, dlogz=0.1,
+              train_iters=50)
+
+    def sampler(name, resume):
+        return DynamicNestedSampler(2, like, transform=lambda x: 3.0 * x,
+                                    num_live_init=200,
+                                    log_dir=os.path.join(log_dir, name),
+                                    append_run_num=False, resume=resume,
+                                    seed=8, device='cuda')
+
+    def final(s):
+        return [float(s.logz), float(s.h), int(s.total_calls), int(s.niter)]
+
+    t0 = time.time()
+    whole = sampler('dyn2_whole', False)
+    whole.run(**kw)
+    sampler('dyn2_killed', True).run(**dict(kw, num_batches=1))
+    resumed = sampler('dyn2_killed', True)
+    resumed.run(**kw)
+    out = {'wall_s': time.time() - t0, 'analytic_logz': analytic,
+           'uninterrupted': final(whole), 'resumed': final(resumed),
+           'logzerr': whole.logzerr, 'peak_n_live': int(np.max(whole.n_live)),
+           'insertion_p': whole.insertion_p_value,
+           'posterior_ess': whole.posterior_ess,
+           'resume_bit_exact': final(resumed) == final(whole)}
+    for name, s in (('uninterrupted', whole), ('resumed', resumed)):
+        if abs(s.logz - analytic) > max(3.0 * s.logzerr, 0.15):
+            raise AssertionError('2-D dynamic %s run off the analytic logz: '
+                                 '%s' % (name, out))
+    return out
+
+
+def phase_dynamic(record, log_dir):
+    """The dynamic sampler on the 16-D main-path model, its counts reset
+    just before the run and read just after: the seeded batch above a
+    finite floor and its seed refresh, the batch's end; then the 2-D
+    dynamic evidence and resume check, and the host-likelihood nested run
+    (its own counts)."""
+    from nnest_torch import DynamicNestedSampler, NestedSampler
+    from nnest_torch.likelihoods import Gaussian
+    from nnest_torch.ops import spline_inverse as si
+    d = 16
+    dyn = DynamicNestedSampler(d, Gaussian(d, 0.0),
+                               transform=lambda x: 5.0 * x,
+                               num_live_init=DYN_LIVE,
+                               log_dir=os.path.join(log_dir, 'dynamic'),
+                               seed=6, device='cuda')
+    samplers, bounds, seeds, refreshes = [], [], [], []
+    make, seed_batch = dyn._make_sampler, dyn._seed_batch
+
+    def made(*args, **kwargs):
+        s = make(*args, **kwargs)
+        final = s._mcmc_sample_final
+
+        def refresh(*a, **kw):
+            n0, t0 = si.launches, time.perf_counter()
+            out = final(*a, **kw)   # ends in a device-to-host copy
+            refreshes.append({'ms': (time.perf_counter() - t0) * 1e3,
+                              'launches': si.launches - n0,
+                              'rows': int(kw['init_samples'].shape[0])})
+            return out
+
+        s._mcmc_sample_final = refresh
+        samplers.append(s)
+        return s
+
+    def window(merged, parts, **kwargs):
+        bounds.append(DynamicNestedSampler.batch_bounds(merged, parts,
+                                                        **kwargs))
+        return bounds[-1]
+
+    def seeded(s, L_lo, *args, **kwargs):
+        pts = seed_batch(s, L_lo, *args, **kwargs)
+        seeds.append({'L_lo': L_lo, 'rows': int(pts['logl'].size),
+                      'min_logl': float(np.min(pts['logl'])),
+                      'above_floor': bool(np.all(pts['logl'] > L_lo))})
+        return pts
+
+    dyn._make_sampler, dyn.batch_bounds, dyn._seed_batch = (
+        made, window, seeded)
+    reset_counts()
+    t0 = time.time()
+    # dlogz so small that max_iters or the ceiling ends every batch
+    dyn.run(G=1.0, num_batches=1, num_live_batch=DYN_BATCH_LIVE,
+            dlogz=1e-3, max_iters=DYN_MAX_ITERS,
+            train_iters=DYN_TRAIN_ITERS, volume_switch=DYN_SWITCH)
+    wall = time.time() - t0
+    launches = read_counts('dynamic')
+    record['launches_by_path']['dynamic'] = launches
+    s0, s1 = samplers
+    (L_lo, L_hi), = bounds
+    ceiling = (L_hi is not None
+               and float(np.min(s1.loglikes[-DYN_BATCH_LIVE:])) > L_hi)
+    out = {'wall_s': wall, 'launches': launches, 'logz_so_far': dyn.logz,
+           'ncall': dyn.total_calls, 'niter': dyn.niter,
+           'peak_n_live': int(np.max(dyn.n_live)), 'L_lo': L_lo,
+           'L_hi': L_hi, 'seeds': seeds, 'seed_refresh': refreshes,
+           'batch_ended_above_ceiling': ceiling,
+           'batch_ended_at_max_iters': s1.niter - 1 > DYN_MAX_ITERS,
+           'batches': [{'niter': s.niter, 'ncall': s.total_calls,
+                        'birth_floor': s._birth_floor, **s.run_stats}
+                       for s in samplers]}
+    if s0.run_stats['mcmc_generations'] < 1 or s0.run_stats['trainings'] < 1:
+        raise AssertionError('batch 0 did not reach mcmc and a training: %s'
+                             % out)
+    if not (np.isfinite(L_lo) and len(seeds) == 1
+            and seeds[0]['above_floor'] and s1._birth_floor == L_lo):
+        raise AssertionError('no batch was seeded above a finite floor: %s'
+                             % out)
+    if [r['launches'] for r in refreshes] != [5 * d + 1] or \
+            refreshes[0]['rows'] != DYN_BATCH_LIVE:
+        raise AssertionError('the seed refresh did not launch the kernel once '
+                             'a step and once for its starts: %s' % out)
+    if not (ceiling or out['batch_ended_at_max_iters']):
+        raise AssertionError('the batch ended below its ceiling before '
+                             'max_iters: %s' % out)
+    if s1.run_stats['mcmc_generations'] < 1 or not math.isfinite(dyn.logz):
+        raise AssertionError('the batch ran no MCMC generation: %s' % out)
+
+    out['evidence_2d'] = dynamic_2d_resume(log_dir)
+
+    like = NumpyOnlyGaussian(2)
+    host = NestedSampler(2, like, transform=lambda x: 3.0 * x,
+                         num_live_points=200,
+                         log_dir=os.path.join(log_dir, 'host_like'), seed=42,
+                         device='cuda')
+    reset_counts()
+    t0 = time.time()
+    host.run(train_iters=50, dlogz=0.1, volume_switch=0.5)
+    host_wall = time.time() - t0
+    record['launches_by_path']['host_likelihood'] = read_counts(
+        'host_likelihood')
+    analytic = Gaussian(2, 0.0).analytic_logz([-3.0, -3.0], [3.0, 3.0])
+    out['host_likelihood'] = {
+        'wall_s': host_wall, 'logz': host.logz, 'logzerr': host.logzerr,
+        'analytic_logz': analytic, 'niter': host.niter,
+        'ncall': host.total_calls, 'likelihood_rows': like.calls,
+        'host_path': host._host_loglike,
+        'launches': record['launches_by_path']['host_likelihood'],
+        **host.run_stats}
+    if not (host._host_loglike and host.run_stats['mcmc_generations'] > 0
+            and abs(host.logz - analytic) <= max(3.0 * host.logzerr, 0.15)):
+        raise AssertionError('host-likelihood run: %s'
+                             % out['host_likelihood'])
+    return out
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1086,7 +1282,7 @@ def main():
     import nnest_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     paths = ('mcmc', 'rejection_flow', 'density_flow', 'per_block', 'slice',
-             'mcmc_sampler', 'ensemble')
+             'mcmc_sampler', 'ensemble', 'dynamic', 'host_likelihood')
     records = [
         {'name': 'spline_inverse', 'route': 'cuda',
          'source': 'nnest_torch/csrc/spline_inverse.cu',
@@ -1116,14 +1312,15 @@ def main():
                 (8, 'slice', lambda: phase_slice(records[0], log_dir)),
                 (9, 'other_flows', lambda: phase_other_flows(log_dir)),
                 (10, 'mcmc_ensemble',
-                 lambda: phase_mcmc_ensemble(records[0], log_dir))):
+                 lambda: phase_mcmc_ensemble(records[0], log_dir)),
+                (11, 'dynamic', lambda: phase_dynamic(records[0], log_dir))):
             t0 = time.time()
             out = fn()
             emit({'phase': num, 'name': name,
                   'seconds': time.time() - t0, **out})
     for rec in records:
         # launches on the paths that drive the kernel (phases 3, 5, 6, 8,
-        # 10)
+        # 10, 11)
         rec['launches'] = sum(rec['launches_by_path'].values())
     emit({'kernels': records})
     emit({'ok': True, 'device': {'platform': 'gpu',

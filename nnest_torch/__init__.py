@@ -22,11 +22,12 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = '0.1.0'
 
-__all__ = ['NestedSampler', 'MCMCSampler', 'EnsembleSampler', 'Trainer',
-           'build_flow', '__version__']
+__all__ = ['NestedSampler', 'DynamicNestedSampler', 'MCMCSampler',
+           'EnsembleSampler', 'Trainer', 'build_flow', '__version__']
 
 _LAZY = {
     'NestedSampler': 'nnest_torch.samplers.nested',
+    'DynamicNestedSampler': 'nnest_torch.samplers.dynamic',
     'MCMCSampler': 'nnest_torch.samplers.mcmc',
     'EnsembleSampler': 'nnest_torch.samplers.ensemble',
     'Trainer': 'nnest_torch.training.trainer',

@@ -2,13 +2,22 @@
 
 Port of ``nnest_tpu/samplers/base.py`` without meshes:
 
-- one likelihood convention: the user's ``loglike`` receives a (batch, d)
-  float32 tensor on the sampler's device (after the sampler transform)
-  and returns a (batch,) log likelihood. The host wrapper (numpy in,
-  float64 out, non-finite values clamped to -1e100, calls counted) and the
-  device function used inside the kernels (non-finite values sanitized to
-  ``LOG_NEG``) both call it. This replaces the JAX split between traced
-  and ``io_callback`` likelihoods;
+- two likelihood conventions, told apart once when the sampler is built
+  (the JAX package's split between traced and ``io_callback``
+  likelihoods, ``_build_kernels``): a *tensor likelihood* returns a
+  ``torch.Tensor`` for a (2, d) float32 tensor on the sampler's device and
+  is called on (batch, d) float32 tensors there; any other callable (one
+  that raises on a tensor, or returns numpy) is a *host likelihood* and
+  receives the transformed points as (batch, d) float64 numpy, its result
+  copied back to the device as float32 for the kernels. Both return a
+  (batch,) log likelihood. The host wrapper :meth:`Sampler.loglike`
+  (numpy in, float64 out, non-finite values clamped to -1e100, calls
+  counted) and the device function used inside the kernels (non-finite
+  values sanitized to ``LOG_NEG``) both call it; the probe that tells the
+  two apart is not counted. A transform that does not return a tensor for
+  a tensor is a host transform in the same way, and a prior without
+  ``logpdf`` is called once a point on float64 numpy (the JAX package's
+  ``safe_prior``), inside the kernels too;
 - one sampler transform, set in one place (:meth:`Sampler.set_transform`;
   the MCMC and ensemble samplers' ``run`` make it the de-normalisation of
   their training set): the device likelihood, the device prior (on the
@@ -69,6 +78,17 @@ def _identity(u):
     return u
 
 
+def _returns_tensor(fn, x_dim, device):
+    """True when ``fn`` returns a tensor for a (2, x_dim) float32 tensor on
+    ``device``: the probe that tells a tensor callable from a host one."""
+    try:
+        with torch.no_grad():
+            out = fn(torch.zeros(2, x_dim, device=device))
+    except Exception:
+        return False
+    return isinstance(out, torch.Tensor)
+
+
 class Sampler:
 
     def __init__(self,
@@ -115,7 +135,10 @@ class Sampler:
             hidden_dim = 16 if x_dim < 16 else (32 if x_dim < 32 else 64)
 
         self._user_loglike = loglike
+        self._host_loglike = not _returns_tensor(loglike, x_dim, self.device)
         self._user_prior = prior
+        self._host_prior = (prior is not None
+                            and not callable(getattr(prior, 'logpdf', None)))
         # the prior is of transform(u) (the MCMC and ensemble samplers'
         # physical points), else of u itself (the nested sampler's cube)
         self._transform_prior = transform_prior
@@ -180,13 +203,16 @@ class Sampler:
     def set_transform(self, transform):
         """Make ``transform`` the sampler transform, the map from the space
         the chains move in to the likelihood's: a function of a (batch, d)
-        tensor that keeps its dtype and device, or None for the identity.
-        It is kept here only: the device likelihood, the device prior
-        (when ``transform_prior``), the host :meth:`loglike`,
-        :meth:`prior` and :meth:`transform` all read it, so they cannot
-        disagree. The cached kernels are dropped."""
+        tensor that keeps its dtype and device, a host function of (batch,
+        d) float64 numpy (one that does not return a tensor for a tensor),
+        or None for the identity. It is kept here only: the device
+        likelihood, the device prior (when ``transform_prior``), the host
+        :meth:`loglike`, :meth:`prior` and :meth:`transform` all read it,
+        so they cannot disagree. The cached kernels are dropped."""
         self._transform_fn = transform if transform is not None else (
             _identity)
+        self._host_transform = (transform is not None and not _returns_tensor(
+            transform, self.x_dim, self.device))
         self.invalidate_kernels()
 
     def invalidate_kernels(self):
@@ -197,25 +223,52 @@ class Sampler:
     def transform(self, u):
         """Points of the chains' space (numpy) → the likelihood's space
         (numpy float64, computed in float64)."""
-        u = torch.as_tensor(np.atleast_2d(np.asarray(u, dtype=np.float64)),
-                            device=self.device)
+        u = np.atleast_2d(np.asarray(u, dtype=np.float64))
+        if self._host_transform:
+            return np.asarray(self._transform_fn(u), dtype=np.float64)
+        u = torch.as_tensor(u, device=self.device)
         return np.asarray(_to_numpy(self._transform_fn(u)),
                           dtype=np.float64)
 
+    def _device_transform(self, u):
+        """The sampler transform of a (batch, d) tensor, as a tensor of its
+        dtype on its device (a host transform through float64 numpy)."""
+        if not self._host_transform:
+            return self._transform_fn(u)
+        return torch.as_tensor(self.transform(_to_numpy(u)), dtype=u.dtype,
+                               device=u.device)
+
+    def _loglike_of_host(self, u):
+        """A host likelihood of float64 numpy points ``u`` (before the
+        transform): (batch,) float64, non-finite values clamped to
+        -1e100."""
+        logl = np.array(self._user_loglike(self.transform(u)),
+                        dtype=np.float64).reshape(-1)
+        logl[~np.isfinite(logl)] = -1e100
+        return logl
+
     def _device_loglike(self, u):
-        """(batch, d) float32 tensor → (batch,) float32 log likelihood."""
-        logl = self._user_loglike(self._transform_fn(u))
+        """(batch, d) float32 tensor → (batch,) float32 log likelihood on
+        its device."""
+        if self._host_loglike:
+            logl = self._loglike_of_host(_to_numpy(u).astype(np.float64))
+        else:
+            logl = self._user_loglike(self._device_transform(u))
         return torch.as_tensor(logl, dtype=torch.float32, device=u.device)
 
     def loglike(self, u):
         """Host wrapper: numpy in, float64 numpy out, non-finite values
         clamped to -1e100, calls counted."""
-        u = np.atleast_2d(np.asarray(u, dtype=np.float32))
-        with torch.no_grad():
-            logl = self._device_loglike(torch.as_tensor(u, device=self.device))
-        logl = np.asarray(_to_numpy(logl), dtype=np.float64).reshape(-1)
+        u = np.atleast_2d(np.asarray(u, dtype=np.float64))
+        if self._host_loglike:
+            logl = self._loglike_of_host(u)
+        else:
+            with torch.no_grad():
+                logl = self._device_loglike(torch.as_tensor(
+                    u.astype(np.float32), device=self.device))
+            logl = np.asarray(_to_numpy(logl), dtype=np.float64).reshape(-1)
+            logl[~np.isfinite(logl)] = -1e100
         self.total_calls += u.shape[0]
-        logl[~np.isfinite(logl)] = -1e100
         return logl
 
     def _device_prior(self, u):
@@ -223,15 +276,22 @@ class Sampler:
         ``transform_prior``."""
         if self._user_prior is None:
             return torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
+        if self._host_prior:
+            return torch.as_tensor(self.prior(_to_numpy(u)), dtype=u.dtype,
+                                   device=u.device)
         if self._transform_prior:
-            u = self._transform_fn(u)
+            u = self._device_transform(u)
         return self._user_prior.logpdf(u)
 
     def prior(self, u):
         """Host log prior: numpy points in (computed in float64), float64
-        out."""
-        u = torch.as_tensor(np.atleast_2d(np.asarray(u, dtype=np.float64)),
-                            device=self.device)
+        out; a prior without ``logpdf`` is called once a point."""
+        u = np.atleast_2d(np.asarray(u, dtype=np.float64))
+        if self._host_prior:
+            if self._transform_prior:
+                u = self.transform(u)
+            return np.asarray([float(self._user_prior(p)) for p in u])
+        u = torch.as_tensor(u, device=self.device)
         with torch.no_grad():
             lp = self._device_prior(u)
         return np.asarray(_to_numpy(lp), dtype=np.float64).reshape(-1)
@@ -379,6 +439,37 @@ class Sampler:
         return (z, torch.as_tensor(logl, dtype=f32, device=self.device),
                 torch.as_tensor(lp_prior, dtype=f32, device=self.device),
                 ncall)
+
+    def _mcmc_sample_final(self, mcmc_steps, init_samples,
+                           init_loglikes=None, loglstar=None,
+                           dynamic_step_size=False, cov_from=None,
+                           cov_mask=None):
+        """Endpoint-only Metropolis from explicit starts, the dynamic
+        sampler's seed refresh: one chain a row of ``init_samples``,
+        started by :meth:`_mcmc_init` (re-projected, with ``init_loglikes``
+        when given), constrained by ``loglstar`` when given; ``cov_from``
+        (live rows as a float32 tensor, the ``cov_mask`` half of them when
+        given) enables the covariance-preconditioned proposal. The step
+        size starts at 2/sqrt(x_dim).
+
+        Returns (u, logl, derived, moved, scale, mean_jump, ncall);
+        ``derived`` has no columns (derived parameters are not ported) and
+        ``ncall`` includes the starts' likelihood calls."""
+        num_chains = init_samples.shape[0]
+        z0, logl0, lp_prior0, ncall_init = self._mcmc_init(
+            num_chains, init_samples, init_loglikes, 1)
+        out = self.kernels.mcmc(
+            self.generator, z0, logl0, lp_prior0, loglstar=loglstar,
+            step_size=2.0 / self.x_dim ** 0.5, mcmc_steps=mcmc_steps,
+            dynamic_step_size=dynamic_step_size, cov_from=cov_from,
+            cov_mask=cov_mask)
+        u, logl, moved, scale, mean_jump, ncall = self._consume_endpoint_out(
+            out, mix_null=metropolis_mix_null(mcmc_steps, self.x_dim,
+                                              adapt_cov=cov_from is not None),
+            cond_null=latent_cond_null(self.x_dim, num_chains),
+            cond_inflates=True)
+        return (u, logl, np.zeros((u.shape[0], 0)), moved, scale, mean_jump,
+                ncall + ncall_init)
 
     def _mcmc_sample(self, mcmc_steps, step_size=0.0,
                      dynamic_step_size=False, num_chains=1,

@@ -22,7 +22,7 @@ Artifacts under ``<log_dir>/runN/``: ``info/params.txt``,
 threads.npz}``, ``chains/chain.txt`` (at the end of the run) and
 ``checkpoint/``. Checkpoints
 follow a geometric cadence, written in this order: ``active_{u,v,logl}
-_<it>.npy`` and ``saved_{v,logl,logwt,slots}.npy``, then one exact-state
+_<it>.npy`` and ``saved_{v,logl,logwt,slots,u}.npy``, then one exact-state
 file (``exact_state.pt``: the sampler's generator, the trainer snapshot,
 the unconsumed pool, the ladder controller and the insertion ranks, all
 stamped with ``it``; written to a temporary file and moved into place),
@@ -38,9 +38,14 @@ Every flow of ``build_flow`` runs through it (``flow``, ``num_slow``,
 proposals move the fast dims only with probability ``oversample_rate``,
 and ``run_stats['total_fast_calls']`` counts their likelihood calls.
 
+``run(init_points=, birth_floor=, logl_ceiling=)`` are the hooks of the
+dynamic sampler's batches (``samplers/dynamic.py``), which also reads
+``saved_u``, the u-space points of the run (in the checkpoints as
+``saved_u.npy`` and in ``threads.npz`` as ``u``).
+
 Not ported yet (ROADMAP.md): meshes, derived parameters, multi-generation
-prefetch and speculation, the background checkpoint writer, dynamic-batch
-hooks, plots and TensorBoard.
+prefetch and speculation, the background checkpoint writer, plots and
+TensorBoard.
 """
 
 from __future__ import annotations
@@ -128,6 +133,7 @@ class NestedSampler(Sampler):
         self.insertion_rolling_p_value = None
         self.logzerr_bootstrap = None
         self.thread_slots = None
+        self.saved_u = None
         self._birth_floor = -np.inf
         super().__init__(
             x_dim, loglike, transform=transform, prior=prior,
@@ -174,7 +180,20 @@ class NestedSampler(Sampler):
             slice_width=1.0,
             slice_max_expand=4,
             slice_max_shrink=10,
-            slice_adapt='cov'):
+            slice_adapt='cov',
+            init_points=None,
+            birth_floor=None,
+            logl_ceiling=None):
+        """Run to ``dlogz`` (or ``max_iters``). The dynamic-batch hooks
+        (``samplers/dynamic.py``) default to a plain prior-seeded run:
+        ``init_points`` a dict of live points already uniform within
+        {logl > birth_floor} (``u`` (num_live_points, x_dim), ``logl``,
+        optionally ``v``), taken without evaluating them again;
+        ``birth_floor`` the batch's birth threshold (recorded in
+        ``threads.npz``); ``logl_ceiling`` ends the run once every live
+        point exceeds it."""
+        if birth_floor is not None:
+            self._birth_floor = float(birth_floor)
         if strategy is None or len(strategy) == 0:
             strategy = ['rejection_prior', 'mcmc']
         unknown = [m for m in strategy if m not in _METHODS]
@@ -233,12 +252,18 @@ class NestedSampler(Sampler):
         self.logger.info('Volume switch [%5.4f]' % volume_switch)
 
         state = self._load_checkpoint()
+        if state is not None and init_points is not None:
+            raise ValueError(
+                'init_points is for fresh dynamic batch runs; this log_dir '
+                'has a resumable checkpoint (use resume=False or a fresh '
+                'log_dir)')
         if state is not None:
             it = state['it']
             active_u, active_v = state['active_u'], state['active_v']
             active_logl = state['active_logl']
             saved_v, saved_logl = state['saved_v'], state['saved_logl']
             saved_logwt, saved_slots = state['saved_logwt'], state['slots']
+            saved_u = state['saved_u']
             logz, h = state['logz'], state['h']
             logvol, fraction_remain = state['logvol'], state['fraction_remain']
             expired = list(state['expired'])
@@ -247,13 +272,29 @@ class NestedSampler(Sampler):
             self.logger.info('Resumed from checkpoint [%d]%s' % (
                 it, ' (bit-exact)' if controller is not None else ''))
         else:
-            active_u = np.asarray(self._user_prior.sample(
-                self.num_live_points), dtype=np.float64)
-            active_v = self.transform(active_u)
-            active_logl = self.loglike(active_u)
+            if init_points is not None:
+                # A dynamic batch: live points the caller refreshed (and
+                # paid the likelihood calls of) within {logl > birth_floor}.
+                active_u = np.array(init_points['u'], dtype=np.float64)
+                if active_u.shape != (self.num_live_points, self.x_dim):
+                    raise ValueError(
+                        'init_points u must be (num_live_points, x_dim)')
+                active_v = np.array(init_points['v'] if 'v' in init_points
+                                    else self.transform(active_u),
+                                    dtype=np.float64)
+                active_logl = np.array(init_points['logl'], dtype=np.float64)
+                if not np.all(active_logl > self._birth_floor):
+                    raise ValueError('init_points logl must all exceed '
+                                     'birth_floor')
+            else:
+                active_u = np.asarray(self._user_prior.sample(
+                    self.num_live_points), dtype=np.float64)
+                active_v = self.transform(active_u)
+                active_logl = self.loglike(active_u)
             self.logger.info('Step [0] max logl [%5.4e] vol [1.0] ncalls '
                              '[%d]' % (np.max(active_logl), self.total_calls))
             saved_v, saved_logl, saved_logwt, saved_slots = [], [], [], []
+            saved_u = []
             h = 0.0
             logz = -1e300
             logvol = float(np.log(1.0 - np.exp(-1.0 / self.num_live_points)))
@@ -336,16 +377,18 @@ class NestedSampler(Sampler):
             t0 = time.perf_counter()
             self._write_checkpoint(
                 it, active_u, active_v, active_logl, saved_v, saved_logl,
-                saved_logwt, saved_slots, logz, h, logvol, fraction_remain,
-                strategy, expired, controller_snapshot(), pool_snapshot(),
-                insertion_ranks)
+                saved_logwt, saved_slots, saved_u, logz, h, logvol,
+                fraction_remain, strategy, expired, controller_snapshot(),
+                pool_snapshot(), insertion_ranks)
             self.run_stats['checkpoint_s'] += time.perf_counter() - t0
             self.run_stats['checkpoints'] += 1
 
         if state is None:
             checkpoint()
 
-        while fraction_remain > dlogz and it <= max_iters:
+        while fraction_remain > dlogz and it <= max_iters and (
+                logl_ceiling is None
+                or float(np.min(active_logl)) <= logl_ceiling):
             worst = int(np.argmin(active_logl))
             logwt = logvol + active_logl[worst]
             loglstar = float(active_logl[worst])
@@ -364,6 +407,8 @@ class NestedSampler(Sampler):
                     # The live-set slot of each death: the thread lineage
                     # the bootstrap error resamples.
                     saved_slots.append(worst)
+                if saved_u is not None:
+                    saved_u.append(np.array(active_u[worst], copy=True))
                 accept_point = False
 
             # Strategy ladder: the first method not expired.
@@ -548,6 +593,8 @@ class NestedSampler(Sampler):
             saved_logl.append(active_logl[i])
             if saved_slots is not None:
                 saved_slots.append(i)   # slot i's final point closes thread i
+            if saved_u is not None:
+                saved_u.append(np.array(active_u[i]))
 
         self.run_stats['total_fast_calls'] = self.total_fast_calls
         self.logz = logz
@@ -557,9 +604,13 @@ class NestedSampler(Sampler):
         self.samples = np.asarray(saved_v)
         self.weights = np.exp(np.asarray(saved_logwt) - logz)
         self.loglikes = np.asarray(saved_logl)
+        # the u-space points aligned with loglikes and thread_slots, final
+        # live points included: the dynamic sampler seeds batches from them
+        self.saved_u = (None if saved_u is None
+                        else np.asarray(saved_u).reshape(-1, self.x_dim))
         self._diagnose(insertion_ranks, saved_logl, saved_slots)
         if self.logs is not None:
-            self._write_results(saved_logl)
+            self._write_results(saved_logl, self.saved_u)
             with open(os.path.join(self.logs['results'], 'final.csv'),
                       'w') as f:
                 w = csv.writer(f)
@@ -623,10 +674,11 @@ class NestedSampler(Sampler):
                 flags.append('bootstrap_mismatch')
         self.run_quality_flags = flags
 
-    def _write_results(self, saved_logl):
-        """``insertion_ranks.npy``, ``threads.npz`` (death logl and thread
-        slot of every point: with ``n_live`` the run's full (birth, death)
-        record) and ``diagnostics.json``."""
+    def _write_results(self, saved_logl, saved_u):
+        """``insertion_ranks.npy``, ``threads.npz`` (death logl, thread
+        slot and, where recorded, u of every point: with ``n_live`` and
+        ``birth_floor`` the run's full (birth, death) record) and
+        ``diagnostics.json``."""
         res = self.logs['results']
         np.save(os.path.join(res, 'insertion_ranks.npy'),
                 self.insertion_ranks.astype(np.uint32))
@@ -635,7 +687,9 @@ class NestedSampler(Sampler):
                      logl=np.asarray(saved_logl, np.float64),
                      slots=self.thread_slots.astype(np.uint32),
                      n_live=np.int64(self.num_live_points),
-                     birth_floor=np.float64(self._birth_floor))
+                     birth_floor=np.float64(self._birth_floor),
+                     **({} if saved_u is None
+                        else {'u': np.asarray(saved_u, np.float64)}))
         with open(os.path.join(res, 'diagnostics.json'), 'w') as f:
             json.dump({
                 'insertion_D': self.insertion_statistic,
@@ -739,8 +793,8 @@ class NestedSampler(Sampler):
     # ---------------------------------------------------------- checkpoints
 
     def _write_checkpoint(self, it, active_u, active_v, active_logl, saved_v,
-                          saved_logl, saved_logwt, saved_slots, logz, h,
-                          logvol, fraction_remain, strategy, expired,
+                          saved_logl, saved_logwt, saved_slots, saved_u, logz,
+                          h, logvol, fraction_remain, strategy, expired,
                           controller, pool_state, insertion_ranks):
         """One checkpoint, inline, in the order that makes a crash at any
         point recoverable: the live and dead arrays, then the exact state
@@ -758,6 +812,9 @@ class NestedSampler(Sampler):
         if saved_slots is not None:
             np.save(os.path.join(ck, 'saved_slots.npy'),
                     np.asarray(saved_slots, dtype=np.uint32))
+        if saved_u is not None:
+            np.save(os.path.join(ck, 'saved_u.npy'),
+                    np.asarray(saved_u, np.float64).reshape(-1, self.x_dim))
         path = os.path.join(ck, EXACT_STATE)
         torch.save({
             'it': int(it),
@@ -823,6 +880,13 @@ class NestedSampler(Sampler):
             sl = np.load(sl_path)
             if len(sl) >= it:
                 slots = [int(x) for x in sl[:it]]
+        # The u-space dead points: short or absent disables saved_u.
+        saved_u = None
+        su_path = os.path.join(ck, 'saved_u.npy')
+        if os.path.exists(su_path):
+            su = np.load(su_path)
+            if len(su) >= it:
+                saved_u = [np.array(r) for r in su[:it]]
         self.total_calls = int(meta['ncall'])
         self.total_accepted = int(meta['total_accepted'])
         self.total_rejected = int(meta['total_rejected'])
@@ -834,6 +898,7 @@ class NestedSampler(Sampler):
                 'saved_v': [np.asarray(r) for r in saved['saved_v']],
                 'saved_logl': saved['saved_logl'],
                 'saved_logwt': saved['saved_logwt'], 'slots': slots,
+                'saved_u': saved_u,
                 'logz': meta['logz'], 'h': meta['h'],
                 'logvol': meta['logvol'],
                 'fraction_remain': meta['fraction_remain'],

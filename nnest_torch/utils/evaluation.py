@@ -19,10 +19,11 @@ C++ runtime does not take them):
   :func:`metropolis_mix_null` and :func:`latent_cond_null`,
   :func:`eig_mix_from_moments` (the eigenbasis mixing ratio and latent
   condition number of one MCMC generation), :func:`slice_mix_null` and
-  :func:`adjusted_logzerr`.
-
-The merge/birth functions of dynamic nested sampling come with the dynamic
-sampler.
+  :func:`adjusted_logzerr`;
+- the (birth, death) representation of nested runs (Higson et al. 2019,
+  arXiv:1704.03459), which merges runs and carries dynamic batches:
+  :func:`thread_birth_logl`, :func:`merged_run_evidence`,
+  :func:`load_threads_npz` and :func:`merge_runs`.
 """
 
 from __future__ import annotations
@@ -239,3 +240,107 @@ def eig_mix_from_moments(cov, msd):
     ratio = np.einsum('ij,jk,ki->i', v.T, m, v) / (2.0 * w + 1e-12)
     cond = float(w[-1] / max(w[0], 1e-30))
     return float(np.min(ratio)), cond
+
+
+def thread_birth_logl(saved_logl, slots, n_live, birth_floor=-np.inf):
+    """Per-point birth log likelihood from the slot (thread) record.
+
+    Under in-place replacement the point in slot ``k`` was born at the
+    threshold of the previous death in slot ``k``; the first occupant of
+    each slot was born at ``birth_floor`` (-inf for a prior-seeded run, the
+    batch floor for a dynamic batch). Returns float64 births aligned with
+    ``saved_logl``."""
+    saved_logl = np.asarray(saved_logl, dtype=np.float64)
+    slots = np.asarray(slots)
+    births = np.full(saved_logl.shape, float(birth_floor), np.float64)
+    for k in range(int(n_live)):
+        idx = np.nonzero(slots == k)[0]
+        if idx.size > 1:
+            births[idx[1:]] = saved_logl[idx[:-1]]
+    return births
+
+
+def merged_run_evidence(logl, birth_logl):
+    """Evidence and weights of a (merged or dynamic) nested run from each
+    point's death and birth log likelihoods.
+
+    The live count at the i-th death (ascending) is ``#{birth_j < logl_i}
+    - #{death_j < logl_i}``; the volume shrinks by ``E[ln t] = -1/n_i`` a
+    death and each point takes the mass difference ``X_{i-1} - X_i``. The
+    final live points appear as deaths with the live count ramping down,
+    and the logZ variance is ``sum_i dh_i / n_i`` (h/N at constant N).
+
+    Returns a dict: ``logz``, ``h``, ``logzerr``, ``logwt`` (in the input
+    order), ``n_live`` (per death, ascending) and ``order`` (the
+    ascending-death permutation)."""
+    logl = np.asarray(logl, dtype=np.float64)
+    birth = np.asarray(birth_logl, dtype=np.float64)
+    if logl.shape != birth.shape:
+        raise ValueError('logl and birth_logl must align')
+    order = np.argsort(logl, kind='stable')
+    l_sorted = logl[order]
+    births_sorted = np.sort(birth)
+    n_alive = (np.searchsorted(births_sorted, l_sorted, side='left')
+               - np.searchsorted(l_sorted, l_sorted, side='left'))
+    n_alive = np.maximum(n_alive, 1)
+    dln = 1.0 / n_alive
+    ln_x_prev = np.concatenate(([0.0], -np.cumsum(dln)[:-1]))
+    logwt_sorted = l_sorted + ln_x_prev + np.log(-np.expm1(-dln))
+    finite = np.isfinite(logwt_sorted)
+    if not np.any(finite):
+        return {'logz': -np.inf, 'h': 0.0, 'logzerr': 0.0,
+                'logwt': logwt_sorted.copy(), 'n_live': n_alive,
+                'order': order}
+    m = np.max(logwt_sorted[finite])
+    w = np.where(finite, np.exp(logwt_sorted - m), 0.0)
+    a_cum = np.cumsum(w)
+    b_cum = np.cumsum(np.where(finite, w * l_sorted, 0.0))
+    logz_cum = m + np.log(np.maximum(a_cum, 1e-300))
+    h_cum = np.where(a_cum > 0, b_cum / np.maximum(a_cum, 1e-300)
+                     - logz_cum, 0.0)
+    dh = np.diff(np.concatenate(([0.0], h_cum)))
+    logzvar = float(np.sum(dh * dln))
+    logwt = np.empty_like(logwt_sorted)
+    logwt[order] = logwt_sorted
+    return {'logz': float(logz_cum[-1]), 'h': float(h_cum[-1]),
+            'logzerr': float(np.sqrt(max(logzvar, 0.0))),
+            'logwt': logwt, 'n_live': n_alive, 'order': order}
+
+
+def load_threads_npz(path):
+    """A run's ``results/threads.npz`` as the ``{'logl', 'birth_logl'}``
+    dict :func:`merge_runs` takes (births per slot from the saved birth
+    floor)."""
+    rec = np.load(path)
+    logl = np.asarray(rec['logl'], np.float64)
+    floor = float(rec['birth_floor']) if 'birth_floor' in rec else -np.inf
+    return {'logl': logl,
+            'birth_logl': thread_birth_logl(
+                logl, np.asarray(rec['slots']), int(rec['n_live']),
+                birth_floor=floor)}
+
+
+def merge_runs(runs):
+    """Merge nested runs of one likelihood and prior into one combined run:
+    concatenate the (death, birth) pairs and recompute the evidence with
+    per-death live counts (the constituents' live counts add wherever both
+    are alive).
+
+    ``runs``: dicts with ``logl`` and ``birth_logl``. Returns the
+    :func:`merged_run_evidence` dict plus ``run_index`` and
+    ``point_index``, which map each merged point back to its run and
+    row."""
+    if not runs:
+        raise ValueError('no runs to merge')
+    logl = np.concatenate([np.asarray(r['logl'], np.float64)
+                           for r in runs])
+    birth = np.concatenate([np.asarray(r['birth_logl'], np.float64)
+                            for r in runs])
+    out = merged_run_evidence(logl, birth)
+    out['run_index'] = np.concatenate(
+        [np.full(len(np.asarray(r['logl'])), i, np.int32)
+         for i, r in enumerate(runs)])
+    out['point_index'] = np.concatenate(
+        [np.arange(len(np.asarray(r['logl'])), dtype=np.int64)
+         for r in runs])
+    return out

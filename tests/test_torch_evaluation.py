@@ -1,7 +1,9 @@
 """nnest_torch's run diagnostics against nnest_tpu's on the same numbers:
 the numpy copies in ``nnest_torch/utils/evaluation.py`` to 1e-12
-relative, and the per-generation mixing fields the sampler records from
-one MCMC generation's second moments."""
+relative (the merged-run functions on ``tests/test_merge.py``'s exact
+nested-sampling simulation, a batch above a birth floor included), and the
+per-generation mixing fields the sampler records from one MCMC
+generation's second moments."""
 
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ from nnest_tpu.utils import evaluation as je
 from nnest_torch.likelihoods import Gaussian
 from nnest_torch.samplers.nested import NestedSampler
 from nnest_torch.utils import evaluation as te
+from tests.test_merge import _logl_of_vol, simulate_run
 
 # One intra-op thread a process: the suite runs in parallel workers that
 # share the cores.
@@ -186,3 +189,81 @@ def test_chain_statistics_match_jax(kind):
     if kind == 'ar':   # correlated chains: a smaller ESS, a longer tau
         assert np.all(te.effective_sample_size(x, mu, var) < 100)
         assert np.all(te.integrated_autocorr_time(x) > 5)
+
+
+def _floor_batch(n_live, n_iter, x_star, seed):
+    """A simulated batch of ``n_live`` threads born at volume ``x_star``:
+    (logl, slots, floor), the sampler's saved order."""
+    rng = np.random.RandomState(seed)
+    vols = rng.uniform(size=n_live) * x_star
+    logl, slots = [], []
+    for _ in range(n_iter):
+        worst = int(np.argmax(vols))
+        logl.append(_logl_of_vol(vols[worst]))
+        slots.append(worst)
+        vols[worst] = rng.uniform() * vols[worst]
+    for i in range(n_live):
+        logl.append(_logl_of_vol(vols[i]))
+        slots.append(i)
+    return np.asarray(logl), np.asarray(slots), _logl_of_vol(x_star)
+
+
+def _merge_parts(floor_first):
+    """A static run and a birth-floor batch in (logl, slots, n_live,
+    floor) form."""
+    logl, slots = simulate_run(100, 3000, seed=7)
+    blogl, bslots, floor = _floor_batch(60, 1500, np.exp(-2.0), seed=8)
+    parts = [(logl, slots, 100, -np.inf), (blogl, bslots, 60, floor)]
+    return parts[::-1] if floor_first else parts
+
+
+def _assert_same(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=0)
+
+
+def test_thread_birth_logl_matches_jax():
+    logl = np.array([1.0, 2.0, 3.0, 4.0, 5.0])
+    slots = np.array([0, 1, 0, 0, 1])
+    for floor in (-np.inf, -7.5):
+        np.testing.assert_array_equal(
+            te.thread_birth_logl(logl, slots, 2, birth_floor=floor),
+            je.thread_birth_logl(logl, slots, 2, birth_floor=floor))
+    for logl, slots, n_live, floor in _merge_parts(False):
+        got = te.thread_birth_logl(logl, slots, n_live, birth_floor=floor)
+        want = je.thread_birth_logl(logl, slots, n_live, birth_floor=floor)
+        assert got.dtype == want.dtype == np.float64
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize('floor_first', [False, True])
+def test_merged_run_evidence_and_merge_runs_match_jax(floor_first):
+    runs = [{'logl': logl,
+             'birth_logl': je.thread_birth_logl(logl, slots, n,
+                                                birth_floor=floor)}
+            for logl, slots, n, floor in _merge_parts(floor_first)]
+    for r in runs:
+        _assert_same(te.merged_run_evidence(r['logl'], r['birth_logl']),
+                     je.merged_run_evidence(r['logl'], r['birth_logl']))
+    got, want = te.merge_runs(runs), je.merge_runs(runs)
+    _assert_same(got, want)
+    # the batch adds its live points inside its interval only
+    assert np.max(got['n_live']) == 160
+    # no finite weight: the degenerate case of both
+    _assert_same(te.merged_run_evidence([-np.inf] * 3, [-np.inf] * 3),
+                 je.merged_run_evidence([-np.inf] * 3, [-np.inf] * 3))
+    for mod in (te, je):
+        with pytest.raises(ValueError):
+            mod.merge_runs([])
+        with pytest.raises(ValueError):
+            mod.merged_run_evidence([1.0, 2.0], [0.0])
+
+
+def test_load_threads_npz_matches_jax(tmp_path):
+    for i, (logl, slots, n_live, floor) in enumerate(_merge_parts(False)):
+        path = str(tmp_path / ('threads%d.npz' % i))
+        extra = {} if i == 0 else {'birth_floor': np.float64(floor)}
+        np.savez(path, logl=logl, slots=slots.astype(np.uint32),
+                 n_live=np.int64(n_live), **extra)
+        _assert_same(te.load_threads_npz(path), je.load_threads_npz(path))

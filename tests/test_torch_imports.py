@@ -52,10 +52,17 @@ for kw in (dict(flow='nvp', scale='constant'), dict(flow='cholesky'),
     out = other.density(g, -50.0, 16)
 trainer = Trainer(3, device='cpu', log=False)
 trainer.restore_state(trainer.snapshot_state())
-from nnest_torch import EnsembleSampler, MCMCSampler
-import nnest_torch.samplers.ensemble, nnest_torch.samplers.mcmc
+from nnest_torch import DynamicNestedSampler, EnsembleSampler, MCMCSampler
+import nnest_torch.samplers.dynamic, nnest_torch.samplers.ensemble
+import nnest_torch.samplers.mcmc
 from nnest_torch.likelihoods import Gaussian
 from nnest_torch.priors import UniformPrior
+dyn = DynamicNestedSampler(2, Gaussian(2, 0.0), transform=lambda u: 3 * u,
+                           num_live_init=20, log_dir=None, device='cpu',
+                           log_level=30)
+dyn.run(num_batches=1, num_live_batch=10, dlogz=1.0, train_iters=1,
+        mcmc_steps=2)
+assert dyn.samples.shape[1] == 2 and dyn.insertion_p_value is not None
 training = torch.randn(60, 2, generator=g).numpy()
 for cls, kw in ((MCMCSampler, {}), (EnsembleSampler, {})):
     s = cls(2, Gaussian(2, 0.0), prior=UniformPrior(2, -5, 5), log_dir=None,
@@ -105,13 +112,14 @@ def test_tf32_is_off():
 def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip('a GPU is present: the default device is usable')
-    from nnest_torch import (EnsembleSampler, MCMCSampler, NestedSampler,
-                             Trainer, build_flow)
+    from nnest_torch import (DynamicNestedSampler, EnsembleSampler,
+                             MCMCSampler, NestedSampler, Trainer, build_flow)
     from nnest_torch.likelihoods import Gaussian
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         build_flow(2)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         Trainer(2)
-    for cls in (NestedSampler, MCMCSampler, EnsembleSampler):
+    for cls in (NestedSampler, DynamicNestedSampler, MCMCSampler,
+                EnsembleSampler):
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             cls(2, Gaussian(2, 0.0), log_dir=None)

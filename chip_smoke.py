@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs eleven phases, printing one JSON line per
+from JAX or ``nnest_tpu`` and runs twelve phases, printing one JSON line per
 phase with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the build
@@ -83,7 +83,20 @@ phase with its seconds:
    h, ncall, niter) are equal; then a 2-D nested run with a numpy-only
    likelihood (called on the host with float64 numpy) to its analytic logz
    within the same bound, with the kernel's launches (> 0) and the twin's
-   calls (0).
+   calls (0);
+12. derived: the phase-3 model with a torch likelihood returning three
+   derived parameters (sum x, |x|^2, x0 x1; ``num_derived=3``), cut at
+   ``max_iters=5200`` with ``train_iters=20``: at least three MCMC
+   generations, ``samples`` with 19 columns whose derived columns equal the
+   float32 function of the parameter columns (rtol and atol 1e-4),
+   ``chain.txt`` with 21; ``MCMCSampler`` (16 chains, 500 steps) and
+   ``EnsembleSampler.run`` (64 walkers, 200 steps) on phase 10's model with
+   the same derived parameters and 10 training epochs, checked the same
+   way; the 2-D dynamic run (two batches) with a numpy likelihood returning
+   them, to its analytic logz within max(3 logzerr, 0.15); each run with
+   the kernel's launches (> 0) and the twin's calls (0); then one MCMC
+   generation of the 16-D model profiled with ``num_derived`` 3 and 0 on
+   the same flow, and the device kernels a step that derived adds.
 
 ``--baseline SRC`` also builds SRC, an earlier version of the kernel with
 its own C entry point (the unpadded layout, no launch plan), checks it
@@ -94,7 +107,7 @@ Before the last line it prints the ``{"kernels": [...]}`` record, with each
 kernel's launches by path (``mcmc``: phase 3, ``rejection_flow`` and
 ``density_flow``: phase 6, ``per_block``: phase 5, ``slice``: phase 8,
 ``mcmc_sampler`` and ``ensemble``: phase 10, ``dynamic`` and
-``host_likelihood``: phase 11);
+``host_likelihood``: phase 11, ``derived``: phase 12);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before that line.
@@ -130,6 +143,12 @@ POSTERIOR_TRAIN_ITERS = 50
 DYN_LIVE, DYN_BATCH_LIVE = 1000, 200
 DYN_MAX_ITERS, DYN_TRAIN_ITERS = 2400, 20
 DYN_SWITCH = math.exp(-2.0)
+# phase 12's sizes: the phase-3 model with three derived parameters, cut to
+# these iterations and training epochs; the posterior samplers' training
+# epochs
+DERIVED = 3
+DERIVED_MAX_ITERS, DERIVED_TRAIN_ITERS = 5200, 20
+DERIVED_POSTERIOR_EPOCHS = 10
 # the keys of results/diagnostics.json (nnest_tpu's set)
 DIAGNOSTICS_KEYS = {
     'insertion_D', 'insertion_p', 'insertion_rolling_p', 'logzerr',
@@ -575,17 +594,18 @@ def phase_main_path(record, log_dir):
         raise AssertionError('non-finite logz %r' % sampler.logz)
     return {'wall_s': wall, 'launches': launches, 'iterations': sampler.niter,
             'ncall': sampler.total_calls, 'logz_so_far': sampler.logz,
-            **stats, 'generation_profile': profile_mcmc_generation(sampler)}
+            **stats,
+            'generation_profile': profile_generation(mcmc_generation(sampler))}
 
 
 def synthetic_shell(sampler, seed=5):
     """A live set on a synthetic shell (~ N(0, 0.3^2) in the unit cube) and
-    its host log likelihoods."""
+    its host log likelihoods and derived values."""
     g = torch.Generator(device='cuda').manual_seed(seed)
     u = torch.clamp(0.3 * torch.randn(1000, sampler.x_dim, generator=g,
                                       device='cuda'), -1.0, 1.0)
     u = u.cpu().numpy().astype(np.float64)
-    return u, sampler.loglike(u)
+    return (u,) + sampler.loglike(u)
 
 
 def profile_generation(generation):
@@ -628,19 +648,20 @@ def profile_generation(generation):
     }
 
 
-def profile_mcmc_generation(sampler, mcmc_steps=80, num_chains=256):
+def mcmc_generation(sampler, mcmc_steps=80, num_chains=256):
     """One MCMC pool generation at the main path's shape on a synthetic
-    shell, profiled (``profile_generation``)."""
-    u, logl = synthetic_shell(sampler)
+    shell, as a function that ends in a synchronise; the live set's derived
+    values ride along when the sampler has them."""
+    u, logl, derived = synthetic_shell(sampler)
 
     def generation():
         sampler._mcmc_sample_live(
             mcmc_steps, u, logl, num_chains, float(np.min(logl)),
             1.0 / sampler.x_dim ** 0.5, dynamic_step_size=True,
-            adapt_cov=True)
+            adapt_cov=True, active_derived=derived)
         torch.cuda.synchronize()
 
-    return profile_generation(generation)
+    return generation
 
 
 def phase_correctness(log_dir):
@@ -743,11 +764,12 @@ def phase_flow_rejection(records, log_dir):
     by_path = {'rejection_flow': launches}
 
     # one flow-density generation at the same width
-    u, logl = synthetic_shell(sampler)
+    u, logl, _ = synthetic_shell(sampler)
     loglstar = float(np.min(logl))
     reset_counts()
     t0 = time.perf_counter()
-    s_d, ll_d, _ = sampler._density_sample(loglstar, num_trials=FLOW_TRIALS)
+    s_d, ll_d, _, _ = sampler._density_sample(loglstar,
+                                              num_trials=FLOW_TRIALS)
     density_ms = (time.perf_counter() - t0) * 1e3
     by_path['density_flow'] = read_counts('density_flow')
     if not np.all(ll_d > loglstar):
@@ -885,7 +907,7 @@ def phase_slice(record, log_dir):
         raise AssertionError('non-finite logz %r' % sampler.logz)
     record['launches_by_path']['slice'] = launches
 
-    u, logl = synthetic_shell(sampler)
+    u, logl, _ = synthetic_shell(sampler)
 
     def generation():
         sampler._slice_sample_live(2 * d, u, logl, 256, float(np.min(logl)),
@@ -1268,6 +1290,166 @@ def phase_dynamic(record, log_dir):
     return out
 
 
+def derived_of(x, xp=torch):
+    """The three derived parameters of the derived phase: (sum x, |x|^2,
+    x0 x1), as a (batch, 3) array of ``x``'s type (``xp`` torch or numpy)."""
+    cat = torch.stack if xp is torch else np.stack
+    return cat([x.sum(-1), (x * x).sum(-1), x[:, 0] * x[:, 1]], -1)
+
+
+class DerivedGaussian:
+    """The zoo's d-D Gaussian (pairwise correlation ``corr``) as a torch
+    likelihood returning ``(logl, derived)``, the derived parameters those
+    of ``derived_of``."""
+
+    def __init__(self, d, corr=0.0):
+        from nnest_torch.likelihoods import Gaussian
+        self.gaussian = Gaussian(d, corr)
+
+    def __call__(self, x):
+        return self.gaussian(x), derived_of(x)
+
+
+class NumpyDerivedGaussian(NumpyOnlyGaussian):
+    """The 2-D standard normal as a host likelihood returning ``(logl,
+    derived)``, vectorised in float64 numpy."""
+
+    def __call__(self, x):
+        x = np.asarray(x, dtype=np.float64)
+        self.calls += x.shape[0]
+        logl = -0.5 * np.sum(x * x, axis=1) - 0.5 * self.x_dim * math.log(
+            2.0 * math.pi)
+        return logl, derived_of(x, np)
+
+
+def check_derived(samples, d, name):
+    """The derived columns of ``samples`` (..., d + 3) against the float32
+    function of its parameter columns (rtol 1e-4, atol 1e-4); returns the
+    largest absolute difference."""
+    flat = samples.reshape(-1, samples.shape[-1])
+    if flat.shape[1] != d + DERIVED:
+        raise AssertionError('%s: %d columns, expected %d'
+                             % (name, flat.shape[1], d + DERIVED))
+    want = derived_of(flat[:, :d].astype(np.float32), np)
+    got = flat[:, d:]
+    if not (np.all(np.isfinite(got))
+            and np.allclose(got, want, rtol=1e-4, atol=1e-4)):
+        raise AssertionError('%s: derived columns disagree with their '
+                             'parameters by up to %.3g'
+                             % (name, float(np.max(np.abs(got - want)))))
+    return float(np.max(np.abs(got - want)))
+
+
+def phase_derived(record, log_dir):
+    """Derived parameters through every strategy and sampler that runs the
+    kernel, each run with its counts reset just before and read just after:
+    the 16-D nested run with three derived columns, MCMCSampler and
+    EnsembleSampler on the correlated model with them, the 2-D dynamic run
+    with a numpy likelihood returning them; then one MCMC generation of the
+    16-D model profiled with num_derived = 3 and with num_derived = 0, on
+    the same flow."""
+    from nnest_torch import (DynamicNestedSampler, EnsembleSampler,
+                             MCMCSampler, NestedSampler)
+    from nnest_torch.likelihoods import Gaussian
+    from nnest_torch.priors import UniformPrior
+    d = 16
+    out, launches = {}, {}
+    names = ['x%d' % i for i in range(d)] + ['sum', 'norm2', 'x0x1']
+    nested = NestedSampler(d, DerivedGaussian(d), transform=lambda x: 5.0 * x,
+                           num_derived=DERIVED, param_names=names,
+                           log_dir=os.path.join(log_dir, 'derived'), seed=12,
+                           device='cuda')
+    reset_counts()
+    t0 = time.time()
+    nested.run(max_iters=DERIVED_MAX_ITERS, train_iters=DERIVED_TRAIN_ITERS)
+    wall = time.time() - t0
+    launches['nested'] = read_counts('derived')
+    stats = nested.run_stats
+    if stats['mcmc_generations'] < 3 or not math.isfinite(nested.logz):
+        raise AssertionError('the derived run did not reach 3 MCMC '
+                             'generations: %s' % stats)
+    chain = np.loadtxt(os.path.join(nested.logs['chains'], 'chain.txt'))
+    if chain.shape[1] != 2 + d + DERIVED:
+        raise AssertionError('chain.txt has %d columns' % chain.shape[1])
+    out['nested'] = {
+        'wall_s': wall, 'launches': launches['nested'],
+        'iterations': nested.niter, 'ncall': nested.total_calls,
+        'logz_so_far': nested.logz,
+        'samples_shape': list(nested.samples.shape),
+        'chain_columns': int(chain.shape[1]),
+        'max_abs_derived_dev': check_derived(nested.samples, d, 'nested'),
+        **stats}
+
+    corr = 0.9
+    cov = np.eye(d) + corr * (1.0 - np.eye(d))
+    training = np.random.default_rng(10).multivariate_normal(
+        np.zeros(d), cov, size=1000)
+    for cls, key, steps, chains in ((MCMCSampler, 'mcmc_sampler', 500, 16),
+                                    (EnsembleSampler, 'ensemble', 200, 64)):
+        s = cls(d, DerivedGaussian(d, corr), prior=UniformPrior(d, -5.0, 5.0),
+                num_derived=DERIVED, log_dir=os.path.join(log_dir, 'd_' + key),
+                seed=13, device='cuda')
+        reset_counts()
+        t0 = time.time()
+        samples = s.run(steps, chains, training,
+                        train_iters=DERIVED_POSTERIOR_EPOCHS)
+        launches[key] = read_counts('derived ' + key)
+        if samples.shape != (chains, steps + 1, d + DERIVED):
+            raise AssertionError('%s samples %s' % (key, samples.shape))
+        out[key] = {'wall_s': time.time() - t0, 'launches': launches[key],
+                    'samples_shape': list(samples.shape),
+                    'max_abs_derived_dev': check_derived(samples, d, key)}
+
+    like = NumpyDerivedGaussian(2)
+    dyn = DynamicNestedSampler(2, like, transform=lambda x: 3.0 * x,
+                               num_live_init=200, num_derived=DERIVED,
+                               log_dir=os.path.join(log_dir, 'd_dynamic'),
+                               seed=8, device='cuda')
+    reset_counts()
+    t0 = time.time()
+    dyn.run(G=0.5, num_batches=2, num_live_batch=100, dlogz=0.1,
+            train_iters=50)
+    launches['host_dynamic'] = read_counts('derived host dynamic')
+    analytic = Gaussian(2, 0.0).analytic_logz([-3.0, -3.0], [3.0, 3.0])
+    allowed = max(3.0 * dyn.logzerr, 0.15)
+    out['host_dynamic'] = {
+        'wall_s': time.time() - t0, 'launches': launches['host_dynamic'],
+        'logz': dyn.logz, 'logzerr': dyn.logzerr, 'analytic_logz': analytic,
+        'allowed': allowed, 'ncall': dyn.total_calls,
+        'likelihood_rows': like.calls,
+        'samples_shape': list(dyn.samples.shape),
+        'max_abs_derived_dev': check_derived(dyn.samples, 2, 'host dynamic')}
+    if abs(dyn.logz - analytic) > allowed:
+        raise AssertionError('2-D host dynamic run off the analytic logz: %s'
+                             % out['host_dynamic'])
+    record['launches_by_path']['derived'] = sum(launches.values())
+
+    # one generation with and without derived columns, on the same flow
+    plain = NestedSampler(d, Gaussian(d, 0.0), transform=lambda x: 5.0 * x,
+                          trainer=nested.trainer, log_dir=None, seed=12,
+                          device='cuda')
+    gens = {0: mcmc_generation(plain), DERIVED: mcmc_generation(nested)}
+    with_d = profile_generation(gens[DERIVED])
+    without = profile_generation(gens[0])
+    # the unprofiled wall, in turns: without, with, with, without, thrice
+    walls = {0: [], DERIVED: []}
+    for _ in range(3):
+        for nd in (0, DERIVED, DERIVED, 0):
+            t0 = time.perf_counter()
+            gens[nd]()
+            walls[nd].append((time.perf_counter() - t0) * 1e3)
+    steps = 80
+    out['generation_profile'] = {
+        'num_derived_3': with_d, 'num_derived_0': without,
+        'device_kernels_per_step_added': (
+            with_d['kernel_launches'] - without['kernel_launches']) / steps,
+        'wall_ms_in_turns': {'num_derived_0': walls[0],
+                             'num_derived_3': walls[DERIVED],
+                             'median_0': float(np.median(walls[0])),
+                             'median_3': float(np.median(walls[DERIVED]))}}
+    return out
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1282,7 +1464,8 @@ def main():
     import nnest_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     paths = ('mcmc', 'rejection_flow', 'density_flow', 'per_block', 'slice',
-             'mcmc_sampler', 'ensemble', 'dynamic', 'host_likelihood')
+             'mcmc_sampler', 'ensemble', 'dynamic', 'host_likelihood',
+             'derived')
     records = [
         {'name': 'spline_inverse', 'route': 'cuda',
          'source': 'nnest_torch/csrc/spline_inverse.cu',
@@ -1313,14 +1496,15 @@ def main():
                 (9, 'other_flows', lambda: phase_other_flows(log_dir)),
                 (10, 'mcmc_ensemble',
                  lambda: phase_mcmc_ensemble(records[0], log_dir)),
-                (11, 'dynamic', lambda: phase_dynamic(records[0], log_dir))):
+                (11, 'dynamic', lambda: phase_dynamic(records[0], log_dir)),
+                (12, 'derived', lambda: phase_derived(records[0], log_dir))):
             t0 = time.time()
             out = fn()
             emit({'phase': num, 'name': name,
                   'seconds': time.time() - t0, **out})
     for rec in records:
         # launches on the paths that drive the kernel (phases 3, 5, 6, 8,
-        # 10, 11)
+        # 10, 11, 12)
         rec['launches'] = sum(rec['launches_by_path'].values())
     emit({'kernels': records})
     emit({'ok': True, 'device': {'platform': 'gpu',

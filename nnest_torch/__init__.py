@@ -8,6 +8,16 @@ spline flow runs is a hand-written CUDA kernel (``ops/spline_inverse.py`` +
 ``csrc/spline_inverse.cu``) with a plain PyTorch twin that serves CPU
 tensors. The NVP, Cholesky and fast-slow flows invert in plain PyTorch.
 
+Ported: the nested sampler with its strategy ladder (prior and flow
+rejection, flow density, Metropolis and slice chains), diagnostics and
+exact resume; the dynamic nested sampler; the MCMC and ensemble posterior
+samplers; every flow and base of ``build_flow``; torch and host (numpy)
+likelihoods and priors; derived parameters (a likelihood returning
+``(logl, derived)``, ``num_derived``) through every strategy, sampler,
+checkpoint and chain file; the trainer with its transport API (``forward``,
+``inverse``, ``log_probs`` and the sample getters). Not ported: meshes and
+multi-device runs, plots and TensorBoard (ROADMAP.md).
+
 Entry points run on ``device='cuda'`` unless the caller asks for the CPU;
 with no GPU they raise instead of falling back. This package never imports
 ``jax`` or ``nnest_tpu``.

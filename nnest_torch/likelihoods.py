@@ -19,7 +19,9 @@ import torch
 
 class Likelihood:
     """Base class; subclasses implement ``logpdf(x)`` on a (batch, d)
-    float32 tensor."""
+    float32 tensor. The zoo returns no derived parameters."""
+
+    num_derived = 0
 
     def __init__(self, x_dim: int):
         self.x_dim = x_dim

@@ -5,19 +5,23 @@ Port of ``nnest_tpu/samplers/base.py`` without meshes:
 - two likelihood conventions, told apart once when the sampler is built
   (the JAX package's split between traced and ``io_callback``
   likelihoods, ``_build_kernels``): a *tensor likelihood* returns a
-  ``torch.Tensor`` for a (2, d) float32 tensor on the sampler's device and
-  is called on (batch, d) float32 tensors there; any other callable (one
-  that raises on a tensor, or returns numpy) is a *host likelihood* and
-  receives the transformed points as (batch, d) float64 numpy, its result
-  copied back to the device as float32 for the kernels. Both return a
-  (batch,) log likelihood. The host wrapper :meth:`Sampler.loglike`
-  (numpy in, float64 out, non-finite values clamped to -1e100, calls
+  ``torch.Tensor``, or a tuple whose first element is one, for a (2, d)
+  float32 tensor on the sampler's device and is called on (batch, d)
+  float32 tensors there; any other callable (one that raises on a tensor,
+  or returns numpy) is a *host likelihood* and receives the transformed
+  points as (batch, d) float64 numpy, its result copied back to the device
+  as float32 for the kernels. Both return a (batch,) log likelihood, or
+  ``(logl, derived)`` with derived parameters of shape (batch,
+  num_derived) (zeros when a likelihood returns logl alone). The host
+  wrapper :meth:`Sampler.loglike` (numpy in, float64 ``(logl, derived)``
+  out, non-finite logl clamped to -1e100, derived shapes checked, calls
   counted) and the device function used inside the kernels (non-finite
-  values sanitized to ``LOG_NEG``) both call it; the probe that tells the
-  two apart is not counted. A transform that does not return a tensor for
-  a tensor is a host transform in the same way, and a prior without
-  ``logpdf`` is called once a point on float64 numpy (the JAX package's
-  ``safe_prior``), inside the kernels too;
+  logl sanitized to ``LOG_NEG``, derived float32) both call it; the probe
+  that tells the two apart is not counted, and checks a tensor
+  likelihood's derived shape once. A transform that does not return a
+  tensor for a tensor is a host transform in the same way, and a prior
+  without ``logpdf`` is called once a point on float64 numpy (the JAX
+  package's ``safe_prior``), inside the kernels too;
 - one sampler transform, set in one place (:meth:`Sampler.set_transform`;
   the MCMC and ensemble samplers' ``run`` make it the de-normalisation of
   their training set): the device likelihood, the device prior (on the
@@ -39,11 +43,13 @@ Port of ``nnest_tpu/samplers/base.py`` without meshes:
   style starts (given points re-projected through forward and inverse, or
   base draws until prior and likelihood are finite), and the chain
   statistics of ``utils/evaluation.py``;
-- getdist-style ``chain.txt`` (``chain_<i>.txt`` a chain for trajectories)
+- derived parameters carried beside every point the kernels return
+  (float32 on the device, float64 on the host, as in the JAX package);
+- getdist-style ``chain.txt`` (``chain_<i>.txt`` a chain for trajectories;
+  rows ``weight -logl params derived`` under the ``param_names`` header)
   and ``params.txt``.
 
-Derived parameters, meshes and trace plots are not ported yet (see
-ROADMAP.md).
+Meshes and trace plots are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -78,15 +84,37 @@ def _identity(u):
     return u
 
 
-def _returns_tensor(fn, x_dim, device):
-    """True when ``fn`` returns a tensor for a (2, x_dim) float32 tensor on
-    ``device``: the probe that tells a tensor callable from a host one."""
+def _probe(fn, x_dim, device):
+    """``fn`` of a (2, x_dim) float32 zero tensor on ``device``, or None
+    when it raises."""
     try:
         with torch.no_grad():
-            out = fn(torch.zeros(2, x_dim, device=device))
+            return fn(torch.zeros(2, x_dim, device=device))
     except Exception:
-        return False
+        return None
+
+
+def _is_tensor_result(out):
+    """A tensor, or a tuple whose first element is one (``(logl,
+    derived)``)."""
+    if isinstance(out, tuple) and out:
+        out = out[0]
     return isinstance(out, torch.Tensor)
+
+
+def _returns_tensor(fn, x_dim, device):
+    """True when ``fn`` returns a tensor, or a tuple whose first element is
+    a tensor, for a (2, x_dim) float32 tensor on ``device``: the probe that
+    tells a tensor callable from a host one."""
+    return _is_tensor_result(_probe(fn, x_dim, device))
+
+
+def _check_derived(derived, num_derived):
+    """The JAX package's two checks of a likelihood's derived values."""
+    if derived.ndim == 1:
+        raise ValueError('Derived should have dimensions (batch, num_derived)')
+    if derived.shape[1] != num_derived:
+        raise ValueError('Is the number of derived parameters correct?')
 
 
 class Sampler:
@@ -99,6 +127,7 @@ class Sampler:
                  append_run_num=True,
                  hidden_dim=0,
                  num_slow=0,
+                 num_derived=0,
                  batch_size=100,
                  flow='spline',
                  num_blocks=3,
@@ -117,10 +146,13 @@ class Sampler:
                  device='cuda'):
         self.device = resolve_device(device)
         self.x_dim = x_dim
+        self.num_derived = int(num_derived)
+        self.num_params = x_dim + self.num_derived
         self.resume = resume
         self.param_names = param_names
-        if param_names is not None and len(param_names) != x_dim:
-            raise ValueError('param_names must have x_dim entries')
+        if param_names is not None and len(param_names) != self.num_params:
+            raise ValueError('param_names must have x_dim + num_derived '
+                             'entries')
         if not 0 <= num_slow < x_dim:
             raise ValueError('num_slow must be in [0, x_dim)')
         # Fast-slow proposals: the share of Metropolis proposals that move
@@ -135,7 +167,11 @@ class Sampler:
             hidden_dim = 16 if x_dim < 16 else (32 if x_dim < 32 else 64)
 
         self._user_loglike = loglike
-        self._host_loglike = not _returns_tensor(loglike, x_dim, self.device)
+        probe = _probe(loglike, x_dim, self.device)
+        self._host_loglike = not _is_tensor_result(probe)
+        if not self._host_loglike and isinstance(probe, tuple):
+            # a tensor likelihood's derived shape, checked once here
+            _check_derived(torch.as_tensor(probe[1]), self.num_derived)
         self._user_prior = prior
         self._host_prior = (prior is not None
                             and not callable(getattr(prior, 'logpdf', None)))
@@ -240,36 +276,59 @@ class Sampler:
 
     def _loglike_of_host(self, u):
         """A host likelihood of float64 numpy points ``u`` (before the
-        transform): (batch,) float64, non-finite values clamped to
-        -1e100."""
-        logl = np.array(self._user_loglike(self.transform(u)),
-                        dtype=np.float64).reshape(-1)
+        transform): (logl, derived) in float64, logl (batch,) with
+        non-finite values clamped to -1e100, derived (batch, num_derived)
+        (zeros when the likelihood returns logl alone)."""
+        res = self._user_loglike(self.transform(u))
+        if isinstance(res, tuple):
+            logl, derived = res
+            derived = np.asarray(derived, dtype=np.float64)
+            _check_derived(derived, self.num_derived)
+        else:
+            logl = res
+            derived = np.zeros((u.shape[0], self.num_derived))
+        logl = np.array(logl, dtype=np.float64).reshape(-1)
         logl[~np.isfinite(logl)] = -1e100
-        return logl
+        return logl, derived
 
     def _device_loglike(self, u):
-        """(batch, d) float32 tensor → (batch,) float32 log likelihood on
-        its device."""
+        """(batch, d) float32 tensor → float32 (logl, derived) on its device:
+        logl (batch,), derived (batch, num_derived), zeros when the
+        likelihood returns logl alone. A host likelihood's values pass
+        through float32 once."""
+        f32 = torch.float32
         if self._host_loglike:
-            logl = self._loglike_of_host(_to_numpy(u).astype(np.float64))
+            logl, derived = self._loglike_of_host(
+                _to_numpy(u).astype(np.float64))
+            return (torch.as_tensor(logl, dtype=f32, device=u.device),
+                    torch.as_tensor(derived, dtype=f32, device=u.device))
+        res = self._user_loglike(self._device_transform(u))
+        if isinstance(res, tuple):
+            logl, derived = res
+            derived = torch.as_tensor(derived, dtype=f32, device=u.device)
         else:
-            logl = self._user_loglike(self._device_transform(u))
-        return torch.as_tensor(logl, dtype=torch.float32, device=u.device)
+            logl = res
+            derived = torch.zeros((u.shape[0], self.num_derived),
+                                  device=u.device)
+        return torch.as_tensor(logl, dtype=f32, device=u.device), derived
 
     def loglike(self, u):
-        """Host wrapper: numpy in, float64 numpy out, non-finite values
-        clamped to -1e100, calls counted."""
+        """Host wrapper: numpy in (a list or a single point too), float64
+        numpy ``(logl, derived)`` out, non-finite logl clamped to -1e100,
+        derived (batch, num_derived) checked, calls counted."""
         u = np.atleast_2d(np.asarray(u, dtype=np.float64))
         if self._host_loglike:
-            logl = self._loglike_of_host(u)
+            logl, derived = self._loglike_of_host(u)
         else:
             with torch.no_grad():
-                logl = self._device_loglike(torch.as_tensor(
+                logl, derived = self._device_loglike(torch.as_tensor(
                     u.astype(np.float32), device=self.device))
             logl = np.asarray(_to_numpy(logl), dtype=np.float64).reshape(-1)
             logl[~np.isfinite(logl)] = -1e100
+            derived = np.asarray(_to_numpy(derived), dtype=np.float64)
+            _check_derived(derived, self.num_derived)
         self.total_calls += u.shape[0]
-        return logl
+        return logl, derived
 
     def _device_prior(self, u):
         """(batch, d) tensor → (batch,) log prior, of ``transform(u)`` when
@@ -301,7 +360,8 @@ class Sampler:
         if self._kernels is None:
             self._kernels = LatentKernels(
                 self.trainer.model, self._device_loglike, self._device_prior,
-                num_slow=self.num_slow, oversample_rate=self.oversample_rate)
+                num_slow=self.num_slow, oversample_rate=self.oversample_rate,
+                num_derived=self.num_derived)
         return self._kernels
 
     # -------------------------------------------------------------- MCMC
@@ -309,7 +369,9 @@ class Sampler:
     def _consume_endpoint_out(self, out, mix_null=None, cond_null=None,
                               cond_inflates=False):
         """Counters and chain statistics of one endpoint kernel output;
-        returns host (u, logl, moved, scale, mean_jump, ncall).
+        returns host (u, logl, derived, moved, scale, mean_jump, ncall),
+        derived (chains, num_derived) float64 (no columns, and no device
+        tensor behind them, when num_derived is 0).
 
         The eigenbasis mixing ratio and latent condition number come from
         the kernel's ``mix_cov``/``mix_msd`` in float64 on the host. With
@@ -342,19 +404,38 @@ class Sampler:
             'mix_ratio_eig': mix_eig,
             'latent_cond': latent_cond,
         }
-        return (np.asarray(out['final_x'], dtype=np.float64),
-                np.asarray(out['final_logl'], dtype=np.float64),
+        u = np.asarray(out['final_x'], dtype=np.float64)
+        return (u, np.asarray(out['final_logl'], dtype=np.float64),
+                self._host_derived(out.get('final_derived'), u.shape[0]),
                 np.asarray(out['moved'], dtype=bool),
                 float(out['scale']), float(out['mean_jump']),
                 int(out['ncall']))
 
+    def _host_derived(self, derived, n):
+        """A kernel's derived values (a tensor, or None when num_derived is
+        0) as (n, num_derived) float64 numpy."""
+        if derived is None:
+            return np.zeros((n, self.num_derived))
+        return np.asarray(_to_numpy(derived), dtype=np.float64).reshape(
+            n, self.num_derived)
+
+    def _device_derived(self, derived):
+        """Host derived rows as a float32 device tensor, or None when
+        num_derived is 0 (the kernels then carry no derived tensor)."""
+        if not self.num_derived:
+            return None
+        return torch.as_tensor(np.asarray(derived, dtype=np.float32),
+                               device=self.device)
+
     def _mcmc_sample_live(self, mcmc_steps, active_u, active_logl,
                           num_chains, loglstar, step_size,
                           dynamic_step_size=False, prior_volume_steps=1,
-                          adapt_cov=False):
-        """One MCMC pool generation from the live set.
+                          adapt_cov=False, active_derived=None):
+        """One MCMC pool generation from the live set (``active_derived``
+        its (n_live, num_derived) derived values, needed when num_derived
+        > 0).
 
-        Returns (u, logl, moved, scale, mean_jump, ncall)."""
+        Returns (u, logl, derived, moved, scale, mean_jump, ncall)."""
         if step_size <= 0.0:
             step_size = 2.0 / self.x_dim ** 0.5
         self.trainer.ensure_init()
@@ -364,6 +445,7 @@ class Sampler:
                 self.generator,
                 torch.as_tensor(active_u.astype(f32), device=self.device),
                 torch.as_tensor(active_logl.astype(f32), device=self.device),
+                active_derived=self._device_derived(active_derived),
                 num_chains=num_chains, loglstar=loglstar,
                 step_size=step_size, mcmc_steps=mcmc_steps,
                 dynamic_step_size=dynamic_step_size,
@@ -376,14 +458,15 @@ class Sampler:
 
     def _slice_sample_live(self, slice_steps, active_u, active_logl,
                            num_chains, loglstar, width, max_expand=4,
-                           max_shrink=10, adapt_cov=False):
+                           max_shrink=10, adapt_cov=False,
+                           active_derived=None):
         """One slice pool generation from the live set; the slice
         analogue of :meth:`_mcmc_sample_live`. Its latent condition number
         is recorded but does not inflate ``logzerr_adjusted`` (the JAX
         package's calibration: the slice kernel's kinetic term alone
         covers curved degeneracies).
 
-        Returns (u, logl, moved, scale, mean_jump, ncall)."""
+        Returns (u, logl, derived, moved, scale, mean_jump, ncall)."""
         self.trainer.ensure_init()
         with torch.no_grad():
             f32 = np.float32
@@ -391,6 +474,7 @@ class Sampler:
                 self.generator,
                 torch.as_tensor(active_u.astype(f32), device=self.device),
                 torch.as_tensor(active_logl.astype(f32), device=self.device),
+                active_derived=self._device_derived(active_derived),
                 num_chains=num_chains, loglstar=loglstar, width=width,
                 slice_steps=slice_steps, max_expand=max_expand,
                 max_shrink=max_shrink, adapt_cov=adapt_cov)
@@ -401,14 +485,16 @@ class Sampler:
     # ------------------------------------------- posterior chains, ensemble
 
     def _mcmc_init(self, num_chains, init_samples, init_loglikes,
-                   max_start_tries):
+                   max_start_tries, init_derived=None):
         """Latent chain starts: given points ``init_samples`` re-projected
         through forward then inverse (numerical consistency), with their
-        host log likelihoods unless ``init_loglikes`` gives them; else base
-        draws through the flow's inverse until every start has a finite
-        prior and likelihood (``max_start_tries`` tries, then a
-        RuntimeError). Returns (z0, logl0, logl_prior0, the likelihood
-        calls this paid), the first three as float32 tensors."""
+        host log likelihoods unless ``init_loglikes`` gives them (and
+        ``init_derived`` their derived values, when num_derived > 0); else
+        base draws through the flow's inverse until every start has a
+        finite prior and likelihood (``max_start_tries`` tries, then a
+        RuntimeError). Returns (z0, logl0, derived0, logl_prior0, the
+        likelihood calls this paid), the first four as float32 tensors
+        (derived0 None when num_derived is 0)."""
         self.trainer.ensure_init()
         model = self.trainer.model
         f32 = torch.float32
@@ -420,16 +506,17 @@ class Sampler:
                     device=self.device))
                 x, _ = model.inverse(z)
                 lp_prior = self._device_prior(x)
-                if init_loglikes is None:
-                    logl = self.loglike(_to_numpy(x))
+                if init_loglikes is None or (self.num_derived
+                                             and init_derived is None):
+                    logl, derived = self.loglike(_to_numpy(x))
                     ncall += z.shape[0]
                 else:
-                    logl = np.asarray(init_loglikes)
+                    logl, derived = np.asarray(init_loglikes), init_derived
             else:
                 for i in range(max_start_tries):
                     z = model.sample_base(num_chains, self.generator)
                     x = _to_numpy(model.inverse(z)[0])
-                    logl = self.loglike(x)
+                    logl, derived = self.loglike(x)
                     ncall += num_chains
                     lp_prior = self.prior(x)
                     if np.all(logl > -1e30) and np.all(lp_prior > -1e30):
@@ -437,39 +524,40 @@ class Sampler:
                     if i == max_start_tries - 1:
                         raise RuntimeError('Could not find starting value')
         return (z, torch.as_tensor(logl, dtype=f32, device=self.device),
+                self._device_derived(derived),
                 torch.as_tensor(lp_prior, dtype=f32, device=self.device),
                 ncall)
 
     def _mcmc_sample_final(self, mcmc_steps, init_samples,
                            init_loglikes=None, loglstar=None,
                            dynamic_step_size=False, cov_from=None,
-                           cov_mask=None):
+                           cov_mask=None, init_derived=None):
         """Endpoint-only Metropolis from explicit starts, the dynamic
         sampler's seed refresh: one chain a row of ``init_samples``,
         started by :meth:`_mcmc_init` (re-projected, with ``init_loglikes``
-        when given), constrained by ``loglstar`` when given; ``cov_from``
+        and ``init_derived`` when given), constrained by ``loglstar`` when
+        given; ``cov_from``
         (live rows as a float32 tensor, the ``cov_mask`` half of them when
         given) enables the covariance-preconditioned proposal. The step
         size starts at 2/sqrt(x_dim).
 
         Returns (u, logl, derived, moved, scale, mean_jump, ncall);
-        ``derived`` has no columns (derived parameters are not ported) and
         ``ncall`` includes the starts' likelihood calls."""
         num_chains = init_samples.shape[0]
-        z0, logl0, lp_prior0, ncall_init = self._mcmc_init(
-            num_chains, init_samples, init_loglikes, 1)
+        z0, logl0, derived0, lp_prior0, ncall_init = self._mcmc_init(
+            num_chains, init_samples, init_loglikes, 1, init_derived)
         out = self.kernels.mcmc(
-            self.generator, z0, logl0, lp_prior0, loglstar=loglstar,
+            self.generator, z0, logl0, lp_prior0, derived0=derived0,
+            loglstar=loglstar,
             step_size=2.0 / self.x_dim ** 0.5, mcmc_steps=mcmc_steps,
             dynamic_step_size=dynamic_step_size, cov_from=cov_from,
             cov_mask=cov_mask)
-        u, logl, moved, scale, mean_jump, ncall = self._consume_endpoint_out(
+        *head, ncall = self._consume_endpoint_out(
             out, mix_null=metropolis_mix_null(mcmc_steps, self.x_dim,
                                               adapt_cov=cov_from is not None),
             cond_null=latent_cond_null(self.x_dim, num_chains),
             cond_inflates=True)
-        return (u, logl, np.zeros((u.shape[0], 0)), moved, scale, mean_jump,
-                ncall + ncall_init)
+        return (*head, ncall + ncall_init)
 
     def _mcmc_sample(self, mcmc_steps, step_size=0.0,
                      dynamic_step_size=False, num_chains=1,
@@ -483,30 +571,41 @@ class Sampler:
         end. With ``output_interval`` (any value) the transformed chains
         are written as ``chains/chain_<i>.txt``.
 
-        Returns (samples, latent, loglikes, scale, ncall): samples and
-        latent (chains, steps + 1, x_dim) and loglikes (chains, steps + 1)
-        in float64, samples in the chains' space (before the transform);
-        ncall includes the starts' likelihood calls."""
+        Returns (samples, latent, derived, loglikes, scale, ncall): samples
+        and latent (chains, steps + 1, x_dim), derived (chains, steps + 1,
+        num_derived) and loglikes (chains, steps + 1) in float64, samples
+        in the chains' space (before the transform); ncall includes the
+        starts' likelihood calls."""
         if step_size <= 0.0:
             step_size = 2.0 / self.x_dim ** 0.5
-        z0, logl0, lp_prior0, ncall_init = self._mcmc_init(
+        z0, logl0, derived0, lp_prior0, ncall_init = self._mcmc_init(
             num_chains, init_samples, init_loglikes, max_start_tries)
         out = self.kernels.mcmc(
-            self.generator, z0, logl0, lp_prior0, loglstar=loglstar,
+            self.generator, z0, logl0, lp_prior0, derived0=derived0,
+            loglstar=loglstar,
             step_size=step_size, mcmc_steps=mcmc_steps,
             dynamic_step_size=dynamic_step_size,
             prior_volume_steps=prior_volume_steps, collect_chains=True)
         out = {k: _to_numpy(v) for k, v in out.items()}
         samples = out['samples'].astype(np.float64)
         loglikes = out['loglikes'].astype(np.float64)
+        derived = self._trajectory_derived(out, loglikes.shape)
         self.total_calls += int(out['ncall'])
         self.total_fast_calls += int(out['fast_calls'])
         self.total_accepted += int(out['accepted'])
         self.total_rejected += int(out['rejected'])
         if output_interval is not None:
-            self._save_samples(self._physical(samples), loglikes)
-        return (samples, out['latent'].astype(np.float64), loglikes,
-                float(out['scale']), int(out['ncall']) + ncall_init)
+            self._save_samples(self._physical(samples), loglikes,
+                               derived_samples=derived)
+        return (samples, out['latent'].astype(np.float64), derived,
+                loglikes, float(out['scale']),
+                int(out['ncall']) + ncall_init)
+
+    def _trajectory_derived(self, out, shape):
+        """A collect-chains output's derived trajectory (chains, steps + 1,
+        num_derived) in float64; no columns when num_derived is 0."""
+        flat = self._host_derived(out.get('derived'), shape[0] * shape[1])
+        return flat.reshape(shape + (self.num_derived,))
 
     def _ensemble_sample(self, mcmc_steps, num_walkers, init_samples=None,
                          loglstar=None, max_start_tries=100, moves=None):
@@ -516,9 +615,10 @@ class Sampler:
         forward images of ``init_samples``, or at base draws through the
         inverse once all lie inside the prior.
 
-        Returns (samples, latent, loglikes, ncall): samples and latent
-        (walkers, steps + 1, x_dim) and loglikes (walkers, steps + 1) in
-        float64, samples before the transform."""
+        Returns (samples, latent, derived, loglikes, ncall): samples and
+        latent (walkers, steps + 1, x_dim), derived (walkers, steps + 1,
+        num_derived) and loglikes (walkers, steps + 1) in float64, samples
+        before the transform."""
         if moves is None:
             moves = (('stretch', 1.0),)
         elif isinstance(moves, dict):
@@ -544,12 +644,14 @@ class Sampler:
                                    loglstar=loglstar, moves=moves)
         out = {k: _to_numpy(v) for k, v in out.items()}
         samples = out['samples'].astype(np.float64)
+        loglikes = out['loglikes'].astype(np.float64)
         ncall = int(out['ncall'])
         self.total_calls += ncall
         self.total_accepted += int(out['accepted'])
         self.total_rejected += int(out['rejected'])
         return (samples, out['latent'].astype(np.float64),
-                out['loglikes'].astype(np.float64), ncall)
+                self._trajectory_derived(out, loglikes.shape), loglikes,
+                ncall)
 
     def _physical(self, samples):
         """Chains (chains, steps, x_dim) through the sampler transform."""
@@ -575,24 +677,25 @@ class Sampler:
     # --------------------------------------------------------- rejection
 
     def _rejection_prior_sample(self, loglstar, num_trials=512):
-        """Batched prior rejection. Returns (samples, loglikes,
+        """Batched prior rejection. Returns (samples, loglikes, derived,
         effective_ncall) with the successful trials only (may be empty)."""
         trials = int(num_trials)
-        x, logl, ok = self.kernels.rejection_prior(
+        x, logl, derived, ok = self.kernels.rejection_prior(
             self._user_prior, self.generator, loglstar, trials)
-        return self._candidates(x, logl, ok, trials)
+        return self._candidates(x, logl, derived, ok, trials)
 
-    def _candidates(self, x, logl, ok, n_evals):
+    def _candidates(self, x, logl, derived, ok, n_evals):
         """Counters of one rejection or flow-density generation (``n_evals``
-        likelihood calls); returns the passing trials (u, logl) in float64
-        and the likelihood calls per passing trial."""
+        likelihood calls); returns the passing trials (u, logl, derived) in
+        float64 and the likelihood calls per passing trial."""
         ok = _to_numpy(ok)
         n_evals = int(n_evals)
         self.total_calls += n_evals
         n_ok = int(ok.sum())
         nc = n_evals / max(n_ok, 1) if n_ok > 0 else max(n_evals, 1)
         return (_to_numpy(x)[ok].astype(np.float64),
-                _to_numpy(logl).astype(np.float64)[ok], nc)
+                _to_numpy(logl).astype(np.float64)[ok],
+                self._host_derived(derived, ok.shape[0])[ok], nc)
 
     def _rejection_flow_sample(self, init_samples, loglstar,
                                enlargement_factor=1.1, cache=False,
@@ -601,24 +704,25 @@ class Sampler:
         ``init_samples`` (max-folded into the cached one when ``cache`` and
         a cached one exists, else replacing it), then one generation of
         ``num_trials`` trials in the latent ball. Returns (samples,
-        loglikes, effective_ncall) of the passing trials."""
+        loglikes, derived, effective_ncall) of the passing trials."""
         self.trainer.ensure_init()
         fold = bool(cache and self._max_log_det_j is not None)
-        x, logl, ok, n_evals, mld, mr = self.kernels.rejection_flow_live(
-            self.generator, loglstar,
-            torch.as_tensor(np.asarray(init_samples, dtype=np.float32),
-                            device=self.device),
-            self._max_log_det_j if fold else 0.0,
-            self._max_r if fold else 0.0, fold, enlargement_factor,
-            int(num_trials))
+        x, logl, derived, ok, n_evals, mld, mr = \
+            self.kernels.rejection_flow_live(
+                self.generator, loglstar,
+                torch.as_tensor(np.asarray(init_samples, dtype=np.float32),
+                                device=self.device),
+                self._max_log_det_j if fold else 0.0,
+                self._max_r if fold else 0.0, fold, enlargement_factor,
+                int(num_trials))
         self._max_log_det_j = float(mld)
         self._max_r = float(mr)
-        return self._candidates(x, logl, ok, n_evals)
+        return self._candidates(x, logl, derived, ok, n_evals)
 
     def _density_sample(self, loglstar, num_trials=512):
         """Batched flow-density draws: ``num_trials`` base draws through
-        the flow's inverse. Returns (samples, loglikes, effective_ncall)
-        of the passing draws."""
+        the flow's inverse. Returns (samples, loglikes, derived,
+        effective_ncall) of the passing draws."""
         self.trainer.ensure_init()
         return self._candidates(*self.kernels.density(
             self.generator, loglstar, int(num_trials)))
@@ -626,10 +730,13 @@ class Sampler:
     # ---------------------------------------------------------------- io
 
     def _save_samples(self, samples, loglikes, weights=None,
-                      min_weight=1e-30, outfile='chain'):
-        """getdist/CosmoMC text chain: rows of `weight -loglike params`.
-        Samples (chains, steps, dim) write one file a chain,
-        ``<outfile>_<i>.txt`` with i from 1."""
+                      derived_samples=None, min_weight=1e-30,
+                      outfile='chain'):
+        """getdist/CosmoMC text chain: rows of `weight -loglike params
+        [derived]`, the derived columns from ``derived_samples`` (shaped
+        like ``samples`` but for the last axis) when given. Samples
+        (chains, steps, dim) write one file a chain, ``<outfile>_<i>.txt``
+        with i from 1."""
         if self.logs is None:
             return
         if weights is None:
@@ -637,6 +744,9 @@ class Sampler:
         header = ''
         if self.param_names is not None:
             header = 'weight minusloglike ' + ' '.join(self.param_names)
+
+        if derived_samples is not None:
+            samples = np.concatenate((samples, derived_samples), axis=-1)
 
         def write(name, s, ll, w):
             mat = np.hstack([np.maximum(w, min_weight)[:, None],

@@ -20,6 +20,9 @@ its evidence comes from the per-point (birth, death) record
   strategy.
 - All batches share one ``Trainer`` (one flow), so the NLL retrain gate
   skips training over territory the flow already fits.
+- Derived parameters (``num_derived`` among the batches' keyword
+  arguments) ride along: the seeds take theirs from the parts' samples
+  (the columns after x_dim), and the merged ``samples`` keep them.
 
 The window [L_lo, L_hi] follows dynesty's ``weight_function``: I(i) =
 (1 - G) Z_remain(i)/max + G w_i/max over the sorted deaths, the batch
@@ -247,7 +250,7 @@ class DynamicNestedSampler:
         With ``refresh=False`` (the batch continues from its own
         checkpoint) only the index draw runs, so that ``self._rng`` moves
         as in the uninterrupted run; returns None then."""
-        pool_u, pool_logl = [], []
+        pool_u, pool_logl, pool_derived = [], [], []
         for p in self._parts:
             alive = (p['birth_logl'] <= L_lo) & (p['logl'] > L_lo)
             # strict float32 margin: the kernels compare f32(logl) >
@@ -255,19 +258,22 @@ class DynamicNestedSampler:
             alive &= p['logl'].astype(np.float32) > np.float32(L_lo)
             pool_u.append(p['u'][alive])
             pool_logl.append(p['logl'][alive])
+            pool_derived.append(p['samples'][alive][:, s.x_dim:])
         pool_u = np.concatenate(pool_u)
         pool_logl = np.concatenate(pool_logl)
+        pool_derived = np.concatenate(pool_derived)
         if pool_u.shape[0] == 0:
             raise RuntimeError('no live-at-threshold points above L_lo=%r '
                                'to seed the batch' % L_lo)
         idx = self._rng.randint(0, pool_u.shape[0], size=num_live)
         if not refresh:
             return None
-        u, logl, _, _, _, _, _ = s._mcmc_sample_final(
+        u, logl, derived, _, _, _, _ = s._mcmc_sample_final(
             mcmc_steps, init_samples=pool_u[idx],
-            init_loglikes=pool_logl[idx], loglstar=float(L_lo),
-            dynamic_step_size=True)
-        return {'u': u, 'v': s.transform(u), 'logl': logl}
+            init_loglikes=pool_logl[idx], init_derived=pool_derived[idx],
+            loglstar=float(L_lo), dynamic_step_size=True)
+        return {'u': u, 'v': s.transform(u), 'logl': logl,
+                'derived': derived}
 
     # ---------------------------------------------------------------- run
 
@@ -382,7 +388,8 @@ class DynamicNestedSampler:
 
     def _write_results(self):
         """``diagnostics.json``, ``final.csv``, ``n_live.npy`` and
-        ``chain.txt`` (rows: weight, -logl, the point)."""
+        ``chain.txt`` (rows: weight, -logl, the point, its derived
+        values)."""
         with open(os.path.join(self.logs['results'], 'diagnostics.json'),
                   'w') as f:
             json.dump({

@@ -110,6 +110,7 @@ class EnsembleSampler(Sampler):
                  append_run_num=True,
                  hidden_dim=0,
                  num_slow=0,
+                 num_derived=0,
                  batch_size=100,
                  flow='spline',
                  num_blocks=3,
@@ -129,7 +130,8 @@ class EnsembleSampler(Sampler):
             self.sampler = 'ensemble'
         super().__init__(
             x_dim, loglike, prior=prior, append_run_num=append_run_num,
-            hidden_dim=hidden_dim, num_slow=num_slow, batch_size=batch_size,
+            hidden_dim=hidden_dim, num_slow=num_slow,
+            num_derived=num_derived, batch_size=batch_size,
             flow=flow, num_blocks=num_blocks, num_layers=num_layers,
             learning_rate=learning_rate, log_dir=log_dir,
             base_dist=base_dist, scale=scale, trainer=trainer,
@@ -271,7 +273,7 @@ class EnsembleSampler(Sampler):
             self.logger.info('Performing initial ensemble run with [%d] '
                              'walkers' % num_walkers)
             chains, _, n_acc = real_space_stretch(
-                lambda x: kern.like_fn(x) + kern.prior_fn(x),
+                lambda x: kern.like_fn(x)[0] + kern.prior_fn(x),
                 self.generator, x0, mcmc_steps)
             chains = _to_numpy(chains).astype(np.float64)
             self.total_calls += mcmc_steps * num_walkers
@@ -338,16 +340,18 @@ class EnsembleSampler(Sampler):
             train_iters=10000):
         """Train on ``training_samples`` (physical coordinates), then one
         latent ensemble of ``num_walkers`` walkers for ``mcmc_steps``
-        steps. Sets and returns ``samples`` (walkers, steps + 1, x_dim) in
-        physical coordinates, and sets ``latent_samples`` and
-        ``loglikes``."""
+        steps. Sets and returns ``samples`` (walkers, steps + 1, x_dim +
+        num_derived): the physical coordinates, then the derived
+        parameters; sets ``latent_samples`` and ``loglikes``. The chain
+        statistics read the x_dim columns."""
         self._train_normalised(training_samples, initial_jitter,
                                train_iters)
-        samples, latent, loglikes, _ = self._ensemble_sample(
+        samples, latent, derived, loglikes, _ = self._ensemble_sample(
             mcmc_steps, num_walkers, init_samples=init_samples)
-        self.samples = self._physical(samples)
+        samples = self._physical(samples)
         if mcmc_steps > 1:
-            self._chain_stats(self.samples)
+            self._chain_stats(samples)
+        self.samples = np.concatenate((samples, derived), axis=2)
         self.latent_samples = latent
         self.loglikes = loglikes
         self.logger.info('ncall: %d' % self.total_calls)

@@ -24,6 +24,12 @@ inverse of all trials of a flow-rejection or flow-density generation or of
 an ensemble's trajectory, goes through :meth:`LatentKernels._hot_inverse`,
 which for a single-speed spline flow on the GPU is the hand-written CUDA
 kernel (``ops/spline_inverse.py``).
+
+Derived parameters ride beside the points as in the JAX package: the
+likelihood returns ``(logl, derived)``, and every body keeps the derived
+values of the point it keeps, by the same masks. With ``num_derived`` 0 no
+derived tensor is made or carried, so a step launches the same device work
+as without them.
 """
 
 from __future__ import annotations
@@ -99,21 +105,33 @@ def mix_moments_device(z_end, z0):
 class LatentKernels:
     """Kernels bound to a flow model and device likelihood/prior functions.
 
-    ``like_fn`` and ``prior_fn`` map a (batch, dim) float32 tensor to a
-    (batch,) log density on the same device; both are sanitized here.
-    ``num_slow`` and ``oversample_rate`` enable the fast-slow Metropolis
-    proposal: with probability ``oversample_rate`` a proposal moves the
-    fast latent dims [num_slow:] only.
+    ``like_fn`` maps a (batch, dim) float32 tensor to a (batch,) log
+    likelihood, or to ``(logl, derived)`` with derived (batch,
+    num_derived), on the same device; ``prior_fn`` to a (batch,) log prior.
+    :attr:`like_fn` returns ``(logl, derived)`` with logl sanitized and
+    derived None when ``num_derived`` is 0 (zeros when ``like_fn`` returns
+    logl alone); :attr:`prior_fn` is sanitized. ``num_slow`` and
+    ``oversample_rate`` enable the fast-slow Metropolis proposal: with
+    probability ``oversample_rate`` a proposal moves the fast latent dims
+    [num_slow:] only.
     """
 
     def __init__(self, model, like_fn, prior_fn, num_slow=0,
-                 oversample_rate=1.0):
+                 oversample_rate=1.0, num_derived=0):
         if not callable(getattr(model, 'inverse', None)):
             raise ValueError('LatentKernels needs a flow model with an '
                              'inverse (build_flow); got %s'
                              % type(model).__name__)
         self.model = model
-        self.like_fn = lambda u: sanitize_log_density(like_fn(u))
+        self.num_derived = int(num_derived)
+
+        def safe_like(u):
+            res = like_fn(u)
+            logl, derived = res if isinstance(res, tuple) else (res, None)
+            return sanitize_log_density(logl), self._derived_start(
+                derived, u.shape[0], u.device)
+
+        self.like_fn = safe_like
         self.prior_fn = lambda u: sanitize_log_density(prior_fn(u))
         self.num_slow = int(num_slow)
         self.oversample_rate = float(oversample_rate)
@@ -123,6 +141,15 @@ class LatentKernels:
         self._fast_mask = torch.ones(
             model.dim, device=next(model.parameters()).device)
         self._fast_mask[:self.num_slow] = 0.0
+
+    def _derived_start(self, derived0, n, device):
+        """The starts' derived values: ``derived0``, zeros when it is None,
+        or None when ``num_derived`` is 0."""
+        if not self.num_derived:
+            return None
+        if derived0 is None:
+            return torch.zeros(n, self.num_derived, device=device)
+        return derived0
 
     def _hot_inverse(self):
         """Flow inverse for use inside chain steps. For a single-speed
@@ -176,14 +203,15 @@ class LatentKernels:
     def step(self, state, inverse, draws, *, loglstar, scale, cov_chol):
         """One Metropolis step (constrained when ``loglstar`` is not None).
 
-        ``state`` is (z, x, ldj, logl, logl_prior); ``draws`` yields one
+        ``state`` is (z, x, ldj, logl, logl_prior, derived), derived None
+        when ``num_derived`` is 0; ``draws`` yields one
         (dz, u, u_fast) triple per proposal (``prior_volume_steps`` of
         them in constrained mode): standard normals, accept uniforms and
         the 0-dim fast-move uniform (None for a single-speed flow).
         Returns the new state, the accept mask, the proposal's x and the
         likelihood-call count (a tensor in constrained mode, the chain
         count as an int in full MH: a step makes no host tensor)."""
-        z, x, ldj, logl, logl_prior = state
+        z, x, ldj, logl, logl_prior, derived = state
 
         def propose(dz, u_fast):
             if cov_chol is not None:
@@ -209,7 +237,7 @@ class LatentKernels:
                 x_pr = torch.where(mcol, x_prop, x_pr)
                 ldj_pr = torch.where(m, ldj_prop, ldj_pr)
                 mask1 = mask1 | m
-            logl_prop = self.like_fn(x_pr)
+            logl_prop, derived_prop = self.like_fn(x_pr)
             lp_prior_new = self.prior_fn(x_pr)
             n_evals = torch.sum(mask1.to(torch.int64))
             accept = mask1 & torch.isfinite(logl_prop) & (logl_prop > loglstar)
@@ -218,7 +246,7 @@ class LatentKernels:
             (dz, u, u_fast), = draws
             z_new = propose(dz, u_fast)
             x_new, ldj_new = inverse(z_new)
-            logl_prop = self.like_fn(x_new)
+            logl_prop, derived_prop = self.like_fn(x_new)
             lp_prior_new = self.prior_fn(x_new)
             log_ratio = ((ldj_new - ldj) + (logl_prop - logl)
                          + (lp_prior_new - logl_prior))
@@ -229,12 +257,14 @@ class LatentKernels:
         new_state = (torch.where(acol, z_new, z), torch.where(acol, x_new, x),
                      torch.where(accept, ldj_new, ldj),
                      torch.where(accept, logl_prop, logl),
-                     torch.where(accept, lp_prior_new, logl_prior))
+                     torch.where(accept, lp_prior_new, logl_prior),
+                     None if derived is None
+                     else torch.where(acol, derived_prop, derived))
         return new_state, accept, x_new, n_evals
 
     @torch.no_grad()
-    def mcmc(self, generator, z0, logl0, logl_prior0, *, loglstar=None,
-             step_size, mcmc_steps, dynamic_step_size=False,
+    def mcmc(self, generator, z0, logl0, logl_prior0, *, derived0=None,
+             loglstar=None, step_size, mcmc_steps, dynamic_step_size=False,
              prior_volume_steps=1, stat_moments=None, cov_from=None,
              cov_mask=None, collect_chains=False, draws=None):
         """Multi-chain latent Metropolis. Constrained (nested) mode when
@@ -251,7 +281,10 @@ class LatentKernels:
         with the start first: ``samples`` (x), ``latent`` (z) and
         ``loglikes``; they stay on the device until the caller fetches
         them. Both return ``scale``, ``ncall``, ``fast_calls``,
-        ``accepted`` and ``rejected``.
+        ``accepted`` and ``rejected``. With ``num_derived`` > 0 the starts'
+        derived values ``derived0`` (chains, num_derived; zeros when None)
+        ride along, and the output adds ``final_derived`` (endpoint mode)
+        or the ``derived`` trajectory (collect-chains mode).
 
         The step loop reads nothing back to the host. Each step draws its
         (dz, u, u_fast) triples from ``generator`` (one triple per
@@ -265,8 +298,9 @@ class LatentKernels:
         inverse = self._hot_inverse()
         cov_chol = self._cov_factor(cov_from, cov_mask)
         x0, ldj0 = inverse(z0)
+        derived0 = self._derived_start(derived0, num_chains, device)
         state = (z0, x0, ldj0, sanitize_log_density(logl0),
-                 sanitize_log_density(logl_prior0))
+                 sanitize_log_density(logl_prior0), derived0)
         scale = torch.tensor(step_size, dtype=torch.float32, device=device)
         acc_ctr = torch.zeros((), device=device)
         rej_ctr = torch.zeros((), device=device)
@@ -275,7 +309,7 @@ class LatentKernels:
         total_acc = torch.zeros((), dtype=torch.int64, device=device)
         moved = torch.zeros(num_chains, dtype=torch.bool, device=device)
         jump = torch.zeros((), device=device)
-        xs, zs, logls = [x0], [z0], [state[3]]
+        xs, zs, logls, ds = [x0], [z0], [state[3]], [derived0]
         n_draws = prior_volume_steps if constrained else 1
         for s in range(mcmc_steps):
             step_draws = draws[s] if draws is not None else [
@@ -301,6 +335,8 @@ class LatentKernels:
             if collect_chains:
                 zs.append(state[0])
                 logls.append(state[3])
+                if self.num_derived:
+                    ds.append(state[5])
             else:
                 moved = moved | accept
                 jump = jump + torch.sum(torch.where(
@@ -321,12 +357,16 @@ class LatentKernels:
         common = {'scale': scale, 'ncall': ncall, 'fast_calls': fast_calls,
                   'accepted': total_acc,
                   'rejected': mcmc_steps * num_chains - total_acc}
+        if self.num_derived and collect_chains:
+            common['derived'] = torch.stack(ds, dim=1)
+        elif self.num_derived:
+            common['final_derived'] = state[5]
         chains = torch.stack(xs, dim=1)
         if collect_chains:
             return dict(common, samples=chains,
                         latent=torch.stack(zs, dim=1),
                         loglikes=torch.stack(logls, dim=1))
-        z_end, x_end, _, logl_end, _ = state
+        z_end, x_end, _, logl_end, _, _ = state
         if stat_moments is None:
             mu = torch.mean(chains, dim=(0, 1))
             var = torch.var(chains, dim=(0, 1), unbiased=False)
@@ -357,23 +397,27 @@ class LatentKernels:
         return idx_a, ~mask_a
 
     @torch.no_grad()
-    def _live_starts(self, idx, active_u, active_logl):
-        """Chain starts at live rows ``idx``: (z0, logl0, logl_prior0, mu,
-        var), with the numerical re-projection x -> z -> x."""
+    def _live_starts(self, idx, active_u, active_logl, active_derived=None):
+        """Chain starts at live rows ``idx``: (z0, logl0, derived0,
+        logl_prior0, mu, var), with the numerical re-projection x -> z ->
+        x; derived0 the rows of ``active_derived``, None when
+        ``num_derived`` is 0."""
         x0 = active_u[idx]
         logl0 = active_logl[idx]
+        derived0 = active_derived[idx] if self.num_derived else None
         z0, _ = self.model(x0)
         x0p, _ = self.model.inverse(z0)
         lp_prior0 = self.prior_fn(x0p)
         mu = torch.mean(active_u, dim=0)
         var = torch.var(active_u, dim=0, unbiased=False)
-        return z0, logl0, lp_prior0, mu, var
+        return z0, logl0, derived0, lp_prior0, mu, var
 
     def _chain_starts(self, generator, active_u, active_logl, num_chains,
-                      adapt_cov):
+                      adapt_cov, active_derived=None):
         """Uniform chain starts drawn from the live set, from a random half
         when ``adapt_cov`` (the complement mask is returned for the
-        covariance): (z0, logl0, logl_prior0, mu, var, cov_mask)."""
+        covariance): (z0, logl0, derived0, logl_prior0, mu, var,
+        cov_mask)."""
         n_live = active_u.shape[0]
         cov_mask = None
         if adapt_cov:
@@ -384,19 +428,24 @@ class LatentKernels:
         else:
             idx = torch.randint(0, n_live, (num_chains,),
                                 generator=generator, device=generator.device)
-        return self._live_starts(idx, active_u, active_logl) + (cov_mask,)
+        return self._live_starts(idx, active_u, active_logl,
+                                 active_derived) + (cov_mask,)
 
     def mcmc_from_live(self, generator, active_u, active_logl, *,
                        num_chains, loglstar, step_size, mcmc_steps,
                        dynamic_step_size=False, prior_volume_steps=1,
-                       adapt_cov=False):
+                       adapt_cov=False, active_derived=None):
         """Constrained endpoint-mode Metropolis started from the live set:
         uniform chain starts (from a random half when ``adapt_cov``, whose
-        complement gives the proposal covariance), re-projection, chains."""
-        z0, logl0, lp_prior0, mu, var, cov_mask = self._chain_starts(
-            generator, active_u, active_logl, num_chains, adapt_cov)
+        complement gives the proposal covariance), re-projection, chains.
+        ``active_derived`` (n_live, num_derived) is needed when
+        ``num_derived`` > 0."""
+        z0, logl0, derived0, lp_prior0, mu, var, cov_mask = \
+            self._chain_starts(generator, active_u, active_logl, num_chains,
+                               adapt_cov, active_derived)
         return self.mcmc(
-            generator, z0, logl0, lp_prior0, loglstar=loglstar,
+            generator, z0, logl0, lp_prior0, derived0=derived0,
+            loglstar=loglstar,
             step_size=step_size, mcmc_steps=mcmc_steps,
             dynamic_step_size=dynamic_step_size,
             prior_volume_steps=prior_volume_steps, stat_moments=(mu, var),
@@ -428,7 +477,8 @@ class LatentKernels:
 
     @torch.no_grad()
     def slice_body(self, draws, z0, logl0, *, loglstar, width, max_expand=4,
-                   stat_moments=None, cov_from=None, cov_mask=None):
+                   stat_moments=None, cov_from=None, cov_mask=None,
+                   derived0=None):
         """Constrained latent slice sampling (Neal 2003) on given draws
         (:meth:`slice_draws`): one move per chain and step, all chains
         batched. The target is the flow-pushforward prior restricted to
@@ -454,7 +504,9 @@ class LatentKernels:
         ``ncall`` counts the evaluations a sequential sampler would pay:
         lanes still active whose geometry test (prior box and height)
         passed. Returns the endpoint dict of :meth:`mcmc` (``scale`` is
-        ``width``; ``fast_calls`` is 0)."""
+        ``width``; ``fast_calls`` is 0), with the accepted points' derived
+        values as ``final_derived`` when ``num_derived`` > 0 (the starts'
+        are ``derived0``, zeros when None)."""
         inverse = self._hot_inverse()
         device = z0.device
         num_chains = z0.shape[0]
@@ -465,6 +517,7 @@ class LatentKernels:
         cov_chol = self._cov_factor(cov_from, cov_mask)
         x0, ldj0 = inverse(z0)
         z, x, ldj, logl = z0, x0, ldj0, sanitize_log_density(logl0)
+        der = self._derived_start(derived0, num_chains, device)
         zeros_b = torch.zeros(num_chains, dtype=torch.bool, device=device)
         ncall = torch.zeros((), dtype=torch.int64, device=device)
         total_acc = torch.zeros((), dtype=torch.int64, device=device)
@@ -489,7 +542,7 @@ class LatentKernels:
             done_l = done_r = zeros_b
             logy2 = torch.cat([logy, logy])
             for i in range(max_expand):
-                geom, full, _, _, _ = self._in_slice(
+                geom, full, _, _, _, _ = self._in_slice(
                     inverse, torch.cat([z + left[:, None] * d,
                                         z + right[:, None] * d]),
                     logy2, ll_star)
@@ -504,11 +557,11 @@ class LatentKernels:
                 done_r = done_r | (act_r & ~in_r)
 
             acc = zeros_b
-            z_n, x_n, ldj_n, logl_n = z, x, ldj, logl
+            z_n, x_n, ldj_n, logl_n, der_n = z, x, ldj, logl, der
             for i in range(hard_cap):
                 t = left + (right - left) * draws['shrink'][s, i]
                 zc = z + t[:, None] * d
-                geom, ok, xc, ldjc, loglc = self._in_slice(
+                geom, ok, xc, ldjc, loglc, derc = self._in_slice(
                     inverse, zc, logy, ll_star)
                 act = ~acc
                 ncall = ncall + count(act & geom)
@@ -518,6 +571,8 @@ class LatentKernels:
                 x_n = torch.where(tcol, xc, x_n)
                 ldj_n = torch.where(take, ldjc, ldj_n)
                 logl_n = torch.where(take, loglc, logl_n)
+                if der is not None:
+                    der_n = torch.where(tcol, derc, der_n)
                 acc = acc | take
                 shr = act & ~ok
                 left = torch.where(shr & (t < 0), t, left)
@@ -530,7 +585,7 @@ class LatentKernels:
             jump = jump + torch.sum(torch.where(
                 acc, torch.linalg.norm(x_n - x, dim=-1),
                 torch.zeros_like(ldj)))
-            z, x, ldj, logl = z_n, x_n, ldj_n, logl_n
+            z, x, ldj, logl, der = z_n, x_n, ldj_n, logl_n, der_n
             xs.append(x)
 
         chains = torch.stack(xs, dim=1)
@@ -541,6 +596,7 @@ class LatentKernels:
             mu, var = stat_moments
         mix_cov, mix_msd = mix_moments_device(z, z0)
         return {
+            **({'final_derived': der} if der is not None else {}),
             'final_x': x, 'final_z': z, 'final_logl': logl,
             'moved': moved, 'scale': width, 'ncall': ncall,
             'fast_calls': torch.zeros((), dtype=torch.int64, device=device),
@@ -555,51 +611,56 @@ class LatentKernels:
 
     def _in_slice(self, inverse, zc, logy, loglstar):
         """The slice test of latent points ``zc`` at log heights ``logy``:
-        (geom, full, x, ldj, logl), where geom is the prior box and the
-        height test ``ldj >= logy`` (no likelihood call needed) and full
+        (geom, full, x, ldj, logl, derived), where geom is the prior box
+        and the height test ``ldj >= logy`` (no likelihood call needed) and
+        full
         adds the hard constraint logl > loglstar. ``>=``, not ``>``: a
         bracket collapsed onto the current point must accept it, even
         where log1p(-h) vanishes against a large |ldj| in float32."""
         xc, ldjc = inverse(zc)
         geom = (self.prior_fn(xc) > -1e30) & (ldjc >= logy)
-        loglc = self.like_fn(xc)
-        return geom, geom & (loglc > loglstar), xc, ldjc, loglc
+        loglc, derc = self.like_fn(xc)
+        return geom, geom & (loglc > loglstar), xc, ldjc, loglc, derc
 
     def slice_from_live(self, generator, active_u, active_logl, *,
                         num_chains, loglstar, width, slice_steps,
-                        max_expand=4, max_shrink=10, adapt_cov=False):
+                        max_expand=4, max_shrink=10, adapt_cov=False,
+                        active_derived=None):
         """One slice pool generation started from the live set: the chain
         starts and red-black split of :meth:`mcmc_from_live`, then
         :meth:`slice_draws` and :meth:`slice_body` (cov directions from
         the complement half when ``adapt_cov``)."""
-        z0, logl0, _, mu, var, cov_mask = self._chain_starts(
-            generator, active_u, active_logl, num_chains, adapt_cov)
+        z0, logl0, derived0, _, mu, var, cov_mask = self._chain_starts(
+            generator, active_u, active_logl, num_chains, adapt_cov,
+            active_derived)
         draws = self.slice_draws(generator, slice_steps, num_chains,
                                  self.model.dim, max_expand, max_shrink)
         return self.slice_body(
             draws, z0, logl0, loglstar=loglstar, width=width,
             max_expand=max_expand, stat_moments=(mu, var),
-            cov_from=active_u if adapt_cov else None, cov_mask=cov_mask)
+            cov_from=active_u if adapt_cov else None, cov_mask=cov_mask,
+            derived0=derived0)
 
     # --------------------------------------------------------- ensemble
 
     def latent_log_prob(self, z, loglstar=None, inverse=None):
         """The ensemble's latent target at z, with x = flow^-1(z): (log
-        prob, logl). The log prob is logl(x) + log|dx/dz| + log prior(x);
+        prob, logl, derived), derived None when ``num_derived`` is 0. The
+        log prob is logl(x) + log|dx/dz| + log prior(x);
         with ``loglstar`` (a 0-dim tensor) it is the constrained variant,
         log|dx/dz| + log prior(x) where logl > loglstar and ``LOG_NEG``
         elsewhere."""
         if inverse is None:
             inverse = self._hot_inverse()
         x, ldj = inverse(z)
-        logl = self.like_fn(x)
+        logl, derived = self.like_fn(x)
         lp_prior = self.prior_fn(x)
         if loglstar is not None:
             lp = torch.where(logl > loglstar, ldj + lp_prior,
                              torch.full_like(ldj, LOG_NEG))
         else:
             lp = logl + ldj + lp_prior
-        return lp, logl
+        return lp, logl, derived
 
     @staticmethod
     def stretch_draws(generator, mcmc_steps, num_walkers, dim,
@@ -655,7 +716,10 @@ class LatentKernels:
 
         Returns ``samples`` and ``latent`` (walkers, steps + 1, dim),
         ``loglikes`` and ``log_probs`` (walkers, steps + 1), ``ncall``
-        (steps x walkers, an int), ``accepted`` and ``rejected``."""
+        (steps x walkers, an int), ``accepted`` and ``rejected``; with
+        ``num_derived`` > 0 also ``derived`` (walkers, steps + 1,
+        num_derived), split and rejoined across the half-updates as the
+        walkers are."""
         names = [name.lower() for name, _ in moves]
         unknown = sorted(set(names) - set(_MOVES))
         if unknown:
@@ -666,9 +730,9 @@ class LatentKernels:
         steps = draws['move'].shape[0]
         ll_star = None if loglstar is None else _f32(loglstar, z0)
         inverse = self._hot_inverse()
-        lp, logl = self.latent_log_prob(z0, ll_star, inverse)
+        lp, logl, der = self.latent_log_prob(z0, ll_star, inverse)
         z = z0
-        zs, logls, lps = [z0], [logl], [lp]
+        zs, logls, lps, ders = [z0], [logl], [lp], [der]
         total_acc = torch.zeros((), dtype=torch.int64, device=z0.device)
         # the call's one device-to-host read: every step's move
         for s, m in enumerate(draws['move'].tolist()):
@@ -679,21 +743,30 @@ class LatentKernels:
                 prop, extra = propose(z[lo:hi], other, draws['idx'][s, h],
                                       draws['zeta'][s, h],
                                       draws['normal'][s, h], a)
-                lp_prop, logl_prop = self.latent_log_prob(prop, ll_star,
-                                                          inverse)
+                lp_prop, logl_prop, der_prop = self.latent_log_prob(
+                    prop, ll_star, inverse)
                 acc = _accept_mask(draws['accept'][s, h],
                                    extra + lp_prop - lp[lo:hi])
-                parts.append((torch.where(acc[:, None], prop, z[lo:hi]),
-                              torch.where(acc, lp_prop, lp[lo:hi]),
-                              torch.where(acc, logl_prop, logl[lo:hi])))
+                acol = acc[:, None]
+                part = (torch.where(acol, prop, z[lo:hi]),
+                        torch.where(acc, lp_prop, lp[lo:hi]),
+                        torch.where(acc, logl_prop, logl[lo:hi]))
+                if der is not None:
+                    part += (torch.where(acol, der_prop, der[lo:hi]),)
+                parts.append(part)
                 total_acc = total_acc + torch.sum(acc.to(torch.int64))
-            z, lp, logl = (torch.cat(t) for t in zip(*parts))
+            z, lp, logl, *rest = (torch.cat(t) for t in zip(*parts))
+            if der is not None:
+                der, = rest
+                ders.append(der)
             zs.append(z)
             lps.append(lp)
             logls.append(logl)
         latent = torch.stack(zs, dim=1)
         samples, _ = inverse(latent.reshape(-1, dim))
-        return {'samples': samples.reshape(latent.shape), 'latent': latent,
+        return {**({'derived': torch.stack(ders, dim=1)}
+                   if der is not None else {}),
+                'samples': samples.reshape(latent.shape), 'latent': latent,
                 'loglikes': torch.stack(logls, dim=1),
                 'log_probs': torch.stack(lps, dim=1),
                 'ncall': steps * num_walkers, 'accepted': total_acc,
@@ -713,12 +786,12 @@ class LatentKernels:
     @torch.no_grad()
     def rejection_prior(self, prior, generator, loglstar, num_trials):
         """Batched rejection from the prior: ``num_trials`` prior draws,
-        all evaluated; returns (x, logl, ok)."""
+        all evaluated; returns (x, logl, derived, ok)."""
         x = prior.sample_torch(num_trials, generator)
-        logl = self.like_fn(x)
+        logl, derived = self.like_fn(x)
         ok = torch.isfinite(logl) & (logl > torch.tensor(
             loglstar, dtype=torch.float32, device=x.device))
-        return x, logl, ok
+        return x, logl, derived, ok
 
     # --------------------------------------------------- rejection/flow
 
@@ -759,7 +832,8 @@ class LatentKernels:
         ``enlargement_factor * g`` for the box draw (r None); x =
         flow^-1(z) in one call of the hot inverse over all trials, then
         the Jacobian accept u < exp(min(ldj - max_log_det_j, 0)), the
-        prior box and logl > loglstar. Returns (x, logl, ok, n_evals);
+        prior box and logl > loglstar. Returns (x, logl, derived, ok,
+        n_evals);
         ``n_evals`` counts the trials that passed the prior and the
         Jacobian accept (only those cost a likelihood call)."""
         if r is None:
@@ -771,16 +845,16 @@ class LatentKernels:
         x, ldj = self._hot_inverse()(z)
         ok_prior = self.prior_fn(x) > -1e30
         evaluated = ok_prior & _accept_mask(u, ldj - max_log_det_j)
-        logl = self.like_fn(x)
+        logl, derived = self.like_fn(x)
         ok = evaluated & torch.isfinite(logl) & (logl > _f32(loglstar, x))
-        return x, logl, ok, torch.sum(evaluated.to(torch.int64))
+        return x, logl, derived, ok, torch.sum(evaluated.to(torch.int64))
 
     def rejection_flow_live(self, generator, loglstar, live_u, prev_mld,
                             prev_mr, fold, enlargement_factor, num_trials):
         """The envelope from the live set, max-folded into the carried
         maxima when ``fold`` (else it replaces them), then one
         flow-rejection generation in the ball enlarged by
-        ``enlargement_factor``. Returns (x, logl, ok, n_evals,
+        ``enlargement_factor``. Returns (x, logl, derived, ok, n_evals,
         max_log_det_j, max_r)."""
         mld, mr = self.envelope(live_u, enlargement_factor)
         if fold:
@@ -797,17 +871,18 @@ class LatentKernels:
     def density_body(self, z, loglstar):
         """Flow-density sampling on given base draws ``z``: x = flow^-1(z)
         in one call of the hot inverse, kept when inside the prior box
-        with logl > loglstar. Returns (x, logl, ok, n_evals); ``n_evals``
-        counts the draws inside the prior box."""
+        with logl > loglstar. Returns (x, logl, derived, ok, n_evals);
+        ``n_evals`` counts the draws inside the prior box."""
         x, _ = self._hot_inverse()(z)
         ok_prior = self.prior_fn(x) > -1e30
-        logl = self.like_fn(x)
+        logl, derived = self.like_fn(x)
         ok = ok_prior & torch.isfinite(logl) & (logl > _f32(loglstar, x))
-        return x, logl, ok, torch.sum(ok_prior.to(torch.int64))
+        return x, logl, derived, ok, torch.sum(ok_prior.to(torch.int64))
 
     def density(self, generator, loglstar, num_trials):
         """One flow-density generation: ``num_trials`` draws from the
-        flow's base distribution; returns (x, logl, ok, n_evals)."""
+        flow's base distribution; returns (x, logl, derived, ok,
+        n_evals)."""
         return self.density_body(
             self.model.base_dist.sample(num_trials, generator), loglstar)
 

@@ -10,6 +10,8 @@ inverse a step for a single-speed spline flow, and one a call).
 
 from __future__ import annotations
 
+import numpy as np
+
 from nnest_torch.samplers.ensemble import EnsembleSampler
 
 
@@ -31,20 +33,24 @@ class MCMCSampler(EnsembleSampler):
         """Train on ``training_samples`` (physical coordinates), then
         ``mcmc_num_chains`` chains of ``mcmc_steps`` full-MH steps from
         base draws (or from ``init_samples``, in normalised coordinates).
-        Sets and returns ``samples`` (chains, steps + 1, x_dim) in physical
-        coordinates, and sets ``latent_samples``, ``loglikes`` and
+        Sets and returns ``samples`` (chains, steps + 1, x_dim +
+        num_derived): the physical coordinates, then the derived
+        parameters (the chain statistics read the x_dim columns); sets
+        ``latent_samples``, ``loglikes`` and
         ``scale`` (the proposal scale at the end, adapted toward 50%
         acceptance when ``mcmc_dynamic_step_size``). ``output_interval``
         writes the chains as ``chains/chain_<i>.txt``."""
         self._train_normalised(training_samples, initial_jitter,
                                train_iters)
-        samples, latent, loglikes, self.scale, _ = self._mcmc_sample(
-            mcmc_steps, num_chains=mcmc_num_chains,
-            dynamic_step_size=mcmc_dynamic_step_size,
-            output_interval=output_interval, init_samples=init_samples)
-        self.samples = self._physical(samples)
+        samples, latent, derived, loglikes, self.scale, _ = \
+            self._mcmc_sample(mcmc_steps, num_chains=mcmc_num_chains,
+                              dynamic_step_size=mcmc_dynamic_step_size,
+                              output_interval=output_interval,
+                              init_samples=init_samples)
+        samples = self._physical(samples)
         if mcmc_steps > 1:
-            self._chain_stats(self.samples)
+            self._chain_stats(samples)
+        self.samples = np.concatenate((samples, derived), axis=2)
         self.latent_samples = latent
         self.loglikes = loglikes
         self.logger.info('ncall: %d' % self.total_calls)

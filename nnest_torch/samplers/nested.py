@@ -21,8 +21,9 @@ Artifacts under ``<log_dir>/runN/``: ``info/params.txt``,
 ``results/{results.csv,final.csv,diagnostics.json,insertion_ranks.npy,
 threads.npz}``, ``chains/chain.txt`` (at the end of the run) and
 ``checkpoint/``. Checkpoints
-follow a geometric cadence, written in this order: ``active_{u,v,logl}
-_<it>.npy`` and ``saved_{v,logl,logwt,slots,u}.npy``, then one exact-state
+follow a geometric cadence, written in this order: ``active_{u,v,logl,
+derived}_<it>.npy`` and ``saved_{v,logl,logwt,slots,u}.npy``, then one
+exact-state
 file (``exact_state.pt``: the sampler's generator, the trainer snapshot,
 the unconsumed pool, the ladder controller and the insertion ranks, all
 stamped with ``it``; written to a temporary file and moved into place),
@@ -43,9 +44,14 @@ dynamic sampler's batches (``samplers/dynamic.py``), which also reads
 ``saved_u``, the u-space points of the run (in the checkpoints as
 ``saved_u.npy`` and in ``threads.npz`` as ``u``).
 
-Not ported yet (ROADMAP.md): meshes, derived parameters, multi-generation
-prefetch and speculation, the background checkpoint writer, plots and
-TensorBoard.
+Derived parameters (``num_derived``, a likelihood returning ``(logl,
+derived)``) ride with every live point: the candidate pools carry them,
+a replacement copies them, and every dead and final live point is saved
+as ``v`` followed by its derived values, so ``samples`` and the rows of
+``chain.txt`` have ``x_dim + num_derived`` parameter columns.
+
+Not ported yet (ROADMAP.md): meshes, multi-generation prefetch and
+speculation, the background checkpoint writer, plots and TensorBoard.
 """
 
 from __future__ import annotations
@@ -104,6 +110,7 @@ class NestedSampler(Sampler):
                  append_run_num=True,
                  hidden_dim=0,
                  num_slow=0,
+                 num_derived=0,
                  batch_size=100,
                  flow='spline',
                  num_blocks=3,
@@ -138,7 +145,8 @@ class NestedSampler(Sampler):
         super().__init__(
             x_dim, loglike, transform=transform, prior=prior,
             append_run_num=append_run_num, hidden_dim=hidden_dim,
-            num_slow=num_slow, batch_size=batch_size, flow=flow,
+            num_slow=num_slow, num_derived=num_derived,
+            batch_size=batch_size, flow=flow,
             num_blocks=num_blocks, num_layers=num_layers,
             learning_rate=learning_rate, log_dir=log_dir, resume=resume,
             base_dist=base_dist, scale=scale, trainer=trainer,
@@ -188,7 +196,8 @@ class NestedSampler(Sampler):
         (``samplers/dynamic.py``) default to a plain prior-seeded run:
         ``init_points`` a dict of live points already uniform within
         {logl > birth_floor} (``u`` (num_live_points, x_dim), ``logl``,
-        optionally ``v``), taken without evaluating them again;
+        optionally ``v`` and ``derived``), taken without evaluating them
+        again;
         ``birth_floor`` the batch's birth threshold (recorded in
         ``threads.npz``); ``logl_ceiling`` ends the run once every live
         point exceeds it."""
@@ -261,6 +270,7 @@ class NestedSampler(Sampler):
             it = state['it']
             active_u, active_v = state['active_u'], state['active_v']
             active_logl = state['active_logl']
+            active_derived = state['active_derived']
             saved_v, saved_logl = state['saved_v'], state['saved_logl']
             saved_logwt, saved_slots = state['saved_logwt'], state['slots']
             saved_u = state['saved_u']
@@ -283,6 +293,10 @@ class NestedSampler(Sampler):
                                     else self.transform(active_u),
                                     dtype=np.float64)
                 active_logl = np.array(init_points['logl'], dtype=np.float64)
+                active_derived = np.array(
+                    init_points['derived'] if 'derived' in init_points
+                    else np.zeros((self.num_live_points, self.num_derived)),
+                    dtype=np.float64).reshape(self.num_live_points, -1)
                 if not np.all(active_logl > self._birth_floor):
                     raise ValueError('init_points logl must all exceed '
                                      'birth_floor')
@@ -290,7 +304,7 @@ class NestedSampler(Sampler):
                 active_u = np.asarray(self._user_prior.sample(
                     self.num_live_points), dtype=np.float64)
                 active_v = self.transform(active_u)
-                active_logl = self.loglike(active_u)
+                active_logl, active_derived = self.loglike(active_u)
             self.logger.info('Step [0] max logl [%5.4e] vol [1.0] ncalls '
                              '[%d]' % (np.max(active_logl), self.total_calls))
             saved_v, saved_logl, saved_logwt, saved_slots = [], [], [], []
@@ -376,7 +390,8 @@ class NestedSampler(Sampler):
                 return
             t0 = time.perf_counter()
             self._write_checkpoint(
-                it, active_u, active_v, active_logl, saved_v, saved_logl,
+                it, active_u, active_v, active_logl, active_derived,
+                saved_v, saved_logl,
                 saved_logwt, saved_slots, saved_u, logz, h, logvol,
                 fraction_remain, strategy, expired, controller_snapshot(),
                 pool_snapshot(), insertion_ranks)
@@ -400,7 +415,8 @@ class NestedSampler(Sampler):
                 h = (np.exp(logwt - logz_new) * active_logl[worst]
                      + np.exp(logz - logz_new) * (h + logz) - logz_new)
                 logz = logz_new
-                saved_v.append(np.array(active_v[worst], copy=True))
+                saved_v.append(self._saved_row(active_v[worst],
+                                               active_derived[worst]))
                 saved_logwt.append(logwt)
                 saved_logl.append(active_logl[worst])
                 if saved_slots is not None:
@@ -459,27 +475,30 @@ class NestedSampler(Sampler):
                 t0 = time.perf_counter()
                 if current_method in ('mcmc', 'slice'):
                     if current_method == 'mcmc':
-                        u_f, logl_f, moved, mcmc_scale, _, _ = \
+                        u_f, logl_f, d_f, moved, mcmc_scale, _, _ = \
                             self._mcmc_sample_live(
                                 mcmc_steps, active_u, active_logl,
                                 mcmc_num_chains, loglstar, step_size,
                                 dynamic_step_size=mcmc_dynamic_step_size,
-                                adapt_cov=mcmc_adapt == 'cov')
+                                adapt_cov=mcmc_adapt == 'cov',
+                                active_derived=active_derived)
                     else:
-                        u_f, logl_f, moved, mcmc_scale, _, _ = \
+                        u_f, logl_f, d_f, moved, mcmc_scale, _, _ = \
                             self._slice_sample_live(
                                 slice_steps, active_u, active_logl,
                                 mcmc_num_chains, loglstar, slice_width,
                                 max_expand=slice_max_expand,
                                 max_shrink=slice_max_shrink,
-                                adapt_cov=slice_adapt == 'cov')
+                                adapt_cov=slice_adapt == 'cov',
+                                active_derived=active_derived)
                     # Chain endpoints are the candidates: a chain that
                     # never moved contributes nothing.
                     pool = {'u': u_f[moved], 'logl': logl_f[moved],
+                            'derived': d_f[moved],
                             'stats': self._last_kernel_stats}
                 else:
                     if current_method == 'rejection_prior':
-                        s, ll, nc = self._rejection_prior_sample(
+                        s, ll, ds, nc = self._rejection_prior_sample(
                             loglstar, num_trials=cur_trials)
                     elif current_method == 'rejection_flow':
                         # A fresh envelope after a retrain or every
@@ -487,13 +506,13 @@ class NestedSampler(Sampler):
                         # the live set's values are max-folded into it.
                         recompute = (self._max_log_det_j is None
                                      or env_gens >= rejection_cache_interval)
-                        s, ll, nc = self._rejection_flow_sample(
+                        s, ll, ds, nc = self._rejection_flow_sample(
                             active_u, loglstar,
                             enlargement_factor=rejection_enlargement_factor,
                             cache=not recompute, num_trials=cur_trials)
                         env_gens = 0 if recompute else env_gens + 1
                     else:
-                        s, ll, nc = self._density_sample(
+                        s, ll, ds, nc = self._density_sample(
                             loglstar, num_trials=cur_trials)
                     if rejection_adapt_trials:
                         # Power-of-two trial ladder: keep candidates per
@@ -522,7 +541,7 @@ class NestedSampler(Sampler):
                                          'sampling method' % current_method)
                         expired.append(current_method)
                         ncs = []
-                    pool = {'u': s, 'logl': ll}
+                    pool = {'u': s, 'logl': ll, 'derived': ds}
                 self.run_stats[stem + '_s'] += time.perf_counter() - t0
                 self.run_stats[stem + '_generations'] += 1
                 pool_pos = 0
@@ -548,6 +567,8 @@ class NestedSampler(Sampler):
                         active_u[worst] = u[ib, :]
                         active_v[worst] = self.transform(active_u[worst])[0]
                         active_logl[worst] = pool['logl'][ib]
+                        if self.num_derived:
+                            active_derived[worst] = pool['derived'][ib]
                         accept_point = True
                         break
                 if n_rows == 0:
@@ -588,7 +609,7 @@ class NestedSampler(Sampler):
             h = (np.exp(logwt - logz_new) * active_logl[i]
                  + np.exp(logz - logz_new) * (h + logz) - logz_new)
             logz = logz_new
-            saved_v.append(np.array(active_v[i]))
+            saved_v.append(self._saved_row(active_v[i], active_derived[i]))
             saved_logwt.append(logwt)
             saved_logl.append(active_logl[i])
             if saved_slots is not None:
@@ -624,6 +645,13 @@ class NestedSampler(Sampler):
                                   logz, self.logzerr, h))
         self._log_diagnostics()
         return self.logz
+
+    def _saved_row(self, v, derived):
+        """A saved point: ``v``, then its derived values when
+        ``num_derived`` > 0 (a copy either way)."""
+        if self.num_derived:
+            return np.concatenate((v, derived))
+        return np.array(v, copy=True)
 
     # ----------------------------------------------------------- diagnostics
 
@@ -792,10 +820,11 @@ class NestedSampler(Sampler):
 
     # ---------------------------------------------------------- checkpoints
 
-    def _write_checkpoint(self, it, active_u, active_v, active_logl, saved_v,
-                          saved_logl, saved_logwt, saved_slots, saved_u, logz,
-                          h, logvol, fraction_remain, strategy, expired,
-                          controller, pool_state, insertion_ranks):
+    def _write_checkpoint(self, it, active_u, active_v, active_logl,
+                          active_derived, saved_v, saved_logl, saved_logwt,
+                          saved_slots, saved_u, logz, h, logvol,
+                          fraction_remain, strategy, expired, controller,
+                          pool_state, insertion_ranks):
         """One checkpoint, inline, in the order that makes a crash at any
         point recoverable: the live and dead arrays, then the exact state
         (temporary file, then ``os.replace``: always one whole snapshot,
@@ -804,7 +833,8 @@ class NestedSampler(Sampler):
         loader cuts them to its iteration."""
         ck = self.logs['checkpoint']
         for name, a in (('active_u', active_u), ('active_v', active_v),
-                        ('active_logl', active_logl)):
+                        ('active_logl', active_logl),
+                        ('active_derived', active_derived)):
             np.save(os.path.join(ck, '%s_%d.npy' % (name, it)), a)
         for name, a in (('saved_v', saved_v), ('saved_logl', saved_logl),
                         ('saved_logwt', saved_logwt)):
@@ -862,10 +892,15 @@ class NestedSampler(Sampler):
             meta = json.load(f)
         active_u = np.load(os.path.join(ck, 'active_u_%d.npy' % it))
         active_logl = np.load(os.path.join(ck, 'active_logl_%d.npy' % it))
-        if active_u.shape != (self.num_live_points, self.x_dim) or \
-                active_logl.shape != (self.num_live_points,):
-            raise ValueError('checkpoint %d: live arrays of shape %s and %s'
-                             % (it, active_u.shape, active_logl.shape))
+        active_derived = np.load(os.path.join(ck,
+                                              'active_derived_%d.npy' % it))
+        n = self.num_live_points
+        if active_u.shape != (n, self.x_dim) or \
+                active_logl.shape != (n,) or \
+                active_derived.shape != (n, self.num_derived):
+            raise ValueError('checkpoint %d: live arrays of shape %s, %s and '
+                             '%s' % (it, active_u.shape, active_logl.shape,
+                                     active_derived.shape))
         saved = {}
         for name in ('saved_v', 'saved_logl', 'saved_logwt'):
             a = np.load(os.path.join(ck, name + '.npy'))
@@ -894,7 +929,7 @@ class NestedSampler(Sampler):
         exact = self._restore_exact_state(ck, it)
         return {'it': it, 'active_u': active_u,
                 'active_v': self.transform(active_u),
-                'active_logl': active_logl,
+                'active_logl': active_logl, 'active_derived': active_derived,
                 'saved_v': [np.asarray(r) for r in saved['saved_v']],
                 'saved_logl': saved['saved_logl'],
                 'saved_logwt': saved['saved_logwt'], 'slots': slots,

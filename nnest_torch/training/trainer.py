@@ -18,9 +18,16 @@ flow ``build_flow`` makes (spline, NVP, Cholesky, fast-slow):
   ``snapshot_state``/``restore_state`` of everything a later ``train()``
   reads (flow, Adam state, the trainer's generator, the early-stop
   bookkeeping), so a retrain after a restore is bit-identical on the CPU.
+- The transport API of the JAX trainer: ``forward`` and ``inverse`` (each
+  ``(out, logdet)``), ``log_probs``, ``get_prior_samples`` (base draws),
+  ``get_latent_samples``, ``get_samples``, ``get_synthetic_samples`` (the
+  inverse of base draws), ``num_params`` and ``base_dist``; each takes
+  numpy, lists or tensors (a 1-D input is one row) and returns tensors on
+  the trainer's device, or float32 numpy with ``to_numpy=True``.
 
-Training is the flow's forward plus autograd in plain PyTorch; the JAX
-package trains in plain XLA too, with no hand-written kernel.
+Training is the flow's forward plus autograd in plain PyTorch, and the
+transport API the flow's plain ``forward`` and ``inverse``; the JAX package
+runs both in plain XLA too, with no hand-written kernel.
 """
 
 from __future__ import annotations
@@ -90,8 +97,13 @@ class Trainer:
         self.logger.info('Flow [%s] x_dim [%d]' % (flow, x_dim))
 
     def _tensor(self, a):
-        a = torch.as_tensor(np.asarray(a, dtype=np.float32),
-                            device=self.device)
+        """float32 rows on the trainer's device from numpy, a list or a
+        tensor; a 1-D input is one row."""
+        if isinstance(a, torch.Tensor):
+            a = a.to(device=self.device, dtype=torch.float32)
+        else:
+            a = torch.as_tensor(np.asarray(a, dtype=np.float32),
+                                device=self.device)
         return a[None, :] if a.dim() == 1 else a
 
     def ensure_init(self, samples=None):
@@ -246,8 +258,58 @@ class Trainer:
         self.best_validation_epoch = snap['best_validation_epoch']
         self.last_training_jitter = snap['last_training_jitter']
 
+    # ------------------------------------------------------------ transport
+
+    def num_params(self):
+        """The flow's parameter and buffer count (its ``state_dict``)."""
+        self.ensure_init()
+        return sum(int(v.numel()) for v in self.model.state_dict().values())
+
+    @property
+    def base_dist(self):
+        return self.model.base_dist
+
+    def forward(self, x, to_numpy=False):
+        """x → (z, log|det dz/dx|)."""
+        self.ensure_init()
+        with torch.no_grad():
+            return _out(self.model(self._tensor(x)), to_numpy)
+
+    def inverse(self, z, to_numpy=False):
+        """z → (x, log|det dx/dz|)."""
+        self.ensure_init()
+        with torch.no_grad():
+            return _out(self.model.inverse(self._tensor(z)), to_numpy)
+
+    def get_prior_samples(self, num_samples, to_numpy=False):
+        """``num_samples`` draws of the base distribution (latent space),
+        from the trainer's generator."""
+        self.ensure_init()
+        return _out(self.model.sample_base(num_samples, self.generator),
+                    to_numpy)
+
+    def get_latent_samples(self, x, to_numpy=False):
+        return self.forward(x, to_numpy=to_numpy)[0]
+
+    def get_samples(self, z, to_numpy=False):
+        return self.inverse(z, to_numpy=to_numpy)[0]
+
+    def get_synthetic_samples(self, num_samples, to_numpy=False):
+        """``num_samples`` draws of the flow: base draws from the trainer's
+        generator through the inverse."""
+        return self.get_samples(self.get_prior_samples(num_samples),
+                                to_numpy=to_numpy)
+
     def log_probs(self, x, to_numpy=False):
         self.ensure_init()
         with torch.no_grad():
-            lp = self.model.log_prob(self._tensor(x))
-        return lp.cpu().numpy() if to_numpy else lp
+            return _out(self.model.log_prob(self._tensor(x)), to_numpy)
+
+
+def _out(tree, to_numpy):
+    """A tensor, or a tuple of them, as is or as numpy on the host."""
+    if not to_numpy:
+        return tree
+    if isinstance(tree, tuple):
+        return tuple(t.cpu().numpy() for t in tree)
+    return tree.cpu().numpy()

@@ -227,3 +227,30 @@ def test_dynamic_sampler_launches_the_kernel(tmp_path):
     assert si.launches > before and fused_spline.calls == twin
     analytic = like.analytic_logz([-3.0, -3.0], [3.0, 3.0])
     assert abs(d.logz - analytic) < 5 * d.logzerr + 0.2
+
+
+def test_derived_parameters_ride_on_the_card(tmp_path):
+    """A torch likelihood returning (logl, derived) through the nested
+    loop on the card: the kernel runs (the twin never), and every saved
+    point's derived columns are the function of its parameters."""
+    _needs_gpu()
+    from nnest_torch import NestedSampler
+    from nnest_torch.ops import fused_spline
+
+    def like(x):
+        return (-0.5 * torch.sum(x ** 2, dim=-1) - np.log(2.0 * np.pi),
+                torch.stack([x.sum(-1), x.prod(-1)], dim=-1))
+
+    s = NestedSampler(2, like, transform=lambda x: 3 * x, num_derived=2,
+                      num_live_points=100, log_dir=str(tmp_path), seed=5)
+    assert not s._host_loglike
+    before, twin = si.launches, fused_spline.calls
+    s.run(train_iters=30, dlogz=0.3, mcmc_num_chains=10, volume_switch=0.5)
+    torch.cuda.synchronize()
+    assert s.run_stats['mcmc_generations'] > 0
+    assert si.launches > before and fused_spline.calls == twin
+    params = s.samples[:, :2]
+    np.testing.assert_allclose(
+        s.samples[:, 2:], np.stack([params.sum(1), params.prod(1)], 1),
+        rtol=1e-4, atol=1e-4)
+    assert abs(s.logz + 3.589) <= 0.6

@@ -133,7 +133,7 @@ def test_mcmc_sample_final_from_explicit_starts():
     s = NestedSampler(2, LIKE, transform=lambda u: 3.0 * u,
                       num_live_points=50, log_dir=None, seed=2, device='cpu')
     u0 = np.random.RandomState(0).uniform(-0.3, 0.3, size=(20, 2))
-    logl0 = s.loglike(u0)
+    logl0, _ = s.loglike(u0)
     loglstar = float(np.min(logl0)) - 1e-3
     calls = s.total_calls
     u, logl, derived, moved, scale, jump, ncall = s._mcmc_sample_final(
@@ -142,7 +142,7 @@ def test_mcmc_sample_final_from_explicit_starts():
     assert u.shape == (20, 2) and logl.shape == (20,)
     assert derived.shape == (20, 0) and moved.any()
     assert np.all(logl > loglstar) and np.all(np.abs(u) <= 1.0)
-    np.testing.assert_allclose(logl, s.loglike(u), rtol=1e-5)
+    np.testing.assert_allclose(logl, s.loglike(u)[0], rtol=1e-5)
     assert 0 < ncall <= 15 * 20 and s.total_calls == calls + ncall + 20
     assert scale > 0 and jump >= 0
     # the generation's mixing ratio against the null of its proposal

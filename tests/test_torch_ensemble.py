@@ -52,13 +52,13 @@ def cholesky_pair():
             tk.LatentKernels(tm, _port_like, _port_prior), tm)
 
 
-def _jax_draws(key, moves):
+def _jax_draws(key, moves, walkers=WALKERS, steps=STEPS, dim=DIM):
     """``_stretch_impl``'s draws on ``key`` in ``stretch_draws``' layout."""
-    n = WALKERS // 2
+    n = walkers // 2
     weights = jnp.asarray([w for _, w in moves], jnp.float32)
     log_weights = jnp.log(weights / jnp.sum(weights))
     out = {k: [] for k in ('move', 'idx', 'zeta', 'normal', 'accept')}
-    for k in jax.random.split(key, STEPS):
+    for k in jax.random.split(key, steps):
         k1, k2, km = jax.random.split(k, 3)
         move = int(jax.random.categorical(km, log_weights))
         name = moves[move][0]
@@ -67,7 +67,7 @@ def _jax_draws(key, moves):
             kp, ku = jax.random.split(kh)
             idx = np.zeros((3, n), np.int64)
             zeta = np.zeros(n, np.float32)
-            normal = np.zeros((n, DIM), np.float32)
+            normal = np.zeros((n, dim), np.float32)
             if name == 'stretch':
                 kz, kc = jax.random.split(kp)
                 zeta = jax.random.uniform(kz, (n,))
@@ -79,7 +79,7 @@ def _jax_draws(key, moves):
                 ks = jax.random.split(kp, 3 if name == 'de' else 2)
                 for j, kj in enumerate(ks[:-1]):
                     idx[j] = jax.random.randint(kj, (n,), 0, n)
-                normal = jax.random.normal(ks[-1], (n, DIM))
+                normal = jax.random.normal(ks[-1], (n, dim))
             halves.append((idx, np.array(zeta), np.array(normal),
                            np.array(jax.random.uniform(ku, (n,)))))
         out['move'].append(move)
@@ -117,8 +117,13 @@ def test_stretch_body_matches_jax(cholesky_pair, monkeypatch, moves,
     monkeypatch.setattr(tk, '_accept_mask', recording)
     logls = []
     real_like = tkern.like_fn
-    monkeypatch.setattr(tkern, 'like_fn',
-                        lambda u: logls.append(real_like(u)) or logls[-1])
+
+    def recording_like(u):
+        out = real_like(u)
+        logls.append(out[0])
+        return out
+
+    monkeypatch.setattr(tkern, 'like_fn', recording_like)
     draws = _jax_draws(key, moves)
     got = tkern.stretch_body(draws, torch.from_numpy(z0), loglstar=loglstar,
                              moves=moves)

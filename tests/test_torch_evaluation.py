@@ -123,7 +123,7 @@ def test_sampler_records_eigenbasis_mixing_of_a_generation():
 
     kernels.mcmc_from_live = capture
     u = np.random.RandomState(5).uniform(-0.5, 0.5, size=(40, d))
-    logl = sampler.loglike(u)
+    logl, _ = sampler.loglike(u)
     for adapt in (True, False):
         sampler._mcmc_sample_live(steps, u, logl, chains, float(logl.min()),
                                   0.5, adapt_cov=adapt)

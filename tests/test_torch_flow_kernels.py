@@ -53,7 +53,10 @@ def _near(jkern, params, z, x_ref, logl_ref, loglstar, u=None, mld=None):
 
 
 def _check(got, ref, near):
-    x_t, logl_t, ok_t, nev_t = (a.numpy() for a in got)
+    x_t, logl_t, d_t, ok_t, nev_t = got
+    assert d_t is None   # no derived parameters: none made
+    x_t, logl_t, ok_t, nev_t = (a.numpy() for a in (x_t, logl_t, ok_t,
+                                                    nev_t))
     x_j, logl_j, _, ok_j, nev_j = (np.asarray(a) for a in ref)
     np.testing.assert_allclose(x_t, x_j, rtol=0, atol=TOL_X)
     differ = ok_t != ok_j
@@ -91,8 +94,8 @@ def test_rejection_flow_body_matches_jax(kernel_pair):
     outside = np.any(np.abs(x_j) > BOX, axis=1)
     # the draw reaches outside the prior box, and both accept and reject
     assert outside.sum() > 0 and 0 < ok_j.sum() < n
-    assert not np.any(got[2].numpy() & outside)
-    assert bool((got[1][got[2]] > loglstar).all())
+    assert not np.any(got[3].numpy() & outside)
+    assert bool((got[1][got[3]] > loglstar).all())
 
 
 def test_density_body_matches_jax(kernel_pair):
@@ -122,9 +125,10 @@ def test_fused_live_envelope_folds_and_draws(kernel_pair):
             300)
         want_mld = max(prev[0], float(mld)) if fold else float(mld)
         want_mr = max(prev[1], float(mr)) if fold else float(mr)
-        assert float(out[4]) == want_mld and float(out[5]) == want_mr
+        assert float(out[5]) == want_mld and float(out[6]) == want_mr
         draws = tkern.rejection_flow_draws(torch.Generator().manual_seed(5),
                                            300, 3)
-        body = tkern.rejection_flow_body(*draws, -1.0, out[4], out[5], 1.1)
-        for a, b in zip(out[:4], body):
-            assert torch.equal(a, b)
+        body = tkern.rejection_flow_body(*draws, -1.0, out[5], out[6], 1.1)
+        assert out[2] is None and body[2] is None
+        for a, b in zip(out[:5], body):
+            assert a is b or torch.equal(a, b)

@@ -48,7 +48,8 @@ def test_host_likelihood_gets_float64_numpy_of_the_transform():
     assert s._host_loglike and not s._host_transform
     assert s.total_calls == 0 and like.inputs == []   # the probe raised
     u = np.array([[0.1, -0.2], [0.9, 0.0], [-0.5, 0.5]])
-    logl = s.loglike(u)
+    logl, derived = s.loglike(u)
+    assert derived.shape == (3, 0)
     (x,) = like.inputs
     assert type(x) is np.ndarray and x.dtype == np.float64
     np.testing.assert_array_equal(x, 3.0 * u)
@@ -57,8 +58,8 @@ def test_host_likelihood_gets_float64_numpy_of_the_transform():
     np.testing.assert_array_equal(logl, want)
     assert s.total_calls == 3
     # inside the kernels: float32 on the device, non-finite -> LOG_NEG
-    got = s.kernels.like_fn(torch.tensor(u, dtype=torch.float32))
-    assert got.dtype == torch.float32
+    got, derived = s.kernels.like_fn(torch.tensor(u, dtype=torch.float32))
+    assert got.dtype == torch.float32 and derived is None
     np.testing.assert_allclose(got.numpy(), [logl[0], tk.LOG_NEG, logl[2]],
                                rtol=1e-6)
     assert like.inputs[-1].dtype == np.float64 and s.total_calls == 3
@@ -93,7 +94,7 @@ def test_probe_sorts_callables_and_costs_no_call():
     np.testing.assert_array_equal(t.transform(u), np.exp(u))
     with torch.no_grad():
         ref = zoo(np.exp(u)).numpy()
-    np.testing.assert_allclose(t.loglike(u), ref, rtol=1e-6)
+    np.testing.assert_allclose(t.loglike(u)[0], ref, rtol=1e-6)
     out = t._device_transform(torch.tensor(u, dtype=torch.float32))
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.exp(u), rtol=1e-6)

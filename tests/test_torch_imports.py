@@ -123,3 +123,21 @@ def test_entry_points_refuse_missing_cuda():
                 EnsembleSampler):
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             cls(2, Gaussian(2, 0.0), log_dir=None)
+
+
+def test_trainer_has_the_transport_api():
+    """The port's Trainer offers nnest_tpu's public transport names: every
+    public method or property of nnest_tpu's Trainer that maps points or
+    draws samples."""
+    from nnest_torch import Trainer
+    from nnest_tpu.training.trainer import Trainer as JaxTrainer
+    names = ('forward', 'inverse', 'log_probs', 'get_prior_samples',
+             'get_latent_samples', 'get_samples', 'get_synthetic_samples',
+             'num_params', 'base_dist')
+    for name in names:
+        assert hasattr(JaxTrainer, name), name
+        assert hasattr(Trainer, name), name
+        assert isinstance(getattr(Trainer, name), property) == isinstance(
+            getattr(JaxTrainer, name), property), name
+    public = {n for n in vars(JaxTrainer) if n.startswith('get_')}
+    assert public <= set(names), public - set(names)

@@ -108,9 +108,10 @@ def test_constrained_step_matches_jax(kernel_pair):
     inv_t = tkern._hot_inverse()
     zt = torch.from_numpy(z0)
     x0, ldj0 = inv_t(zt)
-    logl0 = tkern.like_fn(x0)
-    state = (zt, x0, ldj0, logl0, tkern.prior_fn(x0))
-    (z_t, x_t, _, _, _), accept_t, _, n_evals = tkern.step(
+    logl0, derived0 = tkern.like_fn(x0)
+    assert derived0 is None   # no derived parameters: none carried
+    state = (zt, x0, ldj0, logl0, tkern.prior_fn(x0), derived0)
+    (z_t, x_t, _, _, _, d_t), accept_t, _, n_evals = tkern.step(
         state, inv_t,
         [(torch.from_numpy(dz), torch.from_numpy(u), None)
          for dz, u in draws],
@@ -118,6 +119,7 @@ def test_constrained_step_matches_jax(kernel_pair):
         cov_chol=None)
     np.testing.assert_array_equal(accept_t.numpy(), accept_j)
     np.testing.assert_array_equal(z_t.numpy(), z_j)
+    assert d_t is None
     assert int(n_evals) == int(np.asarray(mask1).sum())
     assert 0 < accept_j.sum() < n
     np.testing.assert_allclose(
@@ -137,9 +139,10 @@ def test_live_starts_and_red_black_split(kernel_pair):
     z0j, l0j, _, lp0j, muj, varj, _ = jkern._live_starts(
         params, key, jnp.asarray(au), jnp.asarray(al),
         jnp.zeros((n_live, 0)), chains)
-    z0t, l0t, lp0t, mut, vart = tkern._live_starts(
+    z0t, l0t, d0t, lp0t, mut, vart = tkern._live_starts(
         torch.from_numpy(idx), torch.from_numpy(au), torch.from_numpy(al))
     np.testing.assert_array_equal(l0t.numpy(), np.asarray(l0j))
+    assert d0t is None
     np.testing.assert_array_equal(lp0t.numpy(), np.asarray(lp0j))
     np.testing.assert_allclose(z0t.numpy(), np.asarray(z0j), rtol=1e-5,
                                atol=1e-5)
@@ -211,7 +214,7 @@ def _starts(tkern, n, seed, loglstar=None):
     g = torch.Generator().manual_seed(seed)
     z0 = 0.3 * torch.randn(n, 3, generator=g)
     x0, _ = tkern._hot_inverse()(z0)
-    logl0 = tkern.like_fn(x0)
+    logl0, _ = tkern.like_fn(x0)
     if loglstar is not None:
         assert bool((logl0 > loglstar).all())
     return g, z0, logl0, tkern.prior_fn(x0)
@@ -250,7 +253,8 @@ def test_rejection_prior_returns_valid_candidates(kernel_pair):
     _, _, tkern, _ = kernel_pair
     prior = UniformPrior(3, -1.0, 1.0)
     g = torch.Generator().manual_seed(3)
-    x, logl, ok = tkern.rejection_prior(prior, g, -0.3, 512)
+    x, logl, derived, ok = tkern.rejection_prior(prior, g, -0.3, 512)
+    assert derived is None
     assert x.shape == (512, 3) and bool((x.abs() <= 1.0).all())
     assert bool((logl[ok] > -0.3).all()) and bool((logl[~ok] <= -0.3).all())
     assert 0 < int(ok.sum()) < 512

@@ -41,10 +41,11 @@ CHAINS, STEPS, DIM = 32, 20, 3
 NEAR = 1e-4
 
 
-def _jax_draws(key, constrained, proposals):
+def _jax_draws(key, constrained, proposals, chains=CHAINS, steps=STEPS,
+               dim=DIM):
     """The per-step (dz, u, u_fast) lists of ``_mcmc_impl`` on ``key``."""
     out = []
-    for k in jax.random.split(key, STEPS):
+    for k in jax.random.split(key, steps):
         if constrained:
             _, kk = jax.random.split(k)
         keys = []
@@ -55,8 +56,8 @@ def _jax_draws(key, constrained, proposals):
                 _, kp, ku = jax.random.split(k, 3)
             keys.append((jax.random.split(kp)[0], ku))
         out.append([(torch.from_numpy(np.array(jax.random.normal(
-            kdz, (CHAINS, DIM)))), torch.from_numpy(np.array(
-                jax.random.uniform(ku, (CHAINS,)))), None)
+            kdz, (chains, dim)))), torch.from_numpy(np.array(
+                jax.random.uniform(ku, (chains,)))), None)
             for kdz, ku in keys])
     return out
 
@@ -91,8 +92,13 @@ def test_collect_mode_trajectory_matches_jax(kernel_pair, monkeypatch,
     monkeypatch.setattr(tk, '_accept_mask', recording)
     logls = []
     real_like = tkern.like_fn
-    monkeypatch.setattr(tkern, 'like_fn',
-                        lambda u: logls.append(real_like(u)) or logls[-1])
+
+    def recording_like(u):
+        out = real_like(u)
+        logls.append(out[0])
+        return out
+
+    monkeypatch.setattr(tkern, 'like_fn', recording_like)
     got = tkern.mcmc(None, torch.from_numpy(z0), torch.from_numpy(logl0),
                      torch.from_numpy(lp0), loglstar=loglstar,
                      step_size=0.6, mcmc_steps=STEPS, dynamic_step_size=True,
@@ -216,7 +222,7 @@ def test_full_mh_fast_moves_count_their_calls():
                             oversample_rate=1.0)
     z0 = 0.3 * torch.randn(8, 3, generator=torch.Generator().manual_seed(1))
     x0, _ = kern._hot_inverse()(z0)
-    out = kern.mcmc(torch.Generator().manual_seed(2), z0, kern.like_fn(x0),
+    out = kern.mcmc(torch.Generator().manual_seed(2), z0, kern.like_fn(x0)[0],
                     kern.prior_fn(x0), step_size=0.5, mcmc_steps=4,
                     collect_chains=True)
     assert int(out['fast_calls']) == int(out['ncall']) == 8 * 4

@@ -126,10 +126,10 @@ def test_slow_dims_are_bit_exact_under_fast_moves(flow):
                                 num_slow=num_slow, oversample_rate=rate)
         inverse = kern._hot_inverse()
         xs, ldj = inverse(z0)
-        state = (z0, xs, ldj, kern.like_fn(xs), kern.prior_fn(xs))
+        state = (z0, xs, ldj, kern.like_fn(xs)[0], kern.prior_fn(xs), None)
         draws = [(torch.from_numpy(rs.normal(size=(n, d)).astype(
             np.float32)), torch.full((n,), 0.5), torch.tensor(0.5))]
-        (_, x_new, _, _, _), accept, x_prop, _ = kern.step(
+        (_, x_new, _, _, _, _), accept, x_prop, _ = kern.step(
             state, inverse, draws, loglstar=torch.tensor(-3.0),
             scale=torch.tensor(0.5), cov_chol=None)
         assert bool(accept.any())
@@ -137,7 +137,7 @@ def test_slow_dims_are_bit_exact_under_fast_moves(flow):
         if fast:
             assert torch.equal(x_new[:, :num_slow], xs[:, :num_slow])
         out = kern.mcmc(torch.Generator().manual_seed(2), z0,
-                        kern.like_fn(xs), kern.prior_fn(xs), loglstar=-3.0,
+                        kern.like_fn(xs)[0], kern.prior_fn(xs), loglstar=-3.0,
                         step_size=0.5, mcmc_steps=5)
         assert int(out['accepted']) > 0
         assert int(out['fast_calls']) == (int(out['ncall']) if fast else 0)

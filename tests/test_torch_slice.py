@@ -36,20 +36,20 @@ TOL_LDJ = 1e-4
 CHAINS, STEPS, MAX_EXPAND, MAX_SHRINK = 16, 3, 4, 10
 
 
-def _jax_draws(key, dim):
+def _jax_draws(key, dim, chains=CHAINS, steps=STEPS):
     """The draws of ``_slice_impl`` on ``key``, in slice_draws' layout."""
     hard_cap = MAX_SHRINK + 40
     out = {k: [] for k in ('d', 'h', 'v', 'jmax', 'shrink')}
-    for k in jax.random.split(key, STEPS):
+    for k in jax.random.split(key, steps):
         kd, kh, kv, kj, kshr = jax.random.split(k, 5)
-        out['d'].append(jax.random.normal(kd, (CHAINS, 3)))
-        out['h'].append(jax.random.uniform(kh, (CHAINS,)))
-        out['v'].append(jax.random.uniform(kv, (CHAINS,)))
-        out['jmax'].append(jax.random.randint(kj, (CHAINS,), 0, MAX_EXPAND))
+        out['d'].append(jax.random.normal(kd, (chains, dim)))
+        out['h'].append(jax.random.uniform(kh, (chains,)))
+        out['v'].append(jax.random.uniform(kv, (chains,)))
+        out['jmax'].append(jax.random.randint(kj, (chains,), 0, MAX_EXPAND))
         rows, kk = [], kshr
         for _ in range(hard_cap):
             kk, kt = jax.random.split(kk)
-            rows.append(jax.random.uniform(kt, (CHAINS,)))
+            rows.append(jax.random.uniform(kt, (chains,)))
         out['shrink'].append(np.stack(rows))
     return {k: torch.from_numpy(np.array(np.stack(v))) for k, v in out.items()}
 
@@ -58,36 +58,37 @@ def _near_chains(calls, draws, loglstar):
     """(excluded chain mask, active evaluations a chain): replays the
     port's recorded slice tests, step by step, to find the active lanes
     and flags a chain when an active decision sits within tolerance."""
-    near = np.zeros(CHAINS, bool)
-    active_evals = np.zeros(CHAINS, np.int64)
+    steps, chains = draws['h'].shape
+    near = np.zeros(chains, bool)
+    active_evals = np.zeros(chains, np.int64)
     step, i = -1, 0
     while i < len(calls):
         step += 1
         jmax = draws['jmax'][step].numpy()
         kmax = MAX_EXPAND - 1 - jmax
-        done = np.zeros((2, CHAINS), bool)
+        done = np.zeros((2, chains), bool)
         acts = []
         for e in range(MAX_EXPAND):   # the 2N-row expansion tests
             rec = calls[i + e]
             act = np.stack([~done[0] & (e < jmax), ~done[1] & (e < kmax)])
-            full = rec['full'].reshape(2, CHAINS)
+            full = rec['full'].reshape(2, chains)
             done |= act & ~full
             acts.append((rec, act.reshape(-1)))
         i += MAX_EXPAND
-        acc = np.zeros(CHAINS, bool)
-        while i < len(calls) and len(calls[i]['logy']) == CHAINS:
+        acc = np.zeros(chains, bool)
+        while i < len(calls) and len(calls[i]['logy']) == chains:
             rec = calls[i]
             acts.append((rec, ~acc))
             acc |= rec['full']
             i += 1
         for rec, act in acts:
-            lanes = np.arange(len(act)) % CHAINS
+            lanes = np.arange(len(act)) % chains
             close = ((np.abs(rec['ldj'] - rec['logy']) <= TOL_LDJ)
                      | np.any(np.abs(np.abs(rec['x']) - BOX) <= TOL_X, axis=1)
                      | (np.abs(rec['logl'] - loglstar) <= TOL_LDJ))
             near[lanes[act & close]] = True
             np.add.at(active_evals, lanes[act], 1)
-    assert step == STEPS - 1
+    assert step == steps - 1
     return near, active_evals
 
 
@@ -173,7 +174,9 @@ def test_slice_draws_shapes_and_from_live(kernel_pair):
                                 num_chains=8, loglstar=loglstar, width=0.8,
                                 slice_steps=2, adapt_cov=True)
     g = torch.Generator().manual_seed(3)
-    z0, logl0, _, mu, var, cov_mask = tkern._chain_starts(g, au, al, 8, True)
+    z0, logl0, d0, _, mu, var, cov_mask = tkern._chain_starts(g, au, al, 8,
+                                                              True)
+    assert d0 is None
     draws = tkern.slice_draws(g, 2, 8, 3, 4, 10)
     assert draws['d'].shape == (2, 8, 3) and draws['shrink'].shape == (2, 50,
                                                                        8)

@@ -2,8 +2,8 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs twelve phases, printing one JSON line per
-phase with its seconds:
+from JAX or ``nnest_tpu`` and runs thirteen phases, printing one JSON line
+per phase with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the build
    of ``nnest_torch/csrc/spline_inverse.cu`` with the ``-Xptxas -v``
@@ -13,14 +13,16 @@ phase with its seconds:
    {1, 128, 256, 512, 1000, 4096, 4097}, and at d in {16, 50} with N in
    {65536, 65537} (the flow strategies' trials), and at d = 16 with N in
    {16, 32, 32064} (phase 10's shapes) and N = 200 (phase 11's seed
-   refresh), with inputs beyond ±3, exactly at
+   refresh), and at d = 2 with N in {10, 16, 32} (phase 13's command
+   lines), with inputs beyond ±3, exactly at
    ±3 and on spline knots; max |dx| <= 3e-5 and max |dlogdet| <= 3e-4.
    The per-block entry against the twin (the same limits) and against the
    whole-chain kernel (1e-6, 1e-5) at d in {5, 16}. Then the kernel is
    timed by CUDA-graph replay (and eagerly, back to back) and the twin
    eagerly, at the main path's shapes (N = 512, a slice expansion's
-   2 x 256 stacked rows, N = 65536, phase 10's N = 16, 32 and 32064 and
-   phase 11's N = 200 included) beside the least time the card could take;
+   2 x 256 stacked rows, N = 65536, phase 10's N = 16, 32 and 32064,
+   phase 11's N = 200 and phase 13's d = 2 shapes included) beside the
+   least time the card could take;
    the per-block
    entry at d = 16; and the rows a thread block takes and the ring's
    stages are swept (N = 65536: 32, 64 and 128 rows);
@@ -96,7 +98,25 @@ phase with its seconds:
    them, to its analytic logz within max(3 logzerr, 0.15); each run with
    the kernel's launches (> 0) and the twin's calls (0); then one MCMC
    generation of the 16-D model profiled with ``num_derived`` 3 and 0 on
-   the same flow, and the device kernels a step that derived adds.
+   the same flow, and the device kernels a step that derived adds;
+13. cli: the port's command lines called in-process as a user runs them:
+   ``nnest_torch.cli.nested`` at its defaults on the 2-D Rosenbrock (1000
+   live points, ``--train_iters 2000``, 10 chains, seed 0) to logZ within
+   0.2 of -5.80, with ``results/final.csv``, ``chains/chain.txt``,
+   ``info/params.txt``, ``models/netG.pkl`` and ``data/originals.npy``,
+   and the flow of ``netG.pkl`` reloaded by ``Trainer(load_model=)`` giving
+   the same log_prob on 1000 points to 1e-6; a second, smaller run under
+   the same root (200 live points, ``--train_iters 200``, seed 1) and
+   ``nnest_torch.cli.analyse`` over both (``--merge``), which must print
+   ``logz=`` and a posterior ESS; ``nnest_torch.cli.ensemble`` with
+   ``--sampler mcmc`` (16 chains) and ``--sampler ensemble`` (64 walkers,
+   500-step bootstrap) on the 2-D Rosenbrock, ``--mcmc_steps`` cut to 2000,
+   with finite samples and the kernel's launches one a step plus one a
+   call and two a step plus two a call; which of tqdm, matplotlib and
+   TensorBoard the machine has, and the plots and event files written
+   exactly when they are there; and an epoch of the 2-D flow's training
+   (1000 rows, 9 steps) with its steps eager and replayed as a CUDA graph,
+   timed in turns, and one graphed epoch profiled.
 
 ``--baseline SRC`` also builds SRC, an earlier version of the kernel with
 its own C entry point (the unpadded layout, no launch plan), checks it
@@ -107,7 +127,7 @@ Before the last line it prints the ``{"kernels": [...]}`` record, with each
 kernel's launches by path (``mcmc``: phase 3, ``rejection_flow`` and
 ``density_flow``: phase 6, ``per_block``: phase 5, ``slice``: phase 8,
 ``mcmc_sampler`` and ``ensemble``: phase 10, ``dynamic`` and
-``host_likelihood``: phase 11, ``derived``: phase 12);
+``host_likelihood``: phase 11, ``derived``: phase 12, ``cli``: phase 13);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before that line.
@@ -149,6 +169,11 @@ DYN_SWITCH = math.exp(-2.0)
 DERIVED = 3
 DERIVED_MAX_ITERS, DERIVED_TRAIN_ITERS = 5200, 20
 DERIVED_POSTERIOR_EPOCHS = 10
+# phase 13's command lines: the nested one at its defaults; the ensemble
+# one at its widths with --mcmc_steps cut to this; the 2-D Rosenbrock's
+# evidence (tests/test_nested.py) and the error allowed
+CLI_MCMC_STEPS = 2000
+ROSENBROCK_LOGZ, ROSENBROCK_TOL = -5.80, 0.2
 # the keys of results/diagnostics.json (nnest_tpu's set)
 DIAGNOSTICS_KEYS = {
     'insertion_D', 'insertion_p', 'insertion_rolling_p', 'logzerr',
@@ -423,9 +448,12 @@ SWEEP_ROWS = {256: (1, 2, 4, 8), 4096: (8, 16, 32, 64),
 TRAJECTORY_ROWS = (RUN_STEPS + 1) * WALKERS
 POSTERIOR_SHAPES = ((16, MCMC_CHAINS), (16, WALKERS // 2),
                     (16, TRAJECTORY_ROWS))
+# the command lines' shapes at d = 2 (phase 13): a nested Metropolis
+# step's 10 chains, a full-MH step's 16 and an ensemble half-update's 32
+CLI_SHAPES = ((2, 10), (2, 16), (2, 32))
 TIMED_SHAPES = ((16, 256), (16, 4096), (2, 128), (50, 256), (50, 4096),
                 (16, FLOW_TRIALS), (50, FLOW_TRIALS), (16, 512)) \
-    + POSTERIOR_SHAPES + ((16, DYN_BATCH_LIVE),)
+    + POSTERIOR_SHAPES + ((16, DYN_BATCH_LIVE),) + CLI_SHAPES
 
 
 def phase_kernel(records, earlier):
@@ -452,6 +480,8 @@ def phase_kernel(records, earlier):
         wide = (FLOW_TRIALS, FLOW_TRIALS + 1) if d in (16, 50) else ()
         if d == 16:
             wide += tuple(n for _, n in POSTERIOR_SHAPES) + (DYN_BATCH_LIVE,)
+        if d == 2:
+            wide += tuple(n for _, n in CLI_SHAPES)
         for n in (1, 128, 256, 512, 1000, 4096, 4097) + wide:
             z = kernel_inputs(model, n, seed=7 * n + d, device=device)
             got = si.spline_inverse(z, packed)
@@ -1450,12 +1480,184 @@ def phase_derived(record, log_dir):
     return out
 
 
+def optional_packages():
+    """Which of the optional packages the port's tooling uses are here."""
+    import importlib
+    out = {}
+    for name in ('tqdm', 'matplotlib', 'torch.utils.tensorboard'):
+        try:
+            importlib.import_module(name)
+            out[name] = True
+        except ImportError:
+            out[name] = False
+    return out
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured; (result, text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def training_turns(x, epochs=10):
+    """ms an epoch of a 2-D trainer (hidden 16, batch 100) on ``x``, its
+    steps eager and replayed as a CUDA graph, in turns (eager, graphed,
+    graphed, eager), each after one warm-up epoch (the graph's capture);
+    then one graphed epoch profiled."""
+    from nnest_torch import Trainer
+
+    def trainer(graphs):
+        t = Trainer(2, hidden_dim=16, log=False, seed=0, device='cuda')
+        t.use_graphs = graphs
+        t.train(x, max_iters=1, jitter=0.0)
+        return t
+
+    ms = {False: [], True: []}
+    for graphs in (False, True, True, False):
+        t = trainer(graphs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train(x, max_iters=epochs, patience=epochs, jitter=0.0)
+        torch.cuda.synchronize()
+        ms[graphs].append((time.perf_counter() - t0) * 1e3 / epochs)
+    t = trainer(True)
+
+    def one_epoch():
+        t.train(x, max_iters=1, jitter=0.0)
+        torch.cuda.synchronize()
+
+    return {'rows': int(x.shape[0]), 'steps_per_epoch': -(-int(
+        0.9 * x.shape[0]) // 100), 'eager_ms_per_epoch': ms[False],
+            'graphed_ms_per_epoch': ms[True],
+            'eager_over_graphed': float(np.mean(ms[False])
+                                        / np.mean(ms[True])),
+            'graphed_epoch_profile': profile_generation(one_epoch)}
+
+
+def phase_cli(record, log_dir):
+    """The port's command lines called in-process, each with the counts
+    reset just before and read just after: the nested one at its defaults
+    on the 2-D Rosenbrock, its run directory and model file; a second,
+    smaller nested run and ``analyse`` over both; the ensemble one with
+    both samplers; the optional packages and what they wrote."""
+    from nnest_torch import Trainer
+    from nnest_torch.cli import analyse, ensemble, nested
+    from nnest_torch.ops import spline_inverse as si
+    has = optional_packages()
+    print(json.dumps({'optional_packages': has}), flush=True)
+    root = os.path.join(log_dir, 'cli')
+    launches, out = {}, {'optional_packages': has}
+
+    reset_counts()
+    t0 = time.time()
+    s = nested.main(nested.build_parser().parse_args(
+        ['--likelihood', 'rosenbrock', '--x_dim', '2', '--log_dir', root]))
+    wall = time.time() - t0
+    launches['nested'] = read_counts('cli nested')
+    run = s.log_dir
+    out['nested'] = {
+        'wall_s': wall, 'launches': launches['nested'], 'logz': s.logz,
+        'logzerr': s.logzerr, 'expected_logz': ROSENBROCK_LOGZ,
+        'allowed': ROSENBROCK_TOL, 'niter': s.niter, 'ncall': s.total_calls,
+        'plot_seconds': s.trainer.plot_seconds, **s.run_stats}
+    if abs(s.logz - ROSENBROCK_LOGZ) > ROSENBROCK_TOL:
+        raise AssertionError('2-D Rosenbrock logz off -5.80: %s'
+                             % out['nested'])
+    for rel in ('results/final.csv', 'chains/chain.txt', 'info/params.txt',
+                'models/netG.pkl', 'data/originals.npy'):
+        if not os.path.exists(os.path.join(run, rel)):
+            raise AssertionError('the nested command line wrote no %s' % rel)
+    # the model file, reloaded as a user would
+    loaded = Trainer(2, hidden_dim=16, log_dir=os.path.dirname(run),
+                     load_model=os.path.basename(run), log=False,
+                     device='cuda')
+    pts = np.asarray(s.saved_u[-1000:], dtype=np.float32)
+    lp_run = s.trainer.log_probs(pts, to_numpy=True)
+    lp_file = loaded.log_probs(pts, to_numpy=True)
+    out['nested']['netG_max_abs_dlogprob'] = float(np.max(np.abs(
+        lp_run - lp_file)))
+    if not (np.all(np.isfinite(lp_run))
+            and out['nested']['netG_max_abs_dlogprob'] <= 1e-6):
+        raise AssertionError('netG.pkl reloaded disagrees: %s'
+                             % out['nested']['netG_max_abs_dlogprob'])
+    out['training'] = training_turns(pts)
+
+    # files of the optional packages, there exactly when the package is
+    plots = [f for f in os.listdir(os.path.join(run, 'plots'))
+             if f.startswith('plot_')]
+    events = [f for f in os.listdir(run) if f.startswith('events.out')]
+    out['nested'].update(plots=len(plots), event_files=len(events))
+    if bool(plots) != has['matplotlib'] or \
+            bool(events) != has['torch.utils.tensorboard']:
+        raise AssertionError('plots %s, events %s with packages %s'
+                             % (plots, events, has))
+
+    # a second, smaller run under the same root, then analyse over both
+    reset_counts()
+    t0 = time.time()
+    small = nested.main(nested.build_parser().parse_args(
+        ['--likelihood', 'rosenbrock', '--x_dim', '2', '--log_dir', root,
+         '--num_live_points', '200', '--train_iters', '200', '--seed', '1']))
+    launches['nested_small'] = read_counts('cli nested (small)')
+    out['nested_small'] = {'wall_s': time.time() - t0, 'logz': small.logz,
+                           'logzerr': small.logzerr, 'niter': small.niter,
+                           'launches': launches['nested_small']}
+    _, text = quiet(analyse.main, analyse.build_parser().parse_args(
+        ['--root', os.path.join(root, '*'), '--dim', '2', '--merge']))
+    print(text, flush=True)
+    if 'logz=' not in text or 'Posterior ESS' not in text:
+        raise AssertionError('analyse printed no logz= or ESS:\n%s' % text)
+    out['analyse_lines'] = len(text.splitlines())
+
+    # launches: one a step and one for the starts (MCMC); two a step (the
+    # half-updates) and two a call, bootstrap phase 1 then run (ensemble)
+    for sampler, expected in (
+            ('mcmc', CLI_MCMC_STEPS + 1),
+            ('ensemble', 2 * (500 + CLI_MCMC_STEPS) + 4)):
+        reset_counts()
+        t0 = time.time()
+        e = ensemble.main(ensemble.build_parser().parse_args(
+            ['--sampler', sampler, '--likelihood', 'rosenbrock', '--x_dim',
+             '2', '--mcmc_steps', str(CLI_MCMC_STEPS), '--log_dir',
+             os.path.join(log_dir, 'cli_' + sampler)]))
+        n = launches[sampler] = read_counts('cli ' + sampler)
+        flat = e.samples.reshape(-1, e.samples.shape[-1])
+        out[sampler] = {'wall_s': time.time() - t0, 'launches': n,
+                        'samples_shape': list(e.samples.shape),
+                        'mean': flat.mean(axis=0).tolist(),
+                        'std': flat.std(axis=0).tolist(),
+                        'ncall': e.total_calls,
+                        'trace_plot': os.path.exists(os.path.join(
+                            e.log_dir, 'plots', 'trace.png'))}
+        if n != expected:
+            raise AssertionError('%s command line launched the kernel %d '
+                                 'times, expected %d' % (sampler, n, expected))
+        if not (np.all(np.isfinite(flat)) and np.all(np.isfinite(
+                out[sampler]['std']))):
+            raise AssertionError('%s samples not finite' % sampler)
+        if sampler == 'mcmc' and out[sampler]['trace_plot'] != \
+                has['matplotlib']:
+            raise AssertionError('trace.png %s with matplotlib %s'
+                                 % (out[sampler]['trace_plot'],
+                                    has['matplotlib']))
+    record['launches_by_path']['cli'] = sum(launches.values())
+    out['launches'] = launches
+    return out
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--baseline', metavar='SRC',
                         help='an earlier kernel source to time beside '
                              'this one in phase 2')
+    parser.add_argument('--phases', metavar='LIST',
+                        help='run only these phases (comma-separated '
+                             'numbers); the default runs all of them')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -1465,7 +1667,7 @@ def main():
 
     paths = ('mcmc', 'rejection_flow', 'density_flow', 'per_block', 'slice',
              'mcmc_sampler', 'ensemble', 'dynamic', 'host_likelihood',
-             'derived')
+             'derived', 'cli')
     records = [
         {'name': 'spline_inverse', 'route': 'cuda',
          'source': 'nnest_torch/csrc/spline_inverse.cu',
@@ -1497,14 +1699,17 @@ def main():
                 (10, 'mcmc_ensemble',
                  lambda: phase_mcmc_ensemble(records[0], log_dir)),
                 (11, 'dynamic', lambda: phase_dynamic(records[0], log_dir)),
-                (12, 'derived', lambda: phase_derived(records[0], log_dir))):
+                (12, 'derived', lambda: phase_derived(records[0], log_dir)),
+                (13, 'cli', lambda: phase_cli(records[0], log_dir))):
+            if args.phases and str(num) not in args.phases.split(','):
+                continue
             t0 = time.time()
             out = fn()
             emit({'phase': num, 'name': name,
                   'seconds': time.time() - t0, **out})
     for rec in records:
         # launches on the paths that drive the kernel (phases 3, 5, 6, 8,
-        # 10, 11, 12)
+        # 10, 11, 12, 13)
         rec['launches'] = sum(rec['launches_by_path'].values())
     emit({'kernels': records})
     emit({'ok': True, 'device': {'platform': 'gpu',

@@ -15,8 +15,11 @@ samplers; every flow and base of ``build_flow``; torch and host (numpy)
 likelihoods and priors; derived parameters (a likelihood returning
 ``(logl, derived)``, ``num_derived``) through every strategy, sampler,
 checkpoint and chain file; the trainer with its transport API (``forward``,
-``inverse``, ``log_probs`` and the sample getters). Not ported: meshes and
-multi-device runs, plots and TensorBoard (ROADMAP.md).
+``inverse``, ``log_probs`` and the sample getters), its run directory
+(``netG.pkl`` in ``nnest_tpu``'s format, plots, TensorBoard) and, on a GPU,
+its training step replayed as a CUDA graph; the background writer, the
+progress bar and the command lines (``nnest_torch.cli``). Not ported:
+meshes and multi-device runs (ROADMAP.md).
 
 Entry points run on ``device='cuda'`` unless the caller asks for the CPU;
 with no GPU they raise instead of falling back. This package never imports

@@ -95,23 +95,43 @@ def _np(t):
     return t.detach().cpu().numpy().copy()
 
 
-def _bijector_to(b):
+def _bijector_tree(b, leaf):
     _check(b)
-    out = {name: _np(getattr(b, name)) for name in _LEAVES.get(type(b), ())}
+    out = {name: leaf(getattr(b, name)) for name in _LEAVES.get(type(b), ())}
     for name, mlp in _nets(b):
-        out[name] = [{'w': _np(w), 'b': _np(bias)}
+        out[name] = [{'w': leaf(w), 'b': leaf(bias)}
                      for w, bias in zip(mlp.w, mlp.b)]
     return out
 
 
-def _chain_to(chain):
-    return tuple(_bijector_to(b) for b in chain.bijectors)
+def _model_tree(model, leaf):
+    """The JAX layout of ``model`` with ``leaf`` of each tensor."""
+    def chain(c):
+        return tuple(_bijector_tree(b, leaf) for b in c.bijectors)
+
+    if isinstance(model, FastSlowFlowModel):
+        return {'slow': chain(model.slow), 'fast': chain(model.fast),
+                'combine': _bijector_tree(model.combine, leaf)}
+    return chain(model.chain)
 
 
 def params_to_jax(model):
     """The inverse of :func:`params_from_jax`: the JAX package's layout
     with numpy leaves."""
-    if isinstance(model, FastSlowFlowModel):
-        return {'slow': _chain_to(model.slow), 'fast': _chain_to(model.fast),
-                'combine': _bijector_to(model.combine)}
-    return _chain_to(model.chain)
+    return _model_tree(model, _np)
+
+
+def _flatten(tree):
+    if isinstance(tree, dict):
+        tree = tree.values()
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    else:
+        for v in tree:
+            yield from _flatten(v)
+
+
+def param_tensors(model):
+    """The model's tensors that :func:`params_to_jax` emits, frozen buffers
+    included (the JAX package's leaves), as the live tensors themselves."""
+    return list(_flatten(_model_tree(model, lambda t: t)))

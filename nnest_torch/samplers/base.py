@@ -47,9 +47,16 @@ Port of ``nnest_tpu/samplers/base.py`` without meshes:
   (float32 on the device, float64 on the host, as in the JAX package);
 - getdist-style ``chain.txt`` (``chain_<i>.txt`` a chain for trajectories;
   rows ``weight -logl params derived`` under the ``param_names`` header)
-  and ``params.txt``.
+  and ``params.txt``;
+- the run's tooling: the default trainer writes into the run directory
+  (``models/``, ``data/``, ``plots/``, TensorBoard), ``_plot_trace`` draws
+  the first chain's trace (``plots/trace.png``, matplotlib's Agg canvas,
+  imported when used), and ``_submit_io`` queues file writes on one
+  background thread (``utils/io_async.SerialWriter``) that ``_drain_io``
+  and ``_close_io`` wait for.
 
-Meshes and trace plots are not ported yet (see ROADMAP.md).
+``use_gpu`` is accepted and ignored, as in ``nnest_tpu``: ``device``
+decides placement. Meshes are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -71,6 +78,7 @@ from nnest_torch.utils.evaluation import (acceptance_rate,
                                           latent_cond_null,
                                           mean_jump_distance,
                                           metropolis_mix_null, slice_mix_null)
+from nnest_torch.utils.io_async import SerialWriter
 from nnest_torch.utils.logger import create_logger, get_or_create_run_dir
 
 
@@ -143,6 +151,7 @@ class Sampler:
                  log_level=logging.INFO,
                  param_names=None,
                  seed=0,
+                 use_gpu=False,
                  device='cuda'):
         self.device = resolve_device(device)
         self.x_dim = x_dim
@@ -187,7 +196,7 @@ class Sampler:
 
         args = {k: v for k, v in locals().items()
                 if k not in ('self', 'loglike', 'transform', 'prior',
-                             'trainer')}
+                             'trainer', 'probe')}
         args['sampler'] = getattr(self, 'sampler', '')
         self._init_args = args
 
@@ -205,7 +214,8 @@ class Sampler:
             batch_size=batch_size, flow=flow, scale=scale,
             num_blocks=num_blocks, num_layers=num_layers,
             base_dist=base_dist, learning_rate=learning_rate,
-            log_level=log_level, seed=seed + 1, device=self.device)
+            log_dir=self.log_dir, log_level=log_level, seed=seed + 1,
+            device=self.device)
         self.logger.info('Num params [%d]' % self.x_dim)
 
         self.total_accepted = 0
@@ -224,6 +234,7 @@ class Sampler:
         self._cond_infl = []
         self._max_log_det_j = None
         self._max_r = None
+        self._io_writer = None   # the background writer, made when used
 
     # ------------------------------------------------------------ wrappers
 
@@ -563,13 +574,16 @@ class Sampler:
                      dynamic_step_size=False, num_chains=1,
                      init_samples=None, init_loglikes=None, loglstar=None,
                      max_start_tries=100, output_interval=None,
+                     stats_interval=None, plot_trace=False,
                      prior_volume_steps=1):
         """Metropolis chains in the latent space, with their trajectories:
         full MH, or constrained by ``loglstar``; starts from
         :meth:`_mcmc_init`, step size 2/sqrt(x_dim) unless given. The
         whole trajectory stays on the device and is fetched once at the
         end. With ``output_interval`` (any value) the transformed chains
-        are written as ``chains/chain_<i>.txt``.
+        are written as ``chains/chain_<i>.txt``; with ``stats_interval``
+        at most ``mcmc_steps`` their statistics are logged; ``plot_trace``
+        draws the first chain (:meth:`_plot_trace`).
 
         Returns (samples, latent, derived, loglikes, scale, ncall): samples
         and latent (chains, steps + 1, x_dim), derived (chains, steps + 1,
@@ -594,12 +608,24 @@ class Sampler:
         self.total_fast_calls += int(out['fast_calls'])
         self.total_accepted += int(out['accepted'])
         self.total_rejected += int(out['rejected'])
+        latent = out['latent'].astype(np.float64)
+        self._trajectory_outputs(samples, latent, loglikes, derived,
+                                 output_interval, stats_interval, plot_trace)
+        return (samples, latent, derived, loglikes, float(out['scale']),
+                int(out['ncall']) + ncall_init)
+
+    def _trajectory_outputs(self, samples, latent, loglikes, derived,
+                            output_interval, stats_interval, plot_trace):
+        """The chain files, statistics and trace plot of a trajectory
+        (samples before the transform)."""
         if output_interval is not None:
             self._save_samples(self._physical(samples), loglikes,
                                derived_samples=derived)
-        return (samples, out['latent'].astype(np.float64), derived,
-                loglikes, float(out['scale']),
-                int(out['ncall']) + ncall_init)
+        if stats_interval is not None and samples.shape[1] - 1 >= \
+                stats_interval:
+            self._chain_stats(self._physical(samples))
+        if plot_trace:
+            self._plot_trace(samples, latent)
 
     def _trajectory_derived(self, out, shape):
         """A collect-chains output's derived trajectory (chains, steps + 1,
@@ -608,12 +634,15 @@ class Sampler:
         return flat.reshape(shape + (self.num_derived,))
 
     def _ensemble_sample(self, mcmc_steps, num_walkers, init_samples=None,
-                         loglstar=None, max_start_tries=100, moves=None):
+                         loglstar=None, max_start_tries=100,
+                         output_interval=None, stats_interval=None,
+                         plot_trace=False, moves=None):
         """The latent ensemble (:meth:`LatentKernels.stretch`) with the
         move zoo: ``moves`` a dict {name: weight} or (name, weight) pairs,
         by default the stretch move alone. The walkers start at the
         forward images of ``init_samples``, or at base draws through the
-        inverse once all lie inside the prior.
+        inverse once all lie inside the prior. ``output_interval``,
+        ``stats_interval`` and ``plot_trace`` as in :meth:`_mcmc_sample`.
 
         Returns (samples, latent, derived, loglikes, ncall): samples and
         latent (walkers, steps + 1, x_dim), derived (walkers, steps + 1,
@@ -649,9 +678,11 @@ class Sampler:
         self.total_calls += ncall
         self.total_accepted += int(out['accepted'])
         self.total_rejected += int(out['rejected'])
-        return (samples, out['latent'].astype(np.float64),
-                self._trajectory_derived(out, loglikes.shape), loglikes,
-                ncall)
+        latent = out['latent'].astype(np.float64)
+        derived = self._trajectory_derived(out, loglikes.shape)
+        self._trajectory_outputs(samples, latent, loglikes, derived,
+                                 output_interval, stats_interval, plot_trace)
+        return samples, latent, derived, loglikes, ncall
 
     def _physical(self, samples):
         """Chains (chains, steps, x_dim) through the sampler transform."""
@@ -761,3 +792,55 @@ class Sampler:
             for i in range(samples.shape[0]):
                 write('%s_%d' % (outfile, i + 1), samples[i], loglikes[i],
                       weights[i])
+
+    def _plot_trace(self, samples, latent_samples):
+        """The first chain's trace, each dim in the chains' space (left)
+        and the latent space (right, first 1000 steps), to
+        ``plots/trace.png``; nothing without matplotlib or a run
+        directory."""
+        if self.log_dir is None:
+            return
+        # one matplotlib user at a time: join the trainer's render first
+        self._join_plots()
+        try:
+            from matplotlib.backends.backend_agg import FigureCanvasAgg
+            from matplotlib.figure import Figure
+        except ImportError:
+            return
+        fig = Figure(figsize=(10, max(self.x_dim, 2)))
+        FigureCanvasAgg(fig)
+        ax = np.atleast_2d(fig.subplots(self.x_dim, 2, sharex=True))
+        for i in range(self.x_dim):
+            ax[i, 0].plot(samples[0, :, i])
+            ax[i, 1].plot(latent_samples[0, :1000, i])
+        fig.savefig(os.path.join(self.log_dir, 'plots', 'trace.png'))
+
+    # ------------------------------------------------------------ background
+
+    def _submit_io(self, job):
+        """Queue a file-IO closure on the background writer. The caller
+        snapshots the state first: the closure may run while the main
+        thread changes the live arrays."""
+        if self._io_writer is None:
+            self._io_writer = SerialWriter()
+        self._io_writer.submit(job)
+
+    def _drain_io(self):
+        """Block until the queued writes are on disk; re-raise the first
+        failure."""
+        if self._io_writer is not None:
+            self._io_writer.drain()
+
+    def _close_io(self):
+        """Drain and stop the background writer (a later ``run()`` makes a
+        new one)."""
+        if self._io_writer is not None:
+            writer, self._io_writer = self._io_writer, None
+            writer.close()
+
+    def _join_plots(self):
+        """Join the trainer's in-flight triptych render (a user's trainer
+        without ``finish_plots`` is left alone)."""
+        finish = getattr(self.trainer, 'finish_plots', None)
+        if finish is not None:
+            finish()

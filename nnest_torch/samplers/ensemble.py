@@ -1,7 +1,7 @@
 """Ensemble sampler: affine-invariant ensemble MCMC in the flow's latent
 space.
 
-Port of ``nnest_tpu/samplers/ensemble.py`` without meshes or plots:
+Port of ``nnest_tpu/samplers/ensemble.py`` without meshes:
 
 - :func:`real_space_stretch`: a Goodman-Weare stretch ensemble on any log
   density of (batch, d) tensors, the bootstrap's phase 0 (no flow);
@@ -15,6 +15,10 @@ Port of ``nnest_tpu/samplers/ensemble.py`` without meshes or plots:
   (getdist's ``makeSingleSamples`` on unit weights) from the sampler's
   generator;
 - :meth:`EnsembleSampler.run`: normalise, train, one latent ensemble.
+
+Both log the chain statistics of a latent ensemble of at least
+``stats_interval`` steps and write its chains as ``chains/chain_<i>.txt``
+when ``output_interval`` is given.
 
 Checkpoints: each completed phase p writes ``checkpoint/bootstrap_<p>.pt``
 (``torch.save`` to a temporary file, then ``os.replace``) with its chains,
@@ -125,6 +129,7 @@ class EnsembleSampler(Sampler):
                  log_level=logging.INFO,
                  param_names=None,
                  seed=0,
+                 use_gpu=False,
                  device='cuda'):
         if not hasattr(self, 'sampler'):
             self.sampler = 'ensemble'
@@ -137,7 +142,7 @@ class EnsembleSampler(Sampler):
             base_dist=base_dist, scale=scale, trainer=trainer,
             transform_prior=transform_prior, oversample_rate=oversample_rate,
             log_level=log_level, param_names=param_names, seed=seed,
-            device=device)
+            use_gpu=use_gpu, device=device)
         self._save_params()
 
     def _train_normalised(self, training_samples, jitter, max_iters):
@@ -220,6 +225,8 @@ class EnsembleSampler(Sampler):
                   num_walkers,
                   iters=1,
                   thin=10,
+                  stats_interval=10,
+                  output_interval=None,
                   initial_jitter=0.01,
                   final_jitter=0.01,
                   init_samples=None,
@@ -291,10 +298,12 @@ class EnsembleSampler(Sampler):
                     iters - 1)
             self._train_normalised(training_samples, jitter, train_iters)
             samples = self._physical(self._ensemble_sample(
-                mcmc_steps, num_walkers, moves=moves)[0])
+                mcmc_steps, num_walkers, stats_interval=stats_interval,
+                output_interval=output_interval, moves=moves)[0])
             self._chain_stats(samples)
             training_samples = self._make_single_samples(samples, thin)
             self._bootstrap_save(it, samples, training_samples)
+        self._join_plots()
         return training_samples
 
     def _load_emcee_h5(self, path):
@@ -335,7 +344,10 @@ class EnsembleSampler(Sampler):
             mcmc_steps,
             num_walkers,
             training_samples,
+            stats_interval=10,
+            output_interval=None,
             initial_jitter=0.01,
+            final_jitter=0.01,
             init_samples=None,
             train_iters=10000):
         """Train on ``training_samples`` (physical coordinates), then one
@@ -343,14 +355,18 @@ class EnsembleSampler(Sampler):
         steps. Sets and returns ``samples`` (walkers, steps + 1, x_dim +
         num_derived): the physical coordinates, then the derived
         parameters; sets ``latent_samples`` and ``loglikes``. The chain
-        statistics read the x_dim columns."""
+        statistics read the x_dim columns. ``final_jitter`` is accepted
+        and unused, as in ``nnest_tpu`` (there is one training)."""
+        del final_jitter
         self._train_normalised(training_samples, initial_jitter,
                                train_iters)
         samples, latent, derived, loglikes, _ = self._ensemble_sample(
-            mcmc_steps, num_walkers, init_samples=init_samples)
+            mcmc_steps, num_walkers, init_samples=init_samples,
+            stats_interval=stats_interval, output_interval=output_interval)
         samples = self._physical(samples)
         if mcmc_steps > 1:
             self._chain_stats(samples)
+        self._join_plots()
         self.samples = np.concatenate((samples, derived), axis=2)
         self.latent_samples = latent
         self.loglikes = loglikes

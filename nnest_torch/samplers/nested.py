@@ -50,8 +50,22 @@ a replacement copies them, and every dead and final live point is saved
 as ``v`` followed by its derived values, so ``samples`` and the rows of
 ``chain.txt`` have ``x_dim + num_derived`` parameter columns.
 
-Not ported yet (ROADMAP.md): meshes, multi-generation prefetch and
-speculation, the background checkpoint writer, plots and TensorBoard.
+The run's file writes leave the sampling loop: each checkpoint is
+snapshotted on the calling thread (copies of every array, the generator
+and trainer states) and written by the background writer
+(``utils/io_async.SerialWriter``, FIFO, so a checkpoint's files keep their
+order), which also rewrites ``chain.txt`` at every checkpoint and logs the
+``logz`` TensorBoard scalar of every iteration. ``run`` drains the writer
+before it reads a checkpoint, and joins the trainer's plots and closes the
+writer before the final results are written. ``run(show_progress=True)``
+shows a tqdm bar (imported when asked for; without tqdm, no bar), closed
+when the run raises.
+
+``run(mcmc_gen_batch=, rejection_gen_batch=, mcmc_speculate=)`` are
+accepted and checked: ``nnest_tpu`` prefetches that many generations a
+dispatch, with results that do not depend on them; this port dispatches
+one generation at a time for every value (the prefetch is ROADMAP A.6).
+Meshes are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -126,6 +140,7 @@ class NestedSampler(Sampler):
                  param_names=None,
                  num_live_points=1000,
                  seed=0,
+                 use_gpu=False,
                  device='cuda'):
         # The sampling unit cube is [-1, 1]^d; ``transform`` maps it to
         # physical space.
@@ -152,7 +167,7 @@ class NestedSampler(Sampler):
             base_dist=base_dist, scale=scale, trainer=trainer,
             transform_prior=False, oversample_rate=oversample_rate,
             log_level=log_level, param_names=param_names, seed=seed,
-            device=device)
+            use_gpu=use_gpu, device=device)
         self.num_live_points = num_live_points
         self._save_params({'num_live_points': num_live_points})
         self.logger.info('Num live points [%d]' % self.num_live_points)
@@ -164,7 +179,20 @@ class NestedSampler(Sampler):
                      'jump_distance', 'scale', 'loglstar', 'logz',
                      'fraction_remain', 'ncall'])
 
-    def run(self,
+    def run(self, *args, **kwargs):
+        """Run the sampler; the arguments are :meth:`_run_impl`'s. This
+        wrapper closes the progress bar when the run raises (a likelihood's
+        exception, a keyboard interrupt), which would otherwise garble the
+        log lines that follow."""
+        self._run_pbar = None
+        try:
+            return self._run_impl(*args, **kwargs)
+        finally:
+            if self._run_pbar is not None:
+                self._run_pbar.close()
+                self._run_pbar = None
+
+    def _run_impl(self,
             strategy=None,
             mcmc_steps=0,
             mcmc_num_chains=None,
@@ -183,7 +211,10 @@ class NestedSampler(Sampler):
             rejection_max_trials=65536,
             rejection_adapt_trials=True,
             retrain_nll_threshold=0.5,
+            mcmc_gen_batch=8,
+            mcmc_speculate=False,
             mcmc_adapt='cov',
+            rejection_gen_batch=8,
             slice_steps=0,
             slice_width=1.0,
             slice_max_expand=4,
@@ -191,8 +222,12 @@ class NestedSampler(Sampler):
             slice_adapt='cov',
             init_points=None,
             birth_floor=None,
-            logl_ceiling=None):
-        """Run to ``dlogz`` (or ``max_iters``). The dynamic-batch hooks
+            logl_ceiling=None,
+            show_progress=False):
+        """Run to ``dlogz`` (or ``max_iters``). ``mcmc_gen_batch`` and
+        ``rejection_gen_batch`` (integers >= 1) and ``mcmc_speculate`` (a
+        bool) are checked and change nothing here (module docstring);
+        ``show_progress`` shows a tqdm bar. The dynamic-batch hooks
         (``samplers/dynamic.py``) default to a plain prior-seeded run:
         ``init_points`` a dict of live points already uniform within
         {logl > birth_floor} (``u`` (num_live_points, x_dim), ``logl``,
@@ -211,6 +246,15 @@ class NestedSampler(Sampler):
                              % (unknown, list(_METHODS)))
         if mcmc_adapt not in ('cov', 'iso'):
             raise ValueError("mcmc_adapt must be 'cov' or 'iso'")
+        for name, value in (('mcmc_gen_batch', mcmc_gen_batch),
+                            ('rejection_gen_batch', rejection_gen_batch)):
+            if not isinstance(value, (int, np.integer)) or \
+                    isinstance(value, bool) or value < 1:
+                raise ValueError('%s must be an integer >= 1, got %r'
+                                 % (name, value))
+        if not isinstance(mcmc_speculate, (bool, np.bool_)):
+            raise ValueError('mcmc_speculate must be a bool, got %r'
+                             % (mcmc_speculate,))
 
         if update_interval is None:
             update_interval = max(1, round(0.5 * self.num_live_points))
@@ -260,6 +304,8 @@ class NestedSampler(Sampler):
         self.logger.info('Initial scale [%5.4f]' % step_size)
         self.logger.info('Volume switch [%5.4f]' % volume_switch)
 
+        # a previous run() of this sampler may still be writing
+        self._drain_io()
         state = self._load_checkpoint()
         if state is not None and init_points is not None:
             raise ValueError(
@@ -400,6 +446,17 @@ class NestedSampler(Sampler):
 
         if state is None:
             checkpoint()
+
+        pbar = None
+        if show_progress:
+            try:
+                from tqdm import tqdm
+            except ImportError:
+                tqdm = None
+            if tqdm is not None:
+                pbar = self._run_pbar = tqdm(initial=it, unit='it',
+                                             desc='nested',
+                                             dynamic_ncols=True)
 
         while fraction_remain > dlogz and it <= max_iters and (
                 logl_ceiling is None
@@ -581,6 +638,17 @@ class NestedSampler(Sampler):
                 logz_remain = np.max(active_logl) - it / self.num_live_points
                 fraction_remain = np.logaddexp(logz, logz_remain) - logz
                 it += 1
+                if pbar is not None:
+                    pbar.update(1)
+                    if it % log_interval == 0:
+                        pbar.set_postfix(logz='%.3f' % logz,
+                                         loglstar='%.3g' % loglstar,
+                                         ncall=self.total_calls,
+                                         refresh=False)
+                if getattr(self.trainer, 'writer', None) is not None:
+                    # the values bound now: the writer may run this later
+                    self._submit_io(lambda v=float(logz), step=it:
+                                    self.trainer.log_scalar('logz', v, step))
                 if it % log_interval == 0:
                     self.logger.info(
                         'Step [%d] loglstar [%5.4e] maxlogl [%5.4e] logz '
@@ -599,6 +667,22 @@ class NestedSampler(Sampler):
                                               last_io_it // 10):
                         last_io_it = it
                         checkpoint()
+                        if self.logs is not None:
+                            # fresh host arrays: the writer rewrites
+                            # chain.txt from them; the final write, after
+                            # the writer is closed, comes last
+                            self.samples = np.asarray(saved_v)
+                            self.weights = np.exp(np.asarray(saved_logwt)
+                                                  - logz)
+                            self.loglikes = np.asarray(saved_logl)
+                            self._submit_io(
+                                lambda v=self.samples, ll=self.loglikes,
+                                w=self.weights:
+                                self._save_samples(v, ll, weights=w))
+
+        if pbar is not None:
+            pbar.close()
+            self._run_pbar = None
 
         # Integrate the remaining live points.
         logvol = (-len(saved_v) / self.num_live_points
@@ -617,6 +701,13 @@ class NestedSampler(Sampler):
             if saved_u is not None:
                 saved_u.append(np.array(active_u[i]))
 
+        # the queued writes and the trainer's plots land (and the
+        # TensorBoard writer is flushed) before the run's results are
+        # declared
+        t0 = time.perf_counter()
+        self._close_io()
+        self.run_stats['checkpoint_s'] += time.perf_counter() - t0
+        self._join_plots()
         self.run_stats['total_fast_calls'] = self.total_fast_calls
         self.logz = logz
         self.h = h
@@ -825,28 +916,27 @@ class NestedSampler(Sampler):
                           saved_slots, saved_u, logz, h, logvol,
                           fraction_remain, strategy, expired, controller,
                           pool_state, insertion_ranks):
-        """One checkpoint, inline, in the order that makes a crash at any
-        point recoverable: the live and dead arrays, then the exact state
+        """One checkpoint: a snapshot here (copies of every array, the
+        generator and trainer states, the counters), then the files on the
+        background writer, in the order that makes a crash at any point
+        recoverable: the live and dead arrays, then the exact state
         (temporary file, then ``os.replace``: always one whole snapshot,
         stamped with ``it``), then the ``checkpoint_<it>.txt`` marker. The
         cumulative ``saved_*`` files may run ahead of an older marker; the
         loader cuts them to its iteration."""
         ck = self.logs['checkpoint']
-        for name, a in (('active_u', active_u), ('active_v', active_v),
-                        ('active_logl', active_logl),
-                        ('active_derived', active_derived)):
-            np.save(os.path.join(ck, '%s_%d.npy' % (name, it)), a)
-        for name, a in (('saved_v', saved_v), ('saved_logl', saved_logl),
-                        ('saved_logwt', saved_logwt)):
-            np.save(os.path.join(ck, name + '.npy'), np.asarray(a))
+        live = {'active_u': np.array(active_u), 'active_v': np.array(active_v),
+                'active_logl': np.array(active_logl),
+                'active_derived': np.array(active_derived)}
+        saved = {'saved_v': np.asarray(saved_v),
+                 'saved_logl': np.asarray(saved_logl),
+                 'saved_logwt': np.asarray(saved_logwt)}
         if saved_slots is not None:
-            np.save(os.path.join(ck, 'saved_slots.npy'),
-                    np.asarray(saved_slots, dtype=np.uint32))
+            saved['saved_slots'] = np.asarray(saved_slots, dtype=np.uint32)
         if saved_u is not None:
-            np.save(os.path.join(ck, 'saved_u.npy'),
-                    np.asarray(saved_u, np.float64).reshape(-1, self.x_dim))
-        path = os.path.join(ck, EXACT_STATE)
-        torch.save({
+            saved['saved_u'] = np.asarray(saved_u, np.float64).reshape(
+                -1, self.x_dim)
+        exact = {
             'it': int(it),
             'generator': self.generator.get_state(),
             'trainer': self.trainer.snapshot_state(),
@@ -854,17 +944,28 @@ class NestedSampler(Sampler):
             'pool': _tensors(pool_state),
             'insertion_ranks': torch.as_tensor(insertion_ranks,
                                                dtype=torch.int64),
-        }, path + '.tmp')
-        os.replace(path + '.tmp', path)
-        with open(os.path.join(ck, 'checkpoint_%d.txt' % it), 'w') as f:
-            json.dump({'logz': float(logz), 'h': float(h),
-                       'logvol': float(logvol), 'ncall': self.total_calls,
-                       'fraction_remain': float(fraction_remain),
-                       'strategy': list(strategy),
-                       'expired_strategies': list(expired),
-                       'total_accepted': self.total_accepted,
-                       'total_rejected': self.total_rejected,
-                       'total_fast_calls': self.total_fast_calls}, f)
+        }
+        meta = {'logz': float(logz), 'h': float(h), 'logvol': float(logvol),
+                'ncall': self.total_calls,
+                'fraction_remain': float(fraction_remain),
+                'strategy': list(strategy),
+                'expired_strategies': list(expired),
+                'total_accepted': self.total_accepted,
+                'total_rejected': self.total_rejected,
+                'total_fast_calls': self.total_fast_calls}
+
+        def write():
+            for name, a in live.items():
+                np.save(os.path.join(ck, '%s_%d.npy' % (name, it)), a)
+            for name, a in saved.items():
+                np.save(os.path.join(ck, name + '.npy'), a)
+            path = os.path.join(ck, EXACT_STATE)
+            torch.save(exact, path + '.tmp')
+            os.replace(path + '.tmp', path)
+            with open(os.path.join(ck, 'checkpoint_%d.txt' % it), 'w') as f:
+                json.dump(meta, f)
+
+        self._submit_io(write)
 
     def _load_checkpoint(self):
         """The newest valid checkpoint of this run directory, or None (no

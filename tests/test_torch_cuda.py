@@ -254,3 +254,70 @@ def test_derived_parameters_ride_on_the_card(tmp_path):
         s.samples[:, 2:], np.stack([params.sum(1), params.prod(1)], 1),
         rtol=1e-4, atol=1e-4)
     assert abs(s.logz + 3.589) <= 0.6
+
+
+def test_command_lines_and_model_file_on_the_card(tmp_path):
+    """The nested command line on the card (a tiny 2-D Gaussian that
+    reaches MCMC) launches the kernel and never the twin; its netG.pkl
+    reloads on the card to the same log_prob; the ensemble command line's
+    MCMC sampler launches once a step and once for its starts."""
+    _needs_gpu()
+    import argparse
+    from nnest_torch import Trainer
+    from nnest_torch.cli import ensemble, nested
+    from nnest_torch.ops import fused_spline
+    args = nested.build_parser().parse_args(
+        ['--likelihood', 'gaussian', '--corr', '0.0', '--num_live_points',
+         '100', '--train_iters', '30', '--strategy', 'rejection_prior,mcmc',
+         '--switch', '0.5', '--log_dir', str(tmp_path)])
+    assert isinstance(args, argparse.Namespace) and args.device == 'cuda'
+    before, twin = si.launches, fused_spline.calls
+    s = nested.main(args)
+    torch.cuda.synchronize()
+    assert si.launches > before and fused_spline.calls == twin
+    assert s.run_stats['mcmc_generations'] > 0
+    loaded = Trainer(2, hidden_dim=16, log_dir=str(tmp_path / 'gaussian'),
+                     load_model='run1', log=False)
+    pts = np.asarray(s.saved_u[-100:], dtype=np.float32)
+    np.testing.assert_allclose(loaded.log_probs(pts, to_numpy=True),
+                               s.trainer.log_probs(pts, to_numpy=True),
+                               rtol=0, atol=1e-6)
+    eargs = ensemble.build_parser().parse_args(
+        ['--sampler', 'mcmc', '--mcmc_steps', '50', '--num_training_samples',
+         '200', '--log_dir', str(tmp_path / 'ens')])
+    before = si.launches
+    e = ensemble.main(eargs)
+    torch.cuda.synchronize()
+    assert si.launches - before == 51
+    assert e.samples.shape == (16, 51, 2) and np.all(np.isfinite(e.samples))
+
+
+def test_graphed_training_step_equals_the_eager_one():
+    """On the card a training step replays a captured CUDA graph: two
+    epochs (two captures: the optimizer replaced in between by a restored
+    snapshot) give the parameters of the same epochs run eagerly, the
+    capture's warm-up leaving no trace."""
+    _needs_gpu()
+    from nnest_torch import Trainer
+    x = torch.randn(95, 2, generator=torch.Generator().manual_seed(1))
+    trainers = []
+    for graphs in (True, False):
+        t = Trainer(2, hidden_dim=16, batch_size=20, log=False, seed=3)
+        t.use_graphs = graphs
+        t.ensure_init(x.numpy())
+        trainers.append(t)
+    g = torch.Generator(device='cuda').manual_seed(5)
+    train, valid = x[10:].cuda(), x[:10].cuda()
+    for epoch in range(2):
+        order = torch.randperm(85, generator=g, device='cuda')
+        noise = torch.randn(5, 20, 2, generator=g, device='cuda')
+        out = [t._train_epoch(train, valid, order, noise, 0.05, 1e-3)
+               for t in trainers]
+        assert float(out[0][0]) == pytest.approx(float(out[1][0]), abs=1e-6)
+        assert out[0][1] == pytest.approx(out[1][1], abs=1e-6)
+        for t in trainers:   # a new optimizer: the graph is captured anew
+            t.restore_state(t.snapshot_state())
+    for a, b in zip(trainers[0].model.parameters(),
+                    trainers[1].model.parameters()):
+        assert float((a - b).abs().max()) <= 1e-6
+    assert trainers[0].optimizer.state_dict()['state'][0]['step'] == 10

@@ -52,6 +52,14 @@ for kw in (dict(flow='nvp', scale='constant'), dict(flow='cholesky'),
     out = other.density(g, -50.0, 16)
 trainer = Trainer(3, device='cpu', log=False)
 trainer.restore_state(trainer.snapshot_state())
+import nnest_torch.cli.analyse, nnest_torch.cli.ensemble, nnest_torch.cli.nested
+from nnest_torch.utils.buffer import SampleBuffer
+from nnest_torch.utils.io_async import SerialWriter
+writer, rows = SerialWriter(), SampleBuffer(4)
+writer.submit(lambda: rows.append([[1.0], [2.0]]))
+writer.close()
+assert len(rows) == 2
+assert nnest_torch.cli.nested.build_parser().parse_args([]).device == 'cuda'
 from nnest_torch import DynamicNestedSampler, EnsembleSampler, MCMCSampler
 import nnest_torch.samplers.dynamic, nnest_torch.samplers.ensemble
 import nnest_torch.samplers.mcmc

@@ -128,3 +128,20 @@ def test_unported_strategy_is_refused(tmp_path):
                             device='cpu')
     with pytest.raises(ValueError, match='unknown strategy'):
         sampler.run(strategy=['rejection_prior', 'slcie'])
+
+
+@pytest.mark.slow
+def test_rosenbrock_2d(tmp_path):
+    """The 2-D Rosenbrock oracle of tests/test_nested.py on the CPU: 1000
+    live points, seed 3, logZ within 0.2 of -5.80."""
+    like = port_likes.Rosenbrock(2)
+    sampler = NestedSampler(2, like, transform=lambda x: 5 * x,
+                            num_live_points=1000, hidden_dim=16,
+                            num_layers=1, num_blocks=3, num_slow=0,
+                            flow='spline', log_dir=str(tmp_path / 'rosen'),
+                            resume=False, seed=3, device='cpu')
+    sampler.run(mcmc_num_chains=10, mcmc_dynamic_step_size=False)
+    assert abs(sampler.logz + 5.80) <= 0.2
+    for rel in ('results/final.csv', 'chains/chain.txt', 'models/netG.pkl',
+                'data/originals.npy'):
+        assert os.path.exists(os.path.join(sampler.log_dir, rel)), rel

@@ -1,9 +1,10 @@
 """The trainer's persistence: a snapshot restored before ``train()`` gives
 bit-identical parameters and bookkeeping on the CPU, in the same trainer
 and in one built from another seed; ``save``/``load`` round-trips the
-flow."""
+flow; the transport API and one training epoch against nnest_tpu's."""
 
 import numpy as np
+import pytest
 import torch
 
 from nnest_torch import Trainer
@@ -137,3 +138,62 @@ def test_transport_draws_shapes_and_to_numpy():
     np.testing.assert_allclose(inv_logdet.numpy(), -logdet.numpy(),
                                rtol=1e-4, atol=1e-4)
     assert a.base_dist is a.model.base_dist
+
+
+@pytest.mark.parametrize('l2_norm', [0.0, 1e-3])
+def test_one_epoch_loss_trace_matches_jax(l2_norm):
+    """One epoch of the port's trainer on nnest_tpu's row order and noise
+    (what its ``one_epoch`` draws from the key: ``split``, ``permutation``,
+    ``split(knoise, nb)``, ``normal``) from the same flow parameters, data
+    and validation split, against ``_make_train_fn(..., max_iters=1)``:
+    the mean train NLL and the validation loss to 1e-4 relative, the
+    parameters after the epoch to 1e-3 of Adam's reach. Adam moves a
+    coordinate by about lr (1e-4) a step, so nb = 5 steps by at most
+    nb * lr = 5e-4; two runs that part by rounding alone stay within a
+    thousandth of that, atol 5e-7."""
+    import jax
+    import jax.numpy as jnp
+    from nnest_torch.flows import params_from_jax, params_to_jax
+    from nnest_tpu.training.trainer import Trainer as JaxTrainer
+    rs = np.random.RandomState(5)
+    x = (rs.normal(size=(95, 2)) * [1.0, 0.5] + [0.3, -0.2]).astype(
+        np.float32)
+    order = rs.permutation(95)
+    valid, train = x[order[:10]], x[order[10:]]
+    n_train, bs, jitter, lr = 85, 20, 0.05, 1e-4
+    nb = -(-n_train // bs)   # 5 batches, the last padded with 15 rows
+    ref = JaxTrainer(2, hidden_dim=16, batch_size=bs, learning_rate=lr,
+                     log=False, log_dir=None, seed=2)
+    ref.ensure_init(x)
+    port = Trainer(2, hidden_dim=16, batch_size=bs, learning_rate=lr,
+                   log=False, seed=9, device='cpu')
+    port.ensure_init(x)
+    params_from_jax(port.model, jax.tree.map(np.asarray, ref.params))
+
+    key = jax.random.PRNGKey(7)
+    (params, _, _, _, _, epochs, train_trace, val_trace) = \
+        ref._make_train_fn(n_train, 10, l2_norm, 1)(
+            ref.params, ref._opt_state, key, jnp.asarray(train),
+            jnp.asarray(valid), np.float32(jitter), np.int32(50))
+    assert int(epochs) == 1
+    # the draws of train_fn's first epoch
+    _, kep = jax.random.split(key)
+    kperm, knoise = jax.random.split(kep)
+    perm = np.array(jax.random.permutation(kperm, n_train))
+    noise = np.stack([np.asarray(jax.random.normal(k, (bs, 2)))
+                      for k in jax.random.split(knoise, nb)])
+
+    train_loss, val_loss = port._train_epoch(
+        torch.from_numpy(train), torch.from_numpy(valid),
+        torch.from_numpy(perm), torch.from_numpy(noise), jitter, l2_norm)
+    assert float(train_loss) == pytest.approx(float(train_trace[0]),
+                                              rel=1e-4)
+    assert val_loss == pytest.approx(float(val_trace[0]), rel=1e-4)
+    moved = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+                for a, b in zip(jax.tree.leaves(ref.params),
+                                jax.tree.leaves(params)))
+    assert moved == pytest.approx(nb * lr, rel=0.1)   # the epoch did move
+    for got, want in zip(jax.tree.leaves(params_to_jax(port.model)),
+                         jax.tree.leaves(params)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0,
+                                   atol=1e-3 * nb * lr)

@@ -13,8 +13,9 @@ per phase with its seconds:
    {1, 128, 256, 512, 1000, 4096, 4097}, and at d in {16, 50} with N in
    {65536, 65537} (the flow strategies' trials), and at d = 16 with N in
    {16, 32, 32064} (phase 10's shapes) and N = 200 (phase 11's seed
-   refresh), and at d = 2 with N in {10, 16, 32} (phase 13's command
-   lines), with inputs beyond ±3, exactly at
+   refresh), and at d = 2 with N in {10, 16, 32, 64, 32064, 128064}
+   (phase 13's command lines: chains, half-updates, the ensemble's starts
+   and trajectories), with inputs beyond ±3, exactly at
    ±3 and on spline knots; max |dx| <= 3e-5 and max |dlogdet| <= 3e-4.
    The per-block entry against the twin (the same limits) and against the
    whole-chain kernel (1e-6, 1e-5) at d in {5, 16}. Then the kernel is
@@ -30,6 +31,9 @@ per phase with its seconds:
    256 chains x 80 steps, default strategy and retrain gate) until the
    ladder has reached 'mcmc', the flow has been trained and at least three
    MCMC generations have run; the kernel's launch counter must be > 0;
+   then the same run with its trainer's files and TensorBoard events on,
+   its files alone, and neither, in turns, and the host cost of one
+   TensorBoard scalar, for what the run tooling costs;
 4. correctness: the 2-D Gaussian (transform 3x, 200 live points) to
    completion; logz within max(3 logzerr, 0.15) of the analytic value,
    and ``diagnostics.json`` with every key and a finite
@@ -173,6 +177,7 @@ DERIVED_POSTERIOR_EPOCHS = 10
 # one at its widths with --mcmc_steps cut to this; the 2-D Rosenbrock's
 # evidence (tests/test_nested.py) and the error allowed
 CLI_MCMC_STEPS = 2000
+CLI_WALKERS, CLI_BOOT_STEPS = 64, 500   # the ensemble command's defaults
 ROSENBROCK_LOGZ, ROSENBROCK_TOL = -5.80, 0.2
 # the keys of results/diagnostics.json (nnest_tpu's set)
 DIAGNOSTICS_KEYS = {
@@ -449,8 +454,12 @@ TRAJECTORY_ROWS = (RUN_STEPS + 1) * WALKERS
 POSTERIOR_SHAPES = ((16, MCMC_CHAINS), (16, WALKERS // 2),
                     (16, TRAJECTORY_ROWS))
 # the command lines' shapes at d = 2 (phase 13): a nested Metropolis
-# step's 10 chains, a full-MH step's 16 and an ensemble half-update's 32
-CLI_SHAPES = ((2, 10), (2, 16), (2, 32))
+# step's 10 chains, a full-MH step's 16, an ensemble half-update's 32, the
+# ensemble's 64 starts and the trajectory inverses of its 500-step
+# bootstrap and CLI_MCMC_STEPS-step run (64 walkers)
+CLI_SHAPES = ((2, 10), (2, 16), (2, 32), (2, CLI_WALKERS),
+              (2, (CLI_BOOT_STEPS + 1) * CLI_WALKERS),
+              (2, (CLI_MCMC_STEPS + 1) * CLI_WALKERS))
 TIMED_SHAPES = ((16, 256), (16, 4096), (2, 128), (50, 256), (50, 4096),
                 (16, FLOW_TRIALS), (50, FLOW_TRIALS), (16, 512)) \
     + POSTERIOR_SHAPES + ((16, DYN_BATCH_LIVE),) + CLI_SHAPES
@@ -602,14 +611,74 @@ def phase_per_block_entry(record):
             'vs_whole_chain_dlogdet': eld}
 
 
-def phase_main_path(record, log_dir):
-    from nnest_torch import NestedSampler
+def main_path_sampler(log_dir, name, tooling='on'):
+    """Phase 3's sampler: the 16-D Gaussian, 5x box. ``tooling`` 'on': the
+    default trainer, which writes ``netG.pkl``, ``originals.npy`` and
+    TensorBoard events into the run directory; 'files': the same without
+    the events; 'off': a trainer with the same arguments and no run
+    directory. The sampler's own files and checkpoints are always
+    written."""
+    from nnest_torch import NestedSampler, Trainer
     from nnest_torch.likelihoods import Gaussian
     d = 16
-    like = Gaussian(d, 0.0)
-    sampler = NestedSampler(d, like, transform=lambda x: 5.0 * x,
-                            log_dir=os.path.join(log_dir, 'main'),
-                            seed=1, device='cuda')
+    trainer = None
+    if tooling == 'off':
+        # the arguments the sampler gives its default trainer
+        trainer = Trainer(d, hidden_dim=32, learning_rate=0.001, seed=2,
+                          device='cuda')
+    sampler = NestedSampler(d, Gaussian(d, 0.0), transform=lambda x: 5.0 * x,
+                            log_dir=os.path.join(log_dir, name), seed=1,
+                            trainer=trainer, device='cuda')
+    if tooling == 'files' and sampler.trainer.writer is not None:
+        sampler.trainer.writer.close()
+        sampler.trainer.writer = None
+    return sampler
+
+
+def scalar_cost(log_dir, n=2000):
+    """Host microseconds of one TensorBoard ``add_scalar`` on this
+    machine's CPU (the writer's own thread included by the closing flush)
+    and the protobuf implementation behind it; None without TensorBoard."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    from google.protobuf.internal import api_implementation
+    writer = SummaryWriter(os.path.join(log_dir, 'scalar_cost'))
+    t0 = time.perf_counter()
+    for i in range(n):
+        writer.add_scalar('logz', float(i), i)
+    writer.close()
+    return {'add_scalar_us': (time.perf_counter() - t0) * 1e6 / n,
+            'protobuf': api_implementation.Type()}
+
+
+def tooling_turns(log_dir):
+    """Wall seconds of phase 3's run with its trainer's tooling on, its
+    files without TensorBoard events, and off (:func:`main_path_sampler`),
+    in turns (on, files, off, off, files, on), the training step a CUDA
+    graph in every run; the TensorBoard scalars an 'on' run writes (one
+    'logz' an iteration, one 'loss' an epoch) and what one costs here."""
+    order = ('on', 'files', 'off', 'off', 'files', 'on')
+    walls = {k: [] for k in order}
+    for i, tooling in enumerate(order):
+        sampler = main_path_sampler(log_dir, 'tooling_%d' % i, tooling)
+        t0 = time.time()
+        sampler.run(max_iters=5200, train_iters=100)
+        walls[tooling].append(time.time() - t0)
+        if tooling == 'on':
+            scalars = sampler.niter - 1 + sampler.trainer.total_iters
+    off = np.mean(walls['off'])
+    return {'on_s': walls['on'], 'files_s': walls['files'],
+            'off_s': walls['off'],
+            'cost_fraction': float((np.mean(walls['on']) - off) / off),
+            'files_cost_fraction': float((np.mean(walls['files']) - off)
+                                         / off),
+            'scalars': scalars, 'scalar_cost': scalar_cost(log_dir)}
+
+
+def phase_main_path(record, log_dir):
+    sampler = main_path_sampler(log_dir, 'main')
     reset_counts()
     t0 = time.time()
     sampler.run(max_iters=5200, train_iters=100)
@@ -625,7 +694,8 @@ def phase_main_path(record, log_dir):
     return {'wall_s': wall, 'launches': launches, 'iterations': sampler.niter,
             'ncall': sampler.total_calls, 'logz_so_far': sampler.logz,
             **stats,
-            'generation_profile': profile_generation(mcmc_generation(sampler))}
+            'generation_profile': profile_generation(mcmc_generation(sampler)),
+            'tooling_turns': tooling_turns(log_dir)}
 
 
 def synthetic_shell(sampler, seed=5):
@@ -1512,7 +1582,7 @@ def training_turns(x, epochs=10):
 
     def trainer(graphs):
         t = Trainer(2, hidden_dim=16, log=False, seed=0, device='cuda')
-        t.use_graphs = graphs
+        t._use_graphs = graphs
         t.train(x, max_iters=1, jitter=0.0)
         return t
 
@@ -1617,7 +1687,7 @@ def phase_cli(record, log_dir):
     # half-updates) and two a call, bootstrap phase 1 then run (ensemble)
     for sampler, expected in (
             ('mcmc', CLI_MCMC_STEPS + 1),
-            ('ensemble', 2 * (500 + CLI_MCMC_STEPS) + 4)):
+            ('ensemble', 2 * (CLI_BOOT_STEPS + CLI_MCMC_STEPS) + 4)):
         reset_counts()
         t0 = time.time()
         e = ensemble.main(ensemble.build_parser().parse_args(
@@ -1655,9 +1725,6 @@ def main():
     parser.add_argument('--baseline', metavar='SRC',
                         help='an earlier kernel source to time beside '
                              'this one in phase 2')
-    parser.add_argument('--phases', metavar='LIST',
-                        help='run only these phases (comma-separated '
-                             'numbers); the default runs all of them')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -1701,8 +1768,6 @@ def main():
                 (11, 'dynamic', lambda: phase_dynamic(records[0], log_dir)),
                 (12, 'derived', lambda: phase_derived(records[0], log_dir)),
                 (13, 'cli', lambda: phase_cli(records[0], log_dir))):
-            if args.phases and str(num) not in args.phases.split(','):
-                continue
             t0 = time.time()
             out = fn()
             emit({'phase': num, 'name': name,

@@ -298,9 +298,10 @@ class EnsembleSampler(Sampler):
                     iters - 1)
             self._train_normalised(training_samples, jitter, train_iters)
             samples = self._physical(self._ensemble_sample(
-                mcmc_steps, num_walkers, stats_interval=stats_interval,
-                output_interval=output_interval, moves=moves)[0])
-            self._chain_stats(samples)
+                mcmc_steps, num_walkers, output_interval=output_interval,
+                moves=moves)[0])
+            if mcmc_steps > 1 and mcmc_steps >= stats_interval:
+                self._chain_stats(samples)
             training_samples = self._make_single_samples(samples, thin)
             self._bootstrap_save(it, samples, training_samples)
         self._join_plots()
@@ -362,9 +363,9 @@ class EnsembleSampler(Sampler):
                                train_iters)
         samples, latent, derived, loglikes, _ = self._ensemble_sample(
             mcmc_steps, num_walkers, init_samples=init_samples,
-            stats_interval=stats_interval, output_interval=output_interval)
+            output_interval=output_interval)
         samples = self._physical(samples)
-        if mcmc_steps > 1:
+        if mcmc_steps > 1 and mcmc_steps >= stats_interval:
             self._chain_stats(samples)
         self._join_plots()
         self.samples = np.concatenate((samples, derived), axis=2)

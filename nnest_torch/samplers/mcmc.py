@@ -44,8 +44,8 @@ class MCMCSampler(EnsembleSampler):
         ``scale`` (the proposal scale at the end, adapted toward 50%
         acceptance when ``mcmc_dynamic_step_size``). ``output_interval``
         writes the chains as ``chains/chain_<i>.txt``; the statistics are
-        logged once more when ``mcmc_steps`` >= ``stats_interval``; the
-        first chain's trace goes to ``plots/trace.png``. ``final_jitter``
+        logged once, when ``mcmc_steps`` >= ``stats_interval`` (and > 1);
+        the first chain's trace goes to ``plots/trace.png``. ``final_jitter``
         is accepted and unused, as in ``nnest_tpu`` (there is one
         training)."""
         del final_jitter
@@ -54,11 +54,10 @@ class MCMCSampler(EnsembleSampler):
         samples, latent, derived, loglikes, self.scale, _ = \
             self._mcmc_sample(mcmc_steps, num_chains=mcmc_num_chains,
                               dynamic_step_size=mcmc_dynamic_step_size,
-                              stats_interval=stats_interval,
                               output_interval=output_interval,
                               init_samples=init_samples)
         samples = self._physical(samples)
-        if mcmc_steps > 1:
+        if mcmc_steps > 1 and mcmc_steps >= stats_interval:
             self._chain_stats(samples)
         self._plot_trace(samples, latent)
         self._join_plots()

@@ -645,7 +645,7 @@ class NestedSampler(Sampler):
                                          loglstar='%.3g' % loglstar,
                                          ncall=self.total_calls,
                                          refresh=False)
-                if getattr(self.trainer, 'writer', None) is not None:
+                if getattr(self.trainer, 'writes_events', False):
                     # the values bound now: the writer may run this later
                     self._submit_io(lambda v=float(logz), step=it:
                                     self.trainer.log_scalar('logz', v, step))

@@ -125,8 +125,9 @@ class Trainer:
         self.weight_decay = weight_decay
         self.initialized = False
         self.optimizer = None
-        # on a GPU a training step runs as a CUDA graph (_graphed_step)
-        self.use_graphs = self.device.type == 'cuda'
+        # on a GPU a training step runs as a CUDA graph (_graphed_step);
+        # the tests turn it off to compare with the eager step
+        self._use_graphs = self.device.type == 'cuda'
         self._graphs, self._graphs_for = {}, None
         self.last_training_jitter = None
         self.plot_seconds = 0.0
@@ -150,6 +151,13 @@ class Trainer:
         if self.path is not None:
             self.writer = _make_writer(self.path)
         self.logger.info('Flow [%s] x_dim [%d]' % (flow, x_dim))
+
+    @property
+    def writes_events(self):
+        """Whether the trainer writes TensorBoard events (a run directory
+        and the package there)."""
+        return self.writer is not None and not isinstance(self.writer,
+                                                          _NullWriter)
 
     def log_scalar(self, tag, value, step):
         """A TensorBoard scalar, written under the writer's lock (the
@@ -291,7 +299,7 @@ class Trainer:
         weights = torch.ones(nb, bs, device=train.device)
         if pad:
             weights[-1, bs - pad:] = 0.0
-        step = (self._graphed_step(bs, l2_norm) if self.use_graphs
+        step = (self._graphed_step(bs, l2_norm) if self._use_graphs
                 else lambda x, w: self._step(x, w, l2_norm))
         train_loss = 0.0
         for b in range(nb):
@@ -590,8 +598,7 @@ class Trainer:
             fig.savefig(outfile)   # draws on the figure's Agg canvas
         else:
             fig.canvas.draw()
-        if self.writer is not None and not isinstance(self.writer,
-                                                      _NullWriter):
+        if self.writes_events:
             # the triptych (as drawn, not drawn again) and the training
             # data's scatter, the images nnest_tpu sends
             image = np.asarray(fig.canvas.buffer_rgba())[..., :3]

@@ -303,7 +303,7 @@ def test_graphed_training_step_equals_the_eager_one():
     trainers = []
     for graphs in (True, False):
         t = Trainer(2, hidden_dim=16, batch_size=20, log=False, seed=3)
-        t.use_graphs = graphs
+        t._use_graphs = graphs
         t.ensure_init(x.numpy())
         trainers.append(t)
     g = torch.Generator(device='cuda').manual_seed(5)

@@ -1,7 +1,8 @@
 """The port's run tooling against nnest_tpu's: the background writer, the
 sample buffer, the trainer's run directory (model file, training data,
 plots, TensorBoard scalars), model files exchanged between the packages,
-the progress bar, and the generation-batch options that change nothing."""
+the progress bar, the generation-batch options that change nothing, and
+the posterior samplers' chain statistics and trace plot."""
 
 import glob
 import os
@@ -261,3 +262,45 @@ def test_generation_batch_options_change_nothing():
                dict(mcmc_speculate='yes')):
         with pytest.raises(ValueError):
             s.run(**kw)
+
+
+@pytest.mark.parametrize('sampler', ['mcmc', 'ensemble'])
+def test_chain_statistics_once_a_call_and_the_trace_plot(tmp_path, sampler):
+    """A posterior sampler's ``run`` logs its chains' statistics once, and
+    only from ``stats_interval`` steps on; the sampling helper called
+    directly logs them at its own ``stats_interval`` and draws the first
+    chain's trace with ``plot_trace``."""
+    from nnest_torch import EnsembleSampler, MCMCSampler
+    from nnest_torch.priors import UniformPrior
+    prior = UniformPrior(2, -5.0, 5.0)
+    prior.seed(0)
+    cls = MCMCSampler if sampler == 'mcmc' else EnsembleSampler
+    s = cls(2, Gaussian(2, 0.0, lim=5), prior=prior, log_dir=str(tmp_path),
+            seed=1, device='cpu', log_level=30)
+    logged = []
+    s._chain_stats = lambda chains: logged.append(chains.shape)
+    training = np.random.default_rng(0).normal(size=(200, 2))
+    for steps, stats_interval, want in ((20, 10, 1), (5, 10, 0)):
+        logged.clear()
+        s.run(steps, 8, training, stats_interval=stats_interval,
+              train_iters=2)
+        assert logged == [(8, steps + 1, 2)] * want
+
+    def helper(**kw):   # 4 chains (walkers) of 6 steps
+        if sampler == 'mcmc':
+            return s._mcmc_sample(6, num_chains=4, **kw)
+        return s._ensemble_sample(6, 4, **kw)
+
+    logged.clear()
+    helper()
+    assert logged == []
+    trace = os.path.join(s.log_dir, 'plots', 'trace.png')
+    if os.path.exists(trace):
+        os.remove(trace)
+    helper(stats_interval=5, plot_trace=True)
+    assert logged == [(4, 7, 2)]
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return   # no matplotlib: no trace plot
+    assert os.path.exists(trace)

@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs thirteen phases, printing one JSON line
+from JAX or ``nnest_tpu`` and runs fourteen phases, printing one JSON line
 per phase with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the build
@@ -15,15 +15,17 @@ per phase with its seconds:
    {16, 32, 32064} (phase 10's shapes) and N = 200 (phase 11's seed
    refresh), and at d = 2 with N in {10, 16, 32, 64, 32064, 128064}
    (phase 13's command lines: chains, half-updates, the ensemble's starts
-   and trajectories), with inputs beyond ±3, exactly at
+   and trajectories) and N in {4, 8} (a rank's share of 8 and 16 chains on
+   2 ranks; phase 14's share of 256 chains, d = 16 at N = 128, is in the
+   first list), with inputs beyond ±3, exactly at
    ±3 and on spline knots; max |dx| <= 3e-5 and max |dlogdet| <= 3e-4.
    The per-block entry against the twin (the same limits) and against the
    whole-chain kernel (1e-6, 1e-5) at d in {5, 16}. Then the kernel is
    timed by CUDA-graph replay (and eagerly, back to back) and the twin
    eagerly, at the main path's shapes (N = 512, a slice expansion's
    2 x 256 stacked rows, N = 65536, phase 10's N = 16, 32 and 32064,
-   phase 11's N = 200 and phase 13's d = 2 shapes included) beside the
-   least time the card could take;
+   phase 11's N = 200, phase 13's d = 2 shapes and phase 14's per-rank
+   shapes included) beside the least time the card could take;
    the per-block
    entry at d = 16; and the rows a thread block takes and the ring's
    stages are swept (N = 65536: 32, 64 and 128 rows);
@@ -120,7 +122,24 @@ per phase with its seconds:
    TensorBoard the machine has, and the plots and event files written
    exactly when they are there; and an epoch of the 2-D flow's training
    (1000 rows, 9 steps) with its steps eager and replayed as a CUDA graph,
-   timed in turns, and one graphed epoch profiled.
+   timed in turns, and one graphed epoch profiled;
+14. mesh: multi-process data parallelism (``nnest_torch.parallel``) on the
+   one card, the script starting itself as rank processes with the rank
+   variables ``torchrun`` sets: (a) the phase-3 model on 2 ranks over gloo
+   (two ranks share the card, which NCCL refuses), 128 chains a rank: the
+   ranks equal on logz, ncall and niter, the kernel launched on each rank
+   (> 0) and the twin never; the run's wall beside phase 3's, one sharded
+   generation's wall and collectives (one a step for the dynamic step
+   size, two a generation), the time of one collective of a 0-d tensor,
+   and a dp-sharded training epoch graphed against eager from the same
+   state (equal within 1e-5, both timed); (b) the 2-D Gaussian on 2
+   ranks to its analytic logz within max(3 logzerr, 0.15) with a torch
+   likelihood and with a numpy one farmed over the ranks, rank 0 alone
+   writing; (c) ``python -m nnest_torch.cli.multihost`` as one NCCL rank
+   on the 5-D Gaussian to its logz, through MCMC generations; (d) a 2-rank
+   run cut at ``max_iters=300`` and resumed by fresh ranks with another
+   seed, ncall grown, to its logz. It prints the
+   backend of each part and the per-step syncs of (a).
 
 ``--baseline SRC`` also builds SRC, an earlier version of the kernel with
 its own C entry point (the unpadded layout, no launch plan), checks it
@@ -131,7 +150,8 @@ Before the last line it prints the ``{"kernels": [...]}`` record, with each
 kernel's launches by path (``mcmc``: phase 3, ``rejection_flow`` and
 ``density_flow``: phase 6, ``per_block``: phase 5, ``slice``: phase 8,
 ``mcmc_sampler`` and ``ensemble``: phase 10, ``dynamic`` and
-``host_likelihood``: phase 11, ``derived``: phase 12, ``cli``: phase 13);
+``host_likelihood``: phase 11, ``derived``: phase 12, ``cli``: phase 13,
+``mesh``: phase 14, every rank's launches in parts a, b and d);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before that line.
@@ -179,6 +199,16 @@ DERIVED_POSTERIOR_EPOCHS = 10
 CLI_MCMC_STEPS = 2000
 CLI_WALKERS, CLI_BOOT_STEPS = 64, 500   # the ensemble command's defaults
 ROSENBROCK_LOGZ, ROSENBROCK_TOL = -5.80, 0.2
+# phase 14's ranks (two processes on the one card) and the 2-D runs' sizes
+# (phase 11's host-likelihood run: 200 live points, a volume switch to
+# MCMC at ~140 iterations, 50 training epochs); the resumed run is cut at
+# this iteration, past the switch
+MESH_RANKS = 2
+MESH_2D_LIVE, MESH_2D_TRAIN_ITERS, MESH_2D_SWITCH = 200, 50, 0.5
+MESH_CUT_ITERS = 300
+# the multihost command line's dimension in phase 14: the smallest at which
+# its run (200 live points, no volume switch) reaches MCMC
+MESH_CLI_DIM = 5
 # the keys of results/diagnostics.json (nnest_tpu's set)
 DIAGNOSTICS_KEYS = {
     'insertion_D', 'insertion_p', 'insertion_rolling_p', 'logzerr',
@@ -460,9 +490,13 @@ POSTERIOR_SHAPES = ((16, MCMC_CHAINS), (16, WALKERS // 2),
 CLI_SHAPES = ((2, 10), (2, 16), (2, 32), (2, CLI_WALKERS),
               (2, (CLI_BOOT_STEPS + 1) * CLI_WALKERS),
               (2, (CLI_MCMC_STEPS + 1) * CLI_WALKERS))
+# a rank's share of the chains on the mesh path (phase 14): the 16-D
+# model's 256 chains on 2 ranks, and the 2-D runs' 8 and 16 chains of the
+# CPU tests on 2 ranks
+MESH_SHAPES = ((16, 128), (2, 4), (2, 8))
 TIMED_SHAPES = ((16, 256), (16, 4096), (2, 128), (50, 256), (50, 4096),
                 (16, FLOW_TRIALS), (50, FLOW_TRIALS), (16, 512)) \
-    + POSTERIOR_SHAPES + ((16, DYN_BATCH_LIVE),) + CLI_SHAPES
+    + POSTERIOR_SHAPES + ((16, DYN_BATCH_LIVE),) + CLI_SHAPES + MESH_SHAPES
 
 
 def phase_kernel(records, earlier):
@@ -490,7 +524,7 @@ def phase_kernel(records, earlier):
         if d == 16:
             wide += tuple(n for _, n in POSTERIOR_SHAPES) + (DYN_BATCH_LIVE,)
         if d == 2:
-            wide += tuple(n for _, n in CLI_SHAPES)
+            wide += tuple(n for dd, n in CLI_SHAPES + MESH_SHAPES if dd == 2)
         for n in (1, 128, 256, 512, 1000, 4096, 4097) + wide:
             z = kernel_inputs(model, n, seed=7 * n + d, device=device)
             got = si.spline_inverse(z, packed)
@@ -611,13 +645,13 @@ def phase_per_block_entry(record):
             'vs_whole_chain_dlogdet': eld}
 
 
-def main_path_sampler(log_dir, name, tooling='on'):
+def main_path_sampler(log_dir, name, tooling='on', mesh=None):
     """Phase 3's sampler: the 16-D Gaussian, 5x box. ``tooling`` 'on': the
     default trainer, which writes ``netG.pkl``, ``originals.npy`` and
     TensorBoard events into the run directory; 'files': the same without
     the events; 'off': a trainer with the same arguments and no run
     directory. The sampler's own files and checkpoints are always
-    written."""
+    written. ``mesh`` makes it a rank of a multi-process run (phase 14)."""
     from nnest_torch import NestedSampler, Trainer
     from nnest_torch.likelihoods import Gaussian
     d = 16
@@ -625,10 +659,10 @@ def main_path_sampler(log_dir, name, tooling='on'):
     if tooling == 'off':
         # the arguments the sampler gives its default trainer
         trainer = Trainer(d, hidden_dim=32, learning_rate=0.001, seed=2,
-                          device='cuda')
+                          device='cuda', mesh=mesh)
     sampler = NestedSampler(d, Gaussian(d, 0.0), transform=lambda x: 5.0 * x,
                             log_dir=os.path.join(log_dir, name), seed=1,
-                            trainer=trainer, device='cuda')
+                            trainer=trainer, device='cuda', mesh=mesh)
     if tooling == 'files' and sampler.trainer.writer is not None:
         sampler.trainer.writer.close()
         sampler.trainer.writer = None
@@ -693,7 +727,7 @@ def phase_main_path(record, log_dir):
         raise AssertionError('non-finite logz %r' % sampler.logz)
     return {'wall_s': wall, 'launches': launches, 'iterations': sampler.niter,
             'ncall': sampler.total_calls, 'logz_so_far': sampler.logz,
-            **stats,
+            'training_epochs': sampler.trainer.total_iters, **stats,
             'generation_profile': profile_generation(mcmc_generation(sampler)),
             'tooling_turns': tooling_turns(log_dir)}
 
@@ -1719,22 +1753,335 @@ def phase_cli(record, log_dir):
     return out
 
 
+# ------------------------------------------------------------- phase 14
+
+def free_port():
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(world, argv, timeout):
+    """This script as ``world`` rank processes on the card (``--mesh-part``
+    and ``argv``), the rank variables set as ``torchrun`` sets them; every
+    rank's ``RESULT`` JSON in rank order. A rank that fails or outlasts
+    ``timeout`` raises, with every rank's tail; no rank outlives the
+    call."""
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    try:
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                       MASTER_ADDR='localhost', MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), *argv],
+                cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError('rank(s) %s of %s failed:\n%s' % (
+            bad, argv, '\n'.join('--- rank %d ---\n%s' % (
+                r, '\n'.join(o.splitlines()[-30:]))
+                for r, o in enumerate(outs))))
+    results = []
+    for r, out in enumerate(outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith('RESULT ')]
+        if not lines:
+            raise AssertionError('rank %d of %s printed no RESULT:\n%s'
+                                 % (r, argv, out[-3000:]))
+        results.append(json.loads(lines[-1][len('RESULT '):]))
+    return results
+
+
+def count_collectives():
+    """Count this process's collectives: every call of the three
+    ``torch.distributed`` functions ``nnest_torch.parallel.mesh`` uses."""
+    import torch.distributed as dist
+    counts = {'collectives': 0}
+    for name in ('all_gather', 'all_gather_into_tensor',
+                 'broadcast_object_list'):
+        real = getattr(dist, name)
+
+        def counted(*a, _real=real, **k):
+            counts['collectives'] += 1
+            return _real(*a, **k)
+
+        setattr(dist, name, counted)
+    return counts
+
+
+def mesh_main_path(mesh, log_dir, counts):
+    """Part (a) on one rank: the phase-3 model on the mesh, then one
+    dp-sharded Metropolis generation (``mcmc_generation``, phase 3's) timed
+    with its collectives, the cost of one collective of a 0-d tensor on
+    the card, and one training epoch dp-sharded graphed against eager from
+    the same state."""
+    from nnest_torch.parallel import all_reduce_sum
+    sampler = main_path_sampler(log_dir, 'mesh_main', mesh=mesh)
+    reset_counts()
+    counts['collectives'] = 0
+    t0 = time.time()
+    sampler.run(max_iters=5200, train_iters=100)
+    wall = time.time() - t0
+    launches = read_counts('mesh')
+    stats = sampler.run_stats
+    if stats['mcmc_generations'] < 3 or stats['trainings'] < 1:
+        raise AssertionError('the mesh path did not reach 3 MCMC '
+                             'generations and a training: %s' % stats)
+    out = {'wall_s': wall, 'launches': launches, 'twin_calls': 0,
+           'logz': sampler.logz, 'ncall': sampler.total_calls,
+           'niter': sampler.niter, 'run_collectives': counts['collectives'],
+           'train_ms_per_epoch': 1e3 * stats['train_s']
+           / max(sampler.trainer.total_iters, 1), **stats}
+
+    generation = mcmc_generation(sampler)
+    for _ in range(2):   # the second call is the reading
+        counts['collectives'] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generation()
+        gen_ms = (time.perf_counter() - t0) * 1e3
+    out.update(generation_ms=gen_ms, generation_steps=80,
+               generation_collectives=counts['collectives'])
+
+    one = torch.zeros((), dtype=torch.int64, device='cuda')
+    times = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        int(all_reduce_sum(one, mesh))
+        times.append((time.perf_counter() - t0) * 1e6)
+    out['sync_us_median'] = float(np.median(times))
+
+    trainer = sampler.trainer
+    u = synthetic_shell(sampler)[0]
+    data = torch.as_tensor(u.astype(np.float32), device='cuda')
+    valid, train = data[:100], data[100:]
+    order = torch.arange(train.shape[0], device='cuda')
+    g = torch.Generator(device='cuda').manual_seed(9)
+    noise = torch.randn((9, 100, 16), generator=g, device='cuda')
+    snap = trainer.snapshot_state()
+    params, epoch_ms = {}, {}
+    for graphed in (True, False, True, False):
+        trainer.restore_state(snap)
+        trainer._use_graphs = graphed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._train_epoch(train, valid, order, noise, 0.01, 0.0, True,
+                             True)
+        torch.cuda.synchronize()
+        epoch_ms.setdefault(graphed, []).append(
+            (time.perf_counter() - t0) * 1e3)
+        params[graphed] = [p.detach().clone()
+                           for p in trainer.model.parameters()]
+    trainer.restore_state(snap)
+    trainer._use_graphs = True
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(params[True], params[False]))
+    out.update(dp_epoch_graphed_ms=epoch_ms[True],
+               dp_epoch_eager_ms=epoch_ms[False],
+               dp_epoch_graphed_vs_eager_max_abs=diff)
+    if diff > 1e-5:
+        raise AssertionError('graphed and eager dp epochs differ by %g'
+                             % diff)
+    return out
+
+
+def mesh_2d(mesh, log_dir, name, like, seed, **run_kw):
+    """A 2-D Gaussian nested run on the mesh (parts b and d)."""
+    from nnest_torch import NestedSampler
+    sampler = NestedSampler(2, like, transform=lambda x: 3.0 * x,
+                            num_live_points=MESH_2D_LIVE,
+                            log_dir=os.path.join(log_dir, name), seed=seed,
+                            append_run_num=False, resume=True, mesh=mesh,
+                            device='cuda')
+    reset_counts()
+    t0 = time.time()
+    sampler.run(train_iters=MESH_2D_TRAIN_ITERS, dlogz=0.1,
+                volume_switch=MESH_2D_SWITCH, **run_kw)
+    wall = time.time() - t0
+    return {'wall_s': wall, 'logz': sampler.logz, 'logzerr': sampler.logzerr,
+            'ncall': sampler.total_calls, 'niter': sampler.niter,
+            'has_logs': sampler.logs is not None,
+            'mcmc_generations': sampler.run_stats['mcmc_generations'],
+            'launches': read_counts('mesh ' + name)}
+
+
+def mesh_rank_main(args):
+    """One rank of a phase-14 part, run by :func:`run_ranks`: joins the
+    process group the rank variables name and prints its ``RESULT``."""
+    from nnest_torch.likelihoods import Gaussian
+    from nnest_torch.parallel import get_mesh, initialize_distributed
+    import torch.distributed as dist
+    backend = initialize_distributed(device='cuda')
+    mesh = get_mesh()
+    counts = count_collectives()
+    out = {'rank': mesh.rank, 'backend': backend, 'device': str(mesh.device)}
+    part, log_dir = args.mesh_part, args.mesh_dir
+    if part == 'a':
+        out.update(mesh_main_path(mesh, log_dir, counts))
+    elif part == 'b':
+        out['torch'] = mesh_2d(mesh, log_dir, 'b_torch',
+                               Gaussian(2, 0.0, lim=3), 42)
+        like = NumpyOnlyGaussian(2)
+        out['numpy'] = mesh_2d(mesh, log_dir, 'b_numpy', like, 42)
+        out['numpy']['likelihood_rows'] = like.calls
+    else:   # 'd1': cut at MESH_CUT_ITERS; 'd2': resumed with another seed
+        out.update(mesh_2d(mesh, log_dir, 'd', Gaussian(2, 0.0, lim=3),
+                           5 if part == 'd1' else 6,
+                           **({'max_iters': MESH_CUT_ITERS}
+                              if part == 'd1' else {})))
+    print('RESULT ' + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh(record, log_dir, main_path):
+    """Phase 14: multi-process data parallelism on the one card."""
+    from nnest_torch.likelihoods import Gaussian
+    analytic = Gaussian(2, 0.0, lim=3).analytic_logz([-3.0, -3.0],
+                                                     [3.0, 3.0])
+    out, launches = {}, 0
+
+    def lockstep(results, name, keys=('logz', 'ncall', 'niter')):
+        for k in keys:
+            if len({r[k] for r in results}) != 1:
+                raise AssertionError('%s: ranks disagree on %s: %s'
+                                     % (name, k, results))
+
+    def evidence(res, name):
+        if not (res['mcmc_generations'] > 0 and abs(res['logz'] - analytic)
+                <= max(3.0 * res['logzerr'], 0.15)):
+            raise AssertionError('%s off the analytic logz %.4f: %s'
+                                 % (name, analytic, res))
+
+    # (a) the phase-3 model, 2 ranks on the card over gloo
+    t0 = time.time()
+    ranks = run_ranks(MESH_RANKS, ['--mesh-part', 'a', '--mesh-dir',
+                                   log_dir], timeout=400)
+    lockstep(ranks, 'part a')
+    if {r['backend'] for r in ranks} != {'gloo'}:
+        raise AssertionError('two ranks on one card took %s'
+                             % [r['backend'] for r in ranks])
+    launches += sum(r['launches'] for r in ranks)
+    out['a'] = {'seconds': time.time() - t0, 'ranks': ranks,
+                'phase_3_wall_s': main_path['wall_s'],
+                'phase_3_train_ms_per_epoch': 1e3 * main_path['train_s']
+                / max(main_path['training_epochs'], 1),
+                'phase_3_generation_ms':
+                    main_path['generation_profile']['wall_ms']}
+    r0 = ranks[0]
+    # two collectives a generation (the gathered chains, the counters), the
+    # rest one a step; each a host sync under gloo
+    out['a']['per_step_syncs'] = ((r0['generation_collectives'] - 2)
+                                  / r0['generation_steps'])
+    print('phase 14 (a): backend %s, per-step syncs %g (%d collectives in a '
+          'generation of %d steps), a sync %.1f us' % (
+              r0['backend'], out['a']['per_step_syncs'],
+              r0['generation_collectives'], r0['generation_steps'],
+              r0['sync_us_median']), flush=True)
+
+    # (b) the 2-D Gaussian to its analytic logz: a torch likelihood, then a
+    # numpy-only one farmed over the ranks
+    t0 = time.time()
+    ranks = run_ranks(MESH_RANKS, ['--mesh-part', 'b', '--mesh-dir',
+                                   log_dir], timeout=400)
+    for kind in ('torch', 'numpy'):
+        runs = [r[kind] for r in ranks]
+        lockstep(runs, 'part b (%s)' % kind)
+        evidence(runs[0], 'part b (%s)' % kind)
+        if [r['has_logs'] for r in runs] != [True, False]:
+            raise AssertionError('rank 0 alone should write: %s' % runs)
+        launches += sum(r['launches'] for r in runs)
+    out['b'] = {'seconds': time.time() - t0, 'ranks': ranks,
+                'backend': ranks[0]['backend']}
+
+    # (c) the command line as one NCCL rank, at 5-D so that the run reaches
+    # the sharded Metropolis generations and a training
+    t0 = time.time()
+    env = dict(os.environ, RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+               LOCAL_WORLD_SIZE='1', MASTER_ADDR='localhost',
+               MASTER_PORT=str(free_port()))
+    run_dir = os.path.join(log_dir, 'multihost')
+    proc = subprocess.run(
+        [sys.executable, '-m', 'nnest_torch.cli.multihost', '--x_dim',
+         str(MESH_CLI_DIM), '--num_live_points', str(MESH_2D_LIVE),
+         '--mcmc_num_chains', '16', '--log_dir', run_dir],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=400)
+    text = proc.stdout + proc.stderr
+    m = re.search(r'logz (\S+) \+- (\S+) \(ncall (\d+)\)', text)
+    if proc.returncode != 0 or 'backend nccl' not in text or m is None:
+        raise AssertionError('the multihost command line as one NCCL rank '
+                             '(rc %d):\n%s' % (proc.returncode, text[-3000:]))
+    logz, logzerr = float(m.group(1)), float(m.group(2))
+    with open(os.path.join(run_dir, 'run1', 'results',
+                           'diagnostics.json')) as f:
+        mcmc_generations = json.load(f)['n_mix_windows']
+    analytic_c = Gaussian(MESH_CLI_DIM, 0.0, lim=3).analytic_logz(
+        [-3.0] * MESH_CLI_DIM, [3.0] * MESH_CLI_DIM)
+    out['c'] = {'seconds': time.time() - t0, 'backend': 'nccl',
+                'logz': logz, 'logzerr': logzerr, 'ncall': int(m.group(3)),
+                'analytic_logz': analytic_c,
+                'mcmc_generations': mcmc_generations}
+    if mcmc_generations < 1 or \
+            abs(logz - analytic_c) > max(3.0 * logzerr, 0.15):
+        raise AssertionError('the multihost command line: %s' % out['c'])
+
+    # (d) a 2-rank run cut, then resumed by fresh ranks with another seed
+    t0 = time.time()
+    first = run_ranks(MESH_RANKS, ['--mesh-part', 'd1', '--mesh-dir',
+                                   log_dir], timeout=300)
+    second = run_ranks(MESH_RANKS, ['--mesh-part', 'd2', '--mesh-dir',
+                                    log_dir], timeout=300)
+    lockstep(first, 'part d (cut)')
+    lockstep(second, 'part d (resumed)')
+    evidence(second[0], 'part d (resumed)')
+    if not (first[0]['niter'] <= MESH_CUT_ITERS + 2
+            and second[0]['ncall'] > first[0]['ncall']
+            and second[0]['niter'] > MESH_CUT_ITERS + 1):
+        raise AssertionError('resume did not continue: %s then %s'
+                             % (first, second))
+    launches += sum(r['launches'] for r in first + second)
+    out['d'] = {'seconds': time.time() - t0, 'cut': first,
+                'resumed': second, 'backend': first[0]['backend']}
+    print('phase 14 backends: a %s, b %s, c %s, d %s' % tuple(
+        out[k]['backend'] if 'backend' in out[k]
+        else out[k]['ranks'][0]['backend'] for k in 'abcd'), flush=True)
+    record['launches_by_path']['mesh'] = launches
+    return out
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--baseline', metavar='SRC',
                         help='an earlier kernel source to time beside '
                              'this one in phase 2')
+    # one rank of phase 14, started by the script itself
+    parser.add_argument('--mesh-part', choices=('a', 'b', 'd1', 'd2'),
+                        help=argparse.SUPPRESS)
+    parser.add_argument('--mesh-dir', help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import nnest_torch  # noqa: F401  (fails outside a checkout of the repo)
+    if args.mesh_part:
+        return mesh_rank_main(args)
 
     paths = ('mcmc', 'rejection_flow', 'density_flow', 'per_block', 'slice',
              'mcmc_sampler', 'ensemble', 'dynamic', 'host_likelihood',
-             'derived', 'cli')
+             'derived', 'cli', 'mesh')
     records = [
         {'name': 'spline_inverse', 'route': 'cuda',
          'source': 'nnest_torch/csrc/spline_inverse.cu',
@@ -1747,6 +2094,7 @@ def main():
          'launches': None, 'library_ms': None,
          'launches_by_path': dict.fromkeys(paths, 0)},
     ]
+    outputs = {}
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as log_dir:
         earlier = (EarlierKernel(os.path.abspath(args.baseline), log_dir)
                    if args.baseline else None)
@@ -1767,14 +2115,16 @@ def main():
                  lambda: phase_mcmc_ensemble(records[0], log_dir)),
                 (11, 'dynamic', lambda: phase_dynamic(records[0], log_dir)),
                 (12, 'derived', lambda: phase_derived(records[0], log_dir)),
-                (13, 'cli', lambda: phase_cli(records[0], log_dir))):
+                (13, 'cli', lambda: phase_cli(records[0], log_dir)),
+                (14, 'mesh', lambda: phase_mesh(records[0], log_dir,
+                                                outputs[3]))):
             t0 = time.time()
-            out = fn()
+            out = outputs[num] = fn()
             emit({'phase': num, 'name': name,
                   'seconds': time.time() - t0, **out})
     for rec in records:
         # launches on the paths that drive the kernel (phases 3, 5, 6, 8,
-        # 10, 11, 12, 13)
+        # 10, 11, 12, 13, 14)
         rec['launches'] = sum(rec['launches_by_path'].values())
     emit({'kernels': records})
     emit({'ok': True, 'device': {'platform': 'gpu',

@@ -18,8 +18,23 @@ checkpoint and chain file; the trainer with its transport API (``forward``,
 ``inverse``, ``log_probs`` and the sample getters), its run directory
 (``netG.pkl`` in ``nnest_tpu``'s format, plots, TensorBoard) and, on a GPU,
 its training step replayed as a CUDA graph; the background writer, the
-progress bar and the command lines (``nnest_torch.cli``). Not ported:
-meshes and multi-device runs (ROADMAP.md).
+progress bar and the command lines (``nnest_torch.cli``); multi-process
+data parallelism (``nnest_torch.parallel``).
+
+``mesh=`` (every sampler and the ``Trainer``) runs one process a rank on
+``torch.distributed``, every rank the same loop from the same seed: the
+Metropolis and slice chains and the training batches are dp-sharded, the
+flow strategies and the ensemble replicated with a host likelihood farmed
+over the ranks, and rank 0 alone owns the run directory and broadcasts a
+resume. It does not cover tensor parallelism (``tp > 1`` raises; ROADMAP
+A). Launch with ``torchrun --nproc_per_node N -m nnest_torch.cli.multihost``
+or with the rank given by hand (``--num_processes N --process_id i
+--coordinator host:port``, plus ``--local_rank`` and ``--local_world_size``
+where ranks share a host; or ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` for
+``parallel.initialize_distributed``). The backend is NCCL when every rank
+of a host has a card of its own (``cuda:LOCAL_RANK``), gloo on CPU ranks,
+and gloo when several ranks share one card, which NCCL refuses.
 
 Entry points run on ``device='cuda'`` unless the caller asks for the CPU;
 with no GPU they raise instead of falling back. This package never imports

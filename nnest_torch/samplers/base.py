@@ -1,6 +1,6 @@
 """Sampler base: user-callable wrapping, trainer, kernels, artifacts.
 
-Port of ``nnest_tpu/samplers/base.py`` without meshes:
+Port of ``nnest_tpu/samplers/base.py``:
 
 - two likelihood conventions, told apart once when the sampler is built
   (the JAX package's split between traced and ``io_callback``
@@ -56,18 +56,40 @@ Port of ``nnest_tpu/samplers/base.py`` without meshes:
   and ``_close_io`` wait for.
 
 ``use_gpu`` is accepted and ignored, as in ``nnest_tpu``: ``device``
-decides placement. Meshes are not ported yet (see ROADMAP.md).
+decides placement.
+
+Multi-process runs (``mesh=``, a :class:`nnest_torch.parallel.Mesh`): every
+rank runs the same host loop from the same seed. ``mpi_size``,
+``mpi_rank``, ``use_mpi`` and ``single_or_primary_process`` come from the
+``torch.distributed`` process group (rank 0 of 1 without one); rank 0 alone
+owns the run directory, so ``logs``, ``log_dir``, the trainer's files,
+TensorBoard, plots, the background writer and the progress bar exist there
+only. The Metropolis and slice chains of ``_mcmc_sample_live``,
+``_slice_sample_live``, ``_mcmc_sample_final``, ``_slice_sample_final``
+and ``_mcmc_sample`` are dp-sharded
+(``LatentKernels.mcmc`` and ``slice_body`` with ``mesh``); their starts are
+computed whole on every rank and each rank steps its share. The flow
+strategies and the ensemble run replicated. A host likelihood, prior or
+transform called inside a replicated kernel is a *farm* (the JAX package's
+``shard_map`` callback, the reference's MPI likelihood farm): each rank
+evaluates its rows of the batch, padded to a multiple of dp by repeating
+row 0, and the results are gathered; inside a sharded kernel the rows are
+already the rank's own. Padded rows are never counted in ``total_calls``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from nnest_torch.parallel.mesh import (broadcast_exact, gather_columns,
+                                       shard_batch)
 from nnest_torch.samplers.kernels import LatentKernels
 from nnest_torch.training.trainer import Trainer
 from nnest_torch.utils.device import resolve_device
@@ -152,8 +174,17 @@ class Sampler:
                  param_names=None,
                  seed=0,
                  use_gpu=False,
-                 device='cuda'):
+                 device='cuda',
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # one rank of the process group, or rank 0 of 1 without one
+        grouped = dist.is_available() and dist.is_initialized()
+        self.mpi_size = dist.get_world_size() if grouped else 1
+        self.mpi_rank = dist.get_rank() if grouped else 0
+        self.use_mpi = self.mpi_size > 1
+        self.single_or_primary_process = self.mpi_rank == 0
+        self._rows_local = False   # inside a dp-sharded kernel call
         self.x_dim = x_dim
         self.num_derived = int(num_derived)
         self.num_params = x_dim + self.num_derived
@@ -196,17 +227,21 @@ class Sampler:
 
         args = {k: v for k, v in locals().items()
                 if k not in ('self', 'loglike', 'transform', 'prior',
-                             'trainer', 'probe')}
+                             'trainer', 'probe', 'grouped', 'mesh')}
         args['sampler'] = getattr(self, 'sampler', '')
         self._init_args = args
 
-        if log_dir is not None:
+        # rank 0 alone owns the run directory
+        if log_dir is not None and self.single_or_primary_process:
             self.logs = get_or_create_run_dir(log_dir,
                                               append_run_num=append_run_num)
             self.log_dir = self.logs['run_dir']
         else:
             self.logs = None
             self.log_dir = None
+        # the other ranks log warnings only
+        if not self.single_or_primary_process:
+            log_level = max(log_level, logging.WARNING)
         self.logger = create_logger(__name__, level=log_level)
 
         self.trainer = trainer if trainer is not None else Trainer(
@@ -214,8 +249,9 @@ class Sampler:
             batch_size=batch_size, flow=flow, scale=scale,
             num_blocks=num_blocks, num_layers=num_layers,
             base_dist=base_dist, learning_rate=learning_rate,
-            log_dir=self.log_dir, log_level=log_level, seed=seed + 1,
-            device=self.device)
+            log_dir=self.log_dir, log=self.single_or_primary_process,
+            log_level=log_level, seed=seed + 1, device=self.device,
+            mesh=mesh)
         self.logger.info('Num params [%d]' % self.x_dim)
 
         self.total_accepted = 0
@@ -279,11 +315,64 @@ class Sampler:
 
     def _device_transform(self, u):
         """The sampler transform of a (batch, d) tensor, as a tensor of its
-        dtype on its device (a host transform through float64 numpy)."""
+        dtype on its device (a host transform through float64 numpy, a
+        farm under a mesh)."""
         if not self._host_transform:
             return self._transform_fn(u)
-        return torch.as_tensor(self.transform(_to_numpy(u)), dtype=u.dtype,
-                               device=u.device)
+        v, = self._farmed(lambda a: (self.transform(a),), _to_numpy(u))
+        return torch.as_tensor(v, dtype=u.dtype, device=u.device)
+
+    def _farmed(self, fn, u):
+        """``fn`` (float64 numpy rows to a tuple of arrays, rows first) of
+        the rows ``u``. Under a mesh, outside a dp-sharded kernel, each
+        rank evaluates only its rows (padded to a multiple of dp by
+        repeating row 0) and the results are gathered in one collective,
+        the pad dropped; otherwise ``fn(u)``."""
+        u = np.asarray(u, dtype=np.float64)
+        if self.mesh is None or self._rows_local or u.shape[0] == 0:
+            return fn(u)
+        mine, _ = shard_batch(u, self.mesh)
+        outs = [torch.from_numpy(np.asarray(o, dtype=np.float64))
+                for o in fn(mine)]
+        return tuple(o.numpy() for o in gather_columns(outs, self.mesh,
+                                                        u.shape[0]))
+
+    def _broadcast_resume(self, state):
+        """Rank 0's resume decision and ``state`` on every rank, in one
+        broadcast: the other ranks have no run directory, and ranks that
+        disagreed on resuming would draw other numbers and deadlock at the
+        next collective. It also carries what rank 0's load restored in
+        place (the counters, the sampler's generator and the trainer's
+        snapshot: its flow, Adam moments, generator and scalars), which
+        the other ranks take. Returns the state, or None."""
+        payload = None
+        if state is not None:
+            payload = {
+                'state': state,
+                'counters': (self.total_calls, self.total_accepted,
+                             self.total_rejected, self.total_fast_calls),
+                'generator': self.generator.get_state(),
+                'trainer': self.trainer.snapshot_state(),
+            }
+        payload = broadcast_exact(payload)
+        if payload is None:
+            return None
+        if not self.single_or_primary_process:
+            (self.total_calls, self.total_accepted, self.total_rejected,
+             self.total_fast_calls) = payload['counters']
+            self.generator.set_state(payload['generator'])
+            self.trainer.restore_state(payload['trainer'])
+        return payload['state']
+
+    @contextlib.contextmanager
+    def _local_rows(self):
+        """Mark a dp-sharded kernel call: the host callables see this
+        rank's rows only, so they are not farmed again."""
+        self._rows_local = True
+        try:
+            yield
+        finally:
+            self._rows_local = False
 
     def _loglike_of_host(self, u):
         """A host likelihood of float64 numpy points ``u`` (before the
@@ -309,8 +398,7 @@ class Sampler:
         through float32 once."""
         f32 = torch.float32
         if self._host_loglike:
-            logl, derived = self._loglike_of_host(
-                _to_numpy(u).astype(np.float64))
+            logl, derived = self._farmed(self._loglike_of_host, _to_numpy(u))
             return (torch.as_tensor(logl, dtype=f32, device=u.device),
                     torch.as_tensor(derived, dtype=f32, device=u.device))
         res = self._user_loglike(self._device_transform(u))
@@ -347,8 +435,8 @@ class Sampler:
         if self._user_prior is None:
             return torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
         if self._host_prior:
-            return torch.as_tensor(self.prior(_to_numpy(u)), dtype=u.dtype,
-                                   device=u.device)
+            lp, = self._farmed(lambda a: (self.prior(a),), _to_numpy(u))
+            return torch.as_tensor(lp, dtype=u.dtype, device=u.device)
         if self._transform_prior:
             u = self._device_transform(u)
         return self._user_prior.logpdf(u)
@@ -444,13 +532,15 @@ class Sampler:
                           adapt_cov=False, active_derived=None):
         """One MCMC pool generation from the live set (``active_derived``
         its (n_live, num_derived) derived values, needed when num_derived
-        > 0).
+        > 0). Under a mesh every rank draws the whole batch of starts and
+        steps its share of the chains; a host prior of the starts is then
+        evaluated whole on every rank, not farmed.
 
         Returns (u, logl, derived, moved, scale, mean_jump, ncall)."""
         if step_size <= 0.0:
             step_size = 2.0 / self.x_dim ** 0.5
         self.trainer.ensure_init()
-        with torch.no_grad():
+        with torch.no_grad(), self._local_rows():
             f32 = np.float32
             out = self.kernels.mcmc_from_live(
                 self.generator,
@@ -460,7 +550,8 @@ class Sampler:
                 num_chains=num_chains, loglstar=loglstar,
                 step_size=step_size, mcmc_steps=mcmc_steps,
                 dynamic_step_size=dynamic_step_size,
-                prior_volume_steps=prior_volume_steps, adapt_cov=adapt_cov)
+                prior_volume_steps=prior_volume_steps, adapt_cov=adapt_cov,
+                mesh=self.mesh)
         return self._consume_endpoint_out(
             out, mix_null=metropolis_mix_null(mcmc_steps, self.x_dim,
                                               adapt_cov=adapt_cov),
@@ -475,11 +566,12 @@ class Sampler:
         analogue of :meth:`_mcmc_sample_live`. Its latent condition number
         is recorded but does not inflate ``logzerr_adjusted`` (the JAX
         package's calibration: the slice kernel's kinetic term alone
-        covers curved degeneracies).
+        covers curved degeneracies). Sharded under a mesh as
+        :meth:`_mcmc_sample_live` is.
 
         Returns (u, logl, derived, moved, scale, mean_jump, ncall)."""
         self.trainer.ensure_init()
-        with torch.no_grad():
+        with torch.no_grad(), self._local_rows():
             f32 = np.float32
             out = self.kernels.slice_from_live(
                 self.generator,
@@ -488,7 +580,7 @@ class Sampler:
                 active_derived=self._device_derived(active_derived),
                 num_chains=num_chains, loglstar=loglstar, width=width,
                 slice_steps=slice_steps, max_expand=max_expand,
-                max_shrink=max_shrink, adapt_cov=adapt_cov)
+                max_shrink=max_shrink, adapt_cov=adapt_cov, mesh=self.mesh)
         return self._consume_endpoint_out(
             out, mix_null=slice_mix_null(slice_steps, self.x_dim),
             cond_null=latent_cond_null(self.x_dim, num_chains))
@@ -550,24 +642,54 @@ class Sampler:
         given; ``cov_from``
         (live rows as a float32 tensor, the ``cov_mask`` half of them when
         given) enables the covariance-preconditioned proposal. The step
-        size starts at 2/sqrt(x_dim).
+        size starts at 2/sqrt(x_dim). Under a mesh the chains are
+        dp-sharded.
 
         Returns (u, logl, derived, moved, scale, mean_jump, ncall);
         ``ncall`` includes the starts' likelihood calls."""
         num_chains = init_samples.shape[0]
         z0, logl0, derived0, lp_prior0, ncall_init = self._mcmc_init(
             num_chains, init_samples, init_loglikes, 1, init_derived)
-        out = self.kernels.mcmc(
-            self.generator, z0, logl0, lp_prior0, derived0=derived0,
-            loglstar=loglstar,
-            step_size=2.0 / self.x_dim ** 0.5, mcmc_steps=mcmc_steps,
-            dynamic_step_size=dynamic_step_size, cov_from=cov_from,
-            cov_mask=cov_mask)
+        with self._local_rows():
+            out = self.kernels.mcmc(
+                self.generator, z0, logl0, lp_prior0, derived0=derived0,
+                loglstar=loglstar,
+                step_size=2.0 / self.x_dim ** 0.5, mcmc_steps=mcmc_steps,
+                dynamic_step_size=dynamic_step_size, cov_from=cov_from,
+                cov_mask=cov_mask, mesh=self.mesh)
         *head, ncall = self._consume_endpoint_out(
             out, mix_null=metropolis_mix_null(mcmc_steps, self.x_dim,
                                               adapt_cov=cov_from is not None),
             cond_null=latent_cond_null(self.x_dim, num_chains),
             cond_inflates=True)
+        return (*head, ncall + ncall_init)
+
+    def _slice_sample_final(self, slice_steps, width, init_samples,
+                            init_loglikes=None, loglstar=None, max_expand=4,
+                            max_shrink=10, stat_moments=None, cov_from=None,
+                            cov_mask=None, init_derived=None):
+        """Endpoint-only slice sampling from explicit starts, the slice
+        analogue of :meth:`_mcmc_sample_final`: :meth:`_mcmc_init`, then
+        :meth:`LatentKernels.slice_draws` and ``slice_body``, the chains
+        dp-sharded under a mesh.
+
+        Returns (u, logl, derived, moved, scale, mean_jump, ncall);
+        ``ncall`` includes the starts' likelihood calls."""
+        num_chains = init_samples.shape[0]
+        z0, logl0, derived0, _, ncall_init = self._mcmc_init(
+            num_chains, init_samples, init_loglikes, 1, init_derived)
+        draws = self.kernels.slice_draws(self.generator, slice_steps,
+                                         num_chains, self.x_dim, max_expand,
+                                         max_shrink)
+        with self._local_rows():
+            out = self.kernels.slice_body(
+                draws, z0, logl0, loglstar=loglstar, width=width,
+                max_expand=max_expand, stat_moments=stat_moments,
+                cov_from=cov_from, cov_mask=cov_mask, derived0=derived0,
+                mesh=self.mesh)
+        *head, ncall = self._consume_endpoint_out(
+            out, mix_null=slice_mix_null(slice_steps, self.x_dim),
+            cond_null=latent_cond_null(self.x_dim, num_chains))
         return (*head, ncall + ncall_init)
 
     def _mcmc_sample(self, mcmc_steps, step_size=0.0,
@@ -578,12 +700,13 @@ class Sampler:
                      prior_volume_steps=1):
         """Metropolis chains in the latent space, with their trajectories:
         full MH, or constrained by ``loglstar``; starts from
-        :meth:`_mcmc_init`, step size 2/sqrt(x_dim) unless given. The
-        whole trajectory stays on the device and is fetched once at the
-        end. With ``output_interval`` (any value) the transformed chains
-        are written as ``chains/chain_<i>.txt``; with ``stats_interval``
-        at most ``mcmc_steps`` their statistics are logged; ``plot_trace``
-        draws the first chain (:meth:`_plot_trace`).
+        :meth:`_mcmc_init`, step size 2/sqrt(x_dim) unless given;
+        dp-sharded under a mesh. The whole trajectory stays on the device
+        and is fetched once at the end. With ``output_interval`` (any
+        value) the transformed chains are written as
+        ``chains/chain_<i>.txt``; with ``stats_interval`` at most
+        ``mcmc_steps`` their statistics are logged; ``plot_trace`` draws
+        the first chain (:meth:`_plot_trace`).
 
         Returns (samples, latent, derived, loglikes, scale, ncall): samples
         and latent (chains, steps + 1, x_dim), derived (chains, steps + 1,
@@ -594,12 +717,14 @@ class Sampler:
             step_size = 2.0 / self.x_dim ** 0.5
         z0, logl0, derived0, lp_prior0, ncall_init = self._mcmc_init(
             num_chains, init_samples, init_loglikes, max_start_tries)
-        out = self.kernels.mcmc(
-            self.generator, z0, logl0, lp_prior0, derived0=derived0,
-            loglstar=loglstar,
-            step_size=step_size, mcmc_steps=mcmc_steps,
-            dynamic_step_size=dynamic_step_size,
-            prior_volume_steps=prior_volume_steps, collect_chains=True)
+        with self._local_rows():
+            out = self.kernels.mcmc(
+                self.generator, z0, logl0, lp_prior0, derived0=derived0,
+                loglstar=loglstar,
+                step_size=step_size, mcmc_steps=mcmc_steps,
+                dynamic_step_size=dynamic_step_size,
+                prior_volume_steps=prior_volume_steps, collect_chains=True,
+                mesh=self.mesh)
         out = {k: _to_numpy(v) for k, v in out.items()}
         samples = out['samples'].astype(np.float64)
         loglikes = out['loglikes'].astype(np.float64)
@@ -735,7 +860,11 @@ class Sampler:
         ``init_samples`` (max-folded into the cached one when ``cache`` and
         a cached one exists, else replacing it), then one generation of
         ``num_trials`` trials in the latent ball. Returns (samples,
-        loglikes, derived, effective_ncall) of the passing trials."""
+        loglikes, derived, effective_ncall) of the passing trials. Under a
+        mesh every rank computes the envelope and all trials on the same
+        replicated inputs (the JAX package's two-dispatch mesh route; in
+        eager PyTorch the envelope and the draw are separate steps on every
+        route), a host likelihood farmed over the ranks."""
         self.trainer.ensure_init()
         fold = bool(cache and self._max_log_det_j is not None)
         x, logl, derived, ok, n_evals, mld, mr = \

@@ -1,6 +1,6 @@
 """Dynamic nested sampling: live points where the uncertainty is.
 
-Port of ``nnest_tpu/samplers/dynamic.py`` without meshes. The scheme of
+Port of ``nnest_tpu/samplers/dynamic.py``. The scheme of
 Higson et al. 2019 (arXiv:1704.03459): a static pass first, then batches
 of live points over the likelihood range that dominates the evidence or
 posterior uncertainty; the combined run has varying live counts n(L), and
@@ -24,6 +24,11 @@ its evidence comes from the per-point (birth, death) record
   arguments) ride along: the seeds take theirs from the parts' samples
   (the columns after x_dim), and the merged ``samples`` keep them.
 
+- ``mesh=`` passes to every batch (:mod:`nnest_torch.parallel`): the ranks
+  run in lockstep, the batches' chains and the seed refresh dp-sharded.
+  Rank 0 alone holds the run directory; it reads the resume bundle and
+  looks for a batch's checkpoint, and broadcasts what it found.
+
 The window [L_lo, L_hi] follows dynesty's ``weight_function``: I(i) =
 (1 - G) Z_remain(i)/max + G w_i/max over the sorted deaths, the batch
 spanning {i : I(i) > maxfrac max I} padded by one point; G = 0 targets the
@@ -40,7 +45,9 @@ import os
 import pickle
 
 import numpy as np
+import torch.distributed as dist
 
+from nnest_torch.parallel.mesh import broadcast_exact
 from nnest_torch.samplers.nested import NestedSampler
 from nnest_torch.utils.device import resolve_device
 from nnest_torch.utils.evaluation import merge_runs, thread_birth_logl
@@ -84,8 +91,16 @@ class DynamicNestedSampler:
                  seed=0,
                  log_level=logging.INFO,
                  device='cuda',
+                 mesh=None,
                  **sampler_kwargs):
         self.device = resolve_device(device)
+        self._mesh = mesh
+        # rank 0 alone owns the run directory
+        self._ranks = (dist.get_world_size()
+                       if dist.is_available() and dist.is_initialized()
+                       else 1)
+        if self._ranks > 1 and dist.get_rank() != 0:
+            log_dir = None
         self.x_dim = x_dim
         self.num_live_init = int(num_live_init)
         self._loglike = loglike
@@ -136,7 +151,7 @@ class DynamicNestedSampler:
             num_live_points=num_live, log_dir=sub_dir, append_run_num=False,
             resume=self._resume, seed=seed, trainer=self._trainer,
             log_level=max(self._log_level, logging.WARNING),
-            device=self.device, **self._sampler_kwargs)
+            device=self.device, mesh=self._mesh, **self._sampler_kwargs)
         if self._trainer is None:
             self._trainer = s.trainer
         if self._pending_trainer is not None:
@@ -146,16 +161,14 @@ class DynamicNestedSampler:
             self._pending_trainer = None
         return s
 
-    @staticmethod
-    def _batch_has_checkpoint(s):
+    def _batch_has_checkpoint(self, s):
         """True when the batch's run directory holds a checkpoint: the batch
         was killed mid-run (or finished before its ingest reached the
         bundle), so ``s.run()`` continues from it and the seed refresh
-        must not run again."""
-        if s.logs is None:
-            return False
-        return bool(glob.glob(os.path.join(s.logs['checkpoint'],
-                                           'checkpoint_*.txt')))
+        must not run again. Rank 0's answer on every rank."""
+        found = s.logs is not None and bool(glob.glob(os.path.join(
+            s.logs['checkpoint'], 'checkpoint_*.txt')))
+        return broadcast_exact(found) if self._ranks > 1 else found
 
     def _ingest(self, s, tag):
         """Record a finished batch in (birth, death) form."""
@@ -212,11 +225,13 @@ class DynamicNestedSampler:
         os.replace(path + '.tmp', path)
 
     def _load_state(self):
+        """The resume bundle, or None; rank 0's on every rank."""
         path = self._state_path()
-        if path is None or not os.path.exists(path):
-            return None
-        with open(path, 'rb') as f:
-            return pickle.load(f)
+        state = None
+        if path is not None and os.path.exists(path):
+            with open(path, 'rb') as f:
+                state = pickle.load(f)
+        return broadcast_exact(state) if self._ranks > 1 else state
 
     @staticmethod
     def batch_bounds(merged, parts, G=0.25, maxfrac=0.8):

@@ -1,7 +1,7 @@
 """Ensemble sampler: affine-invariant ensemble MCMC in the flow's latent
 space.
 
-Port of ``nnest_tpu/samplers/ensemble.py`` without meshes:
+Port of ``nnest_tpu/samplers/ensemble.py``:
 
 - :func:`real_space_stretch`: a Goodman-Weare stretch ensemble on any log
   density of (batch, d) tensors, the bootstrap's phase 0 (no flow);
@@ -29,6 +29,12 @@ newest readable checkpoint (a corrupt newest one falls back to the next
 older; one that loads only partly changes nothing) and continues bit for
 bit as the uninterrupted bootstrap would have, whatever the new sampler's
 seed.
+
+Under a mesh (``mesh=``) every rank runs the bootstrap in lockstep; the
+ensembles run replicated (a host likelihood farmed over the ranks) and the
+MCMC sampler's chains dp-sharded. Rank 0 alone holds the run directory, so
+it reads the checkpoints and ``emcee.h5`` and broadcasts the resume decision
+and the restored state (:meth:`Sampler._broadcast_resume`).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import re
 import numpy as np
 import torch
 
+from nnest_torch.parallel.mesh import broadcast_exact
 from nnest_torch.samplers.base import Sampler, _to_numpy
 from nnest_torch.samplers.kernels import _accept_mask, _stretch_move
 from nnest_torch.utils.evaluation import integrated_autocorr_time
@@ -130,7 +137,8 @@ class EnsembleSampler(Sampler):
                  param_names=None,
                  seed=0,
                  use_gpu=False,
-                 device='cuda'):
+                 device='cuda',
+                 mesh=None):
         if not hasattr(self, 'sampler'):
             self.sampler = 'ensemble'
         super().__init__(
@@ -142,7 +150,7 @@ class EnsembleSampler(Sampler):
             base_dist=base_dist, scale=scale, trainer=trainer,
             transform_prior=transform_prior, oversample_rate=oversample_rate,
             log_level=log_level, param_names=param_names, seed=seed,
-            use_gpu=use_gpu, device=device)
+            use_gpu=use_gpu, device=device, mesh=mesh)
         self._save_params()
 
     def _train_normalised(self, training_samples, jitter, max_iters):
@@ -246,6 +254,8 @@ class EnsembleSampler(Sampler):
         training_samples = None
         if resume:
             loaded = self._bootstrap_load_latest(iters)
+            if self.mpi_size > 1:
+                loaded = self._broadcast_resume(loaded)
             if loaded is not None:
                 start_phase, training_samples = loaded
                 self.logger.info('Resumed bootstrap from phase [%d]'
@@ -253,12 +263,18 @@ class EnsembleSampler(Sampler):
                 if start_phase >= iters:
                     return training_samples
 
-        h5 = (os.path.join(self.log_dir, 'emcee.h5')
-              if self.log_dir is not None else None)
-        if start_phase < 0 and h5 is not None and os.path.isfile(h5):
+        chains = None
+        if start_phase < 0:
+            h5 = (os.path.join(self.log_dir, 'emcee.h5')
+                  if self.log_dir is not None else None)
+            if h5 is not None and os.path.isfile(h5):
+                chains = self._load_emcee_h5(h5)
+            if self.mpi_size > 1:
+                # only rank 0 sees the run directory
+                chains = broadcast_exact(chains)
+        if chains is not None:
             # an emcee HDF backend left in the run directory replaces
             # phase 0's run (no likelihood calls)
-            chains = self._load_emcee_h5(h5)
             self.logger.info('Seeding phase 0 from emcee.h5 (%d walkers x %d '
                              'stored iterations)' % chains.shape[:2])
             self._chain_stats(chains)

@@ -1,6 +1,6 @@
 """Latent-space sampling kernels on the sampler's device.
 
-Port of the single-device part of ``nnest_tpu/samplers/kernels.py``:
+Port of ``nnest_tpu/samplers/kernels.py``:
 constrained (nested) and full Metropolis-Hastings latent MCMC with the
 covariance-preconditioned proposal, dynamic step size and the fast-slow
 proposal mask, in endpoint or collect-chains mode, constrained latent
@@ -10,7 +10,10 @@ live set, the latent ensemble (red-black half updates with the stretch,
 DE, DE-snooker and KDE moves), batched prior rejection, flow rejection
 inside the Jacobian envelope (in the latent ball, or in the base's box
 where it has ``usample``), flow-density draws, and the on-device chain
-diagnostics (ESS, start decorrelation, second moments).
+diagnostics (ESS, start decorrelation, second moments). With ``mesh`` the
+Metropolis and slice bodies shard their chain axis over the ranks of a
+process group (:class:`_Rows`); the live-set generations that call them
+pass the mesh on, their starts drawn whole on every rank.
 
 The JAX ``lax.scan`` becomes a Python loop over steps with the chains as
 the batch dimension; accept/reject stay masks (``torch.where``) and every
@@ -40,6 +43,8 @@ import torch
 
 from nnest_torch.ops import fused_spline
 from nnest_torch.ops.spline_inverse import spline_inverse
+from nnest_torch.parallel.mesh import (all_reduce_sum, batch_sharding,
+                                       gather_columns, pad_rows, real_rows)
 
 # Finite sentinel for impossible log-densities (keeps ±inf/NaN out of the
 # chain arithmetic; < -1e30 so the `> -1e30` validity checks keep working).
@@ -200,7 +205,8 @@ class LatentKernels:
             None if cov_mask is None
             else cov_from.shape[0] - cov_from.shape[0] // 2)
 
-    def step(self, state, inverse, draws, *, loglstar, scale, cov_chol):
+    def step(self, state, inverse, draws, *, loglstar, scale, cov_chol,
+             real=None):
         """One Metropolis step (constrained when ``loglstar`` is not None).
 
         ``state`` is (z, x, ldj, logl, logl_prior, derived), derived None
@@ -208,6 +214,8 @@ class LatentKernels:
         (dz, u, u_fast) triple per proposal (``prior_volume_steps`` of
         them in constrained mode): standard normals, accept uniforms and
         the 0-dim fast-move uniform (None for a single-speed flow).
+        ``real`` (chains,) bool marks the chains that count (a dp shard's
+        pad rows do not), None all of them.
         Returns the new state, the accept mask, the proposal's x and the
         likelihood-call count (a tensor in constrained mode, the chain
         count as an int in full MH: a step makes no host tensor)."""
@@ -239,7 +247,7 @@ class LatentKernels:
                 mask1 = mask1 | m
             logl_prop, derived_prop = self.like_fn(x_pr)
             lp_prior_new = self.prior_fn(x_pr)
-            n_evals = torch.sum(mask1.to(torch.int64))
+            n_evals = _count(mask1, real)
             accept = mask1 & torch.isfinite(logl_prop) & (logl_prop > loglstar)
             z_new, x_new, ldj_new = z_pr, x_pr, ldj_pr
         else:
@@ -251,7 +259,7 @@ class LatentKernels:
             log_ratio = ((ldj_new - ldj) + (logl_prop - logl)
                          + (lp_prior_new - logl_prior))
             accept = _accept_mask(u, log_ratio)
-            n_evals = z.shape[0]
+            n_evals = z.shape[0] if real is None else _count(real, None)
 
         acol = accept[:, None]
         new_state = (torch.where(acol, z_new, z), torch.where(acol, x_new, x),
@@ -266,7 +274,7 @@ class LatentKernels:
     def mcmc(self, generator, z0, logl0, logl_prior0, *, derived0=None,
              loglstar=None, step_size, mcmc_steps, dynamic_step_size=False,
              prior_volume_steps=1, stat_moments=None, cov_from=None,
-             cov_mask=None, collect_chains=False, draws=None):
+             cov_mask=None, collect_chains=False, draws=None, mesh=None):
         """Multi-chain latent Metropolis. Constrained (nested) mode when
         ``loglstar`` is given: accept on the prior+Jacobian ratio, then
         require logl > loglstar; full Metropolis-Hastings otherwise (the
@@ -289,27 +297,38 @@ class LatentKernels:
         The step loop reads nothing back to the host. Each step draws its
         (dz, u, u_fast) triples from ``generator`` (one triple per
         proposal, see :meth:`step`); ``draws``, a list of one such list a
-        step, replaces them (the tests feed the JAX package's numbers)."""
+        step, replaces them (the tests feed the JAX package's numbers).
+
+        With ``mesh`` (:mod:`nnest_torch.parallel.mesh`) the chain axis is
+        dp-sharded: every rank passes the whole batch of starts and draws
+        the whole batch's numbers, steps its own chains, and the outputs
+        are gathered, so every rank returns the same whole-batch result.
+        The dynamic step size decides on the acceptances of all chains:
+        one all-reduce a step. The trajectories are gathered for the
+        statistics."""
         constrained = loglstar is not None
         device = z0.device
         num_chains, dim = z0.shape
+        rows = _Rows(mesh, num_chains, device)
         ll_star = (None if not constrained else
                    torch.tensor(loglstar, dtype=torch.float32, device=device))
         inverse = self._hot_inverse()
         cov_chol = self._cov_factor(cov_from, cov_mask)
-        x0, ldj0 = inverse(z0)
-        derived0 = self._derived_start(derived0, num_chains, device)
-        state = (z0, x0, ldj0, sanitize_log_density(logl0),
-                 sanitize_log_density(logl_prior0), derived0)
+        z_start = rows.local(z0)
+        x0, ldj0 = inverse(z_start)
+        derived0 = rows.local(self._derived_start(derived0, num_chains,
+                                                  device))
+        state = (z_start, x0, ldj0, sanitize_log_density(rows.local(logl0)),
+                 sanitize_log_density(rows.local(logl_prior0)), derived0)
         scale = torch.tensor(step_size, dtype=torch.float32, device=device)
         acc_ctr = torch.zeros((), device=device)
         rej_ctr = torch.zeros((), device=device)
         ncall = torch.zeros((), dtype=torch.int64, device=device)
         fast_calls = torch.zeros((), dtype=torch.int64, device=device)
         total_acc = torch.zeros((), dtype=torch.int64, device=device)
-        moved = torch.zeros(num_chains, dtype=torch.bool, device=device)
+        moved = torch.zeros(z_start.shape[0], dtype=torch.bool, device=device)
         jump = torch.zeros((), device=device)
-        xs, zs, logls, ds = [x0], [z0], [state[3]], [derived0]
+        xs, zs, logls, ds = [x0], [z_start], [state[3]], [derived0]
         n_draws = prior_volume_steps if constrained else 1
         for s in range(mcmc_steps):
             step_draws = draws[s] if draws is not None else [
@@ -319,17 +338,19 @@ class LatentKernels:
                  torch.rand((), generator=generator, device=device)
                  if self.num_slow > 0 else None)
                 for _ in range(n_draws)]
+            step_draws = [(rows.local(dz), rows.local(u), u_fast)
+                          for dz, u, u_fast in step_draws]
             x_old = state[1]
             state, accept, x_new, n_evals = self.step(
                 state, inverse, step_draws, loglstar=ll_star, scale=scale,
-                cov_chol=cov_chol)
+                cov_chol=cov_chol, real=rows.real)
             ncall = ncall + n_evals
             if self.num_slow > 0:
                 # the calls of a step whose (last) proposal moved the fast
                 # dims only
                 fast_calls = fast_calls + torch.where(
                     step_draws[-1][2] < self.oversample_rate, n_evals, 0)
-            n_acc = torch.sum(accept.to(torch.int64))
+            n_acc = _count(accept, rows.real)
             total_acc = total_acc + n_acc
             xs.append(state[1])
             if collect_chains:
@@ -340,11 +361,12 @@ class LatentKernels:
             else:
                 moved = moved | accept
                 jump = jump + torch.sum(torch.where(
-                    accept, torch.linalg.norm(x_new - x_old, dim=-1),
+                    _real(accept, rows.real),
+                    torch.linalg.norm(x_new - x_old, dim=-1),
                     torch.zeros_like(jump)))
             if dynamic_step_size:
-                # adapt toward 50% acceptance
-                win = 2 * n_acc > num_chains
+                # adapt toward 50% acceptance of all chains
+                win = 2 * rows.total(n_acc) > num_chains
                 acc_ctr = acc_ctr + win.to(acc_ctr.dtype)
                 rej_ctr = rej_ctr + (~win).to(rej_ctr.dtype)
                 scale = torch.where(acc_ctr > rej_ctr,
@@ -354,19 +376,28 @@ class LatentKernels:
                                     scale / torch.exp(1.0 / (1.0 + rej_ctr)),
                                     scale)
 
+        ncall, fast_calls, total_acc, jump = rows.totals(
+            ncall, fast_calls, total_acc, jump)
         common = {'scale': scale, 'ncall': ncall, 'fast_calls': fast_calls,
                   'accepted': total_acc,
                   'rejected': mcmc_steps * num_chains - total_acc}
-        if self.num_derived and collect_chains:
-            common['derived'] = torch.stack(ds, dim=1)
-        elif self.num_derived:
-            common['final_derived'] = state[5]
         chains = torch.stack(xs, dim=1)
         if collect_chains:
-            return dict(common, samples=chains,
-                        latent=torch.stack(zs, dim=1),
-                        loglikes=torch.stack(logls, dim=1))
-        z_end, x_end, _, logl_end, _, _ = state
+            trajectories = [chains, torch.stack(zs, dim=1),
+                            torch.stack(logls, dim=1)]
+            if self.num_derived:
+                trajectories.append(torch.stack(ds, dim=1))
+            samples, latent, loglikes, *derived = rows.gather(trajectories)
+            if derived:
+                common['derived'] = derived[0]
+            return dict(common, samples=samples, latent=latent,
+                        loglikes=loglikes)
+        z_end, x_end, _, logl_end, _, d_end = state
+        chains, z_end, x_end, logl_end, moved, *d_end = rows.gather(
+            [chains, z_end, x_end, logl_end, moved]
+            + ([d_end] if self.num_derived else []))
+        if self.num_derived:
+            common['final_derived'] = d_end[0]
         if stat_moments is None:
             mu = torch.mean(chains, dim=(0, 1))
             var = torch.var(chains, dim=(0, 1), unbiased=False)
@@ -412,6 +443,17 @@ class LatentKernels:
         var = torch.var(active_u, dim=0, unbiased=False)
         return z0, logl0, derived0, lp_prior0, mu, var
 
+    def live_split(self, generator, n_live, num_chains):
+        """The red-black start and covariance split of a pool generation
+        (:meth:`_chain_starts` with ``adapt_cov``): (start indices
+        (num_chains,), covariance mask (n_live,) bool), for a caller that
+        starts chains from explicit points."""
+        idx_a, cov_mask = self._red_black_split(generator, n_live)
+        idx = idx_a[torch.randint(0, n_live // 2, (num_chains,),
+                                  generator=generator,
+                                  device=generator.device)]
+        return idx, cov_mask
+
     def _chain_starts(self, generator, active_u, active_logl, num_chains,
                       adapt_cov, active_derived=None):
         """Uniform chain starts drawn from the live set, from a random half
@@ -421,10 +463,7 @@ class LatentKernels:
         n_live = active_u.shape[0]
         cov_mask = None
         if adapt_cov:
-            idx_a, cov_mask = self._red_black_split(generator, n_live)
-            idx = idx_a[torch.randint(0, n_live // 2, (num_chains,),
-                                      generator=generator,
-                                      device=generator.device)]
+            idx, cov_mask = self.live_split(generator, n_live, num_chains)
         else:
             idx = torch.randint(0, n_live, (num_chains,),
                                 generator=generator, device=generator.device)
@@ -434,12 +473,13 @@ class LatentKernels:
     def mcmc_from_live(self, generator, active_u, active_logl, *,
                        num_chains, loglstar, step_size, mcmc_steps,
                        dynamic_step_size=False, prior_volume_steps=1,
-                       adapt_cov=False, active_derived=None):
+                       adapt_cov=False, active_derived=None, mesh=None):
         """Constrained endpoint-mode Metropolis started from the live set:
         uniform chain starts (from a random half when ``adapt_cov``, whose
         complement gives the proposal covariance), re-projection, chains.
         ``active_derived`` (n_live, num_derived) is needed when
-        ``num_derived`` > 0."""
+        ``num_derived`` > 0. With ``mesh`` every rank draws and re-projects
+        the whole batch of starts, then :meth:`mcmc` steps its share."""
         z0, logl0, derived0, lp_prior0, mu, var, cov_mask = \
             self._chain_starts(generator, active_u, active_logl, num_chains,
                                adapt_cov, active_derived)
@@ -449,7 +489,8 @@ class LatentKernels:
             step_size=step_size, mcmc_steps=mcmc_steps,
             dynamic_step_size=dynamic_step_size,
             prior_volume_steps=prior_volume_steps, stat_moments=(mu, var),
-            cov_from=active_u if adapt_cov else None, cov_mask=cov_mask)
+            cov_from=active_u if adapt_cov else None, cov_mask=cov_mask,
+            mesh=mesh)
 
     # ------------------------------------------------------------ slice
 
@@ -478,7 +519,7 @@ class LatentKernels:
     @torch.no_grad()
     def slice_body(self, draws, z0, logl0, *, loglstar, width, max_expand=4,
                    stat_moments=None, cov_from=None, cov_mask=None,
-                   derived0=None):
+                   derived0=None, mesh=None):
         """Constrained latent slice sampling (Neal 2003) on given draws
         (:meth:`slice_draws`): one move per chain and step, all chains
         batched. The target is the flow-pushforward prior restricted to
@@ -506,19 +547,29 @@ class LatentKernels:
         passed. Returns the endpoint dict of :meth:`mcmc` (``scale`` is
         ``width``; ``fast_calls`` is 0), with the accepted points' derived
         values as ``final_derived`` when ``num_derived`` > 0 (the starts'
-        are ``derived0``, zeros when None)."""
+        are ``derived0``, zeros when None).
+
+        With ``mesh`` the chain axis is dp-sharded as in :meth:`mcmc`
+        (whole-batch starts and draws, this rank's chains, gathered
+        outputs); the shrinkage loop stops when every lane of every rank
+        has accepted (one all-reduce an iteration), so the ranks leave it
+        together."""
         inverse = self._hot_inverse()
         device = z0.device
         num_chains = z0.shape[0]
+        rows = _Rows(mesh, num_chains, device)
         slice_steps = draws['d'].shape[0]
         hard_cap = draws['shrink'].shape[1]
         ll_star = _f32(loglstar, z0)
         width = _f32(width, z0)
         cov_chol = self._cov_factor(cov_from, cov_mask)
-        x0, ldj0 = inverse(z0)
-        z, x, ldj, logl = z0, x0, ldj0, sanitize_log_density(logl0)
-        der = self._derived_start(derived0, num_chains, device)
-        zeros_b = torch.zeros(num_chains, dtype=torch.bool, device=device)
+        z_start = rows.local(z0)
+        x0, ldj0 = inverse(z_start)
+        z, x, ldj, logl = (z_start, x0, ldj0,
+                           sanitize_log_density(rows.local(logl0)))
+        der = rows.local(self._derived_start(derived0, num_chains, device))
+        m = z.shape[0]
+        zeros_b = torch.zeros(m, dtype=torch.bool, device=device)
         ncall = torch.zeros((), dtype=torch.int64, device=device)
         total_acc = torch.zeros((), dtype=torch.int64, device=device)
         moved = zeros_b
@@ -526,18 +577,18 @@ class LatentKernels:
         xs = [x0]
 
         def count(mask):
-            return torch.sum(mask.to(torch.int64))
+            return _count(mask, rows.real)
 
         for s in range(slice_steps):
-            d = draws['d'][s]
+            d = rows.local(draws['d'][s])
             d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True),
                                 min=1e-12)
             if cov_chol is not None:
                 d = d @ cov_chol.T
-            logy = ldj + torch.log1p(-draws['h'][s])
-            left = -width * draws['v'][s]
+            logy = ldj + torch.log1p(-rows.local(draws['h'][s]))
+            left = -width * rows.local(draws['v'][s])
             right = left + width
-            jmax = draws['jmax'][s]
+            jmax = rows.local(draws['jmax'][s])
             kmax = (max_expand - 1) - jmax
             done_l = done_r = zeros_b
             logy2 = torch.cat([logy, logy])
@@ -548,9 +599,9 @@ class LatentKernels:
                     logy2, ll_star)
                 act_l = ~done_l & (i < jmax)
                 act_r = ~done_r & (i < kmax)
-                ncall = ncall + count(act_l & geom[:num_chains]) \
-                    + count(act_r & geom[num_chains:])
-                in_l, in_r = full[:num_chains], full[num_chains:]
+                ncall = ncall + count(act_l & geom[:m]) \
+                    + count(act_r & geom[m:])
+                in_l, in_r = full[:m], full[m:]
                 left = torch.where(act_l & in_l, left - width, left)
                 right = torch.where(act_r & in_r, right + width, right)
                 done_l = done_l | (act_l & ~in_l)
@@ -559,7 +610,7 @@ class LatentKernels:
             acc = zeros_b
             z_n, x_n, ldj_n, logl_n, der_n = z, x, ldj, logl, der
             for i in range(hard_cap):
-                t = left + (right - left) * draws['shrink'][s, i]
+                t = left + (right - left) * rows.local(draws['shrink'][s, i])
                 zc = z + t[:, None] * d
                 geom, ok, xc, ldjc, loglc, derc = self._in_slice(
                     inverse, zc, logy, ll_star)
@@ -577,18 +628,22 @@ class LatentKernels:
                 shr = act & ~ok
                 left = torch.where(shr & (t < 0), t, left)
                 right = torch.where(shr & (t >= 0), t, right)
-                if bool(acc.all()):
+                if rows.all_true(acc):
                     break
 
             total_acc = total_acc + count(acc)
             moved = moved | acc
             jump = jump + torch.sum(torch.where(
-                acc, torch.linalg.norm(x_n - x, dim=-1),
+                _real(acc, rows.real), torch.linalg.norm(x_n - x, dim=-1),
                 torch.zeros_like(ldj)))
             z, x, ldj, logl, der = z_n, x_n, ldj_n, logl_n, der_n
             xs.append(x)
 
-        chains = torch.stack(xs, dim=1)
+        ncall, total_acc, jump = rows.totals(ncall, total_acc, jump)
+        chains, z, x, logl, moved, *der = rows.gather(
+            [torch.stack(xs, dim=1), z, x, logl, moved]
+            + ([der] if der is not None else []))
+        der = der[0] if der else None
         if stat_moments is None:
             mu = torch.mean(chains, dim=(0, 1))
             var = torch.var(chains, dim=(0, 1), unbiased=False)
@@ -625,11 +680,12 @@ class LatentKernels:
     def slice_from_live(self, generator, active_u, active_logl, *,
                         num_chains, loglstar, width, slice_steps,
                         max_expand=4, max_shrink=10, adapt_cov=False,
-                        active_derived=None):
+                        active_derived=None, mesh=None):
         """One slice pool generation started from the live set: the chain
         starts and red-black split of :meth:`mcmc_from_live`, then
         :meth:`slice_draws` and :meth:`slice_body` (cov directions from
-        the complement half when ``adapt_cov``)."""
+        the complement half when ``adapt_cov``; with ``mesh`` the chains
+        dp-sharded)."""
         z0, logl0, derived0, _, mu, var, cov_mask = self._chain_starts(
             generator, active_u, active_logl, num_chains, adapt_cov,
             active_derived)
@@ -639,7 +695,7 @@ class LatentKernels:
             draws, z0, logl0, loglstar=loglstar, width=width,
             max_expand=max_expand, stat_moments=(mu, var),
             cov_from=active_u if adapt_cov else None, cov_mask=cov_mask,
-            derived0=derived0)
+            derived0=derived0, mesh=mesh)
 
     # --------------------------------------------------------- ensemble
 
@@ -890,6 +946,64 @@ class LatentKernels:
 def _f32(value, like):
     """``value`` as a float32 tensor on ``like``'s device."""
     return torch.as_tensor(value, dtype=torch.float32, device=like.device)
+
+
+def _real(mask, real):
+    """``mask`` on the rows that count (``real`` None: all of them)."""
+    return mask if real is None else mask & real
+
+
+def _count(mask, real):
+    """The rows of ``mask`` that count, as a 0-dim int64 tensor."""
+    return torch.sum(_real(mask, real).to(torch.int64))
+
+
+class _Rows:
+    """This rank's share of an ``n``-chain batch under ``mesh``
+    (:mod:`nnest_torch.parallel.mesh`): the rows of the batch padded to a
+    multiple of dp by repeating row 0, ``real`` the mask of the rows that
+    are not pad (None when there is no pad). Without a mesh every method
+    is the identity, so the unsharded kernels run exactly as written."""
+
+    def __init__(self, mesh, n, device):
+        self.mesh, self.n, self.real = mesh, n, None
+        if mesh is not None:
+            self.rows, self.pad = batch_sharding(mesh, n)
+            if self.pad:
+                self.real = real_rows(mesh, n, device)
+
+    def local(self, x):
+        """This rank's rows of a whole-batch tensor (None passes)."""
+        if self.mesh is None or x is None:
+            return x
+        return pad_rows(x, self.pad)[self.rows]
+
+    def total(self, x):
+        """``x`` summed over the ranks."""
+        return x if self.mesh is None else all_reduce_sum(x, self.mesh)
+
+    def totals(self, *xs):
+        """0-dim counters summed over the ranks in one collective (float64
+        carries the integer counts exactly)."""
+        if self.mesh is None:
+            return xs
+        flat = all_reduce_sum(torch.stack([x.to(torch.float64) for x in xs]),
+                              self.mesh)
+        return tuple(f.to(x.dtype) for f, x in zip(flat, xs))
+
+    def all_true(self, mask):
+        """Whether ``mask`` holds on every real row of every rank."""
+        if self.mesh is None:
+            return bool(mask.all())
+        return int(self.total(_count(~mask, self.real))) == 0
+
+    def gather(self, xs):
+        """Whole-batch tensors from this rank's rows of each of ``xs``
+        (float32 or bool, rows first), in one collective; the pad
+        dropped."""
+        if self.mesh is None:
+            return xs
+        return gather_columns(xs, self.mesh, self.n)
 
 
 # The ensemble's moves: each maps (the moving walkers, the other half, the

@@ -7,7 +7,9 @@ dynamic step size, the whole trajectory on the device
 (``LatentKernels.mcmc`` in collect-chains mode: one launch of the spline
 inverse a step for a single-speed spline flow, and one a call). The chain
 statistics are logged, and the first chain's trace plotted, as in
-``nnest_tpu``.
+``nnest_tpu``. ``mesh=`` (among the keyword arguments, passed to
+:class:`~nnest_torch.samplers.ensemble.EnsembleSampler`) dp-shards the
+chains over the ranks of a process group.
 """
 
 from __future__ import annotations

@@ -64,8 +64,19 @@ when the run raises.
 ``run(mcmc_gen_batch=, rejection_gen_batch=, mcmc_speculate=)`` are
 accepted and checked: ``nnest_tpu`` prefetches that many generations a
 dispatch, with results that do not depend on them; this port dispatches
-one generation at a time for every value (the prefetch is ROADMAP A.6).
-Meshes are not ported yet (ROADMAP.md).
+one generation at a time for every value (the prefetch is ROADMAP A.7).
+
+Under a mesh (``mesh=``, :mod:`nnest_torch.parallel`) every rank runs this
+loop in lockstep. A Metropolis or slice pool generation takes the
+one-process route with the mesh passed down: every rank draws the same
+starts and red-black split on the device (``LatentKernels.mcmc_from_live``
+and ``slice_from_live``) and steps its share of the chains; the other
+strategies run replicated. Rank 0 alone reads and writes checkpoints: on
+resume it broadcasts its decision and its whole state (live and dead
+points, the evidence, the controller, the pool, the insertion ranks, the
+thread slots, the counters, the sampler's and the trainer's generators, the
+trainer's flow, Adam moments and scalars) in one collective
+(:meth:`Sampler._broadcast_resume`).
 """
 
 from __future__ import annotations
@@ -141,7 +152,8 @@ class NestedSampler(Sampler):
                  num_live_points=1000,
                  seed=0,
                  use_gpu=False,
-                 device='cuda'):
+                 device='cuda',
+                 mesh=None):
         # The sampling unit cube is [-1, 1]^d; ``transform`` maps it to
         # physical space.
         prior = UniformPrior(x_dim, -1.0, 1.0)
@@ -167,7 +179,7 @@ class NestedSampler(Sampler):
             base_dist=base_dist, scale=scale, trainer=trainer,
             transform_prior=False, oversample_rate=oversample_rate,
             log_level=log_level, param_names=param_names, seed=seed,
-            use_gpu=use_gpu, device=device)
+            use_gpu=use_gpu, device=device, mesh=mesh)
         self.num_live_points = num_live_points
         self._save_params({'num_live_points': num_live_points})
         self.logger.info('Num live points [%d]' % self.num_live_points)
@@ -448,7 +460,7 @@ class NestedSampler(Sampler):
             checkpoint()
 
         pbar = None
-        if show_progress:
+        if show_progress and self.single_or_primary_process:
             try:
                 from tqdm import tqdm
             except ImportError:
@@ -970,7 +982,17 @@ class NestedSampler(Sampler):
     def _load_checkpoint(self):
         """The newest valid checkpoint of this run directory, or None (no
         resume asked, a fresh directory, or no usable checkpoint). A
-        corrupt checkpoint falls back to the next older one."""
+        corrupt checkpoint falls back to the next older one. With more than
+        one rank, rank 0's (the only one with a run directory) is
+        broadcast with the generators and the trainer
+        (:meth:`Sampler._broadcast_resume`)."""
+        state = self._load_checkpoint_local()
+        if self.mpi_size > 1:
+            state = self._broadcast_resume(state)
+        return state
+
+    def _load_checkpoint_local(self):
+        """This rank's newest valid checkpoint (module docstring)."""
         if not self.resume or self.logs is None or self.logs['created']:
             return None
         ck = self.logs['checkpoint']

@@ -42,6 +42,19 @@ makes (spline, NVP, Cholesky, fast-slow):
   numpy, lists or tensors (a 1-D input is one row) and returns tensors on
   the trainer's device, or float32 numpy with ``to_numpy=True``.
 
+- Data parallelism (``mesh=``, a :class:`nnest_torch.parallel.Mesh` with a
+  process group): every rank draws the same epoch order and noise; when the
+  training rows' count divides dp each batch is dp-sharded (its rows padded
+  to a multiple of dp with weight 0), each rank backpropagates its rows'
+  share of the batch's weighted mean NLL, and the gradients and the NLL are
+  summed over the ranks in one collective before Adam, whose update is then
+  the same on every rank; the L2 term is added on rank 0 (the step is
+  ``parallel.make_sharded_train_step``). The validation loss is sharded and
+  summed the same way when the validation rows' count divides dp. On a GPU
+  the sharded step is two CUDA graphs, the forward and backward, then Adam,
+  with the collective eager between them (gloo cannot be captured); a
+  one-rank mesh without a process group trains as ``mesh=None`` does.
+
 Training is the flow's forward plus autograd in plain PyTorch, and the
 transport API the flow's plain ``forward`` and ``inverse``; the JAX package
 runs both in plain XLA too, with no hand-written kernel. ``epoch_chunk``
@@ -53,6 +66,7 @@ writes nothing.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 import os
@@ -66,6 +80,9 @@ import torch
 from nnest_torch.flows import build_flow
 from nnest_torch.flows.convert import (param_tensors, params_from_jax,
                                        params_to_jax)
+from nnest_torch.parallel.mesh import all_reduce_sum, shard_batch
+from nnest_torch.parallel.sharded import (dp_backward, dp_rows,
+                                          make_sharded_train_step)
 from nnest_torch.utils.device import resolve_device
 from nnest_torch.utils.logger import create_logger
 
@@ -104,9 +121,13 @@ class Trainer:
                  num_bins=8,
                  tail_bound=3.0,
                  epoch_chunk=25,
-                 device='cuda'):
+                 device='cuda',
+                 mesh=None):
         del use_gpu   # placement follows ``device``
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # data parallelism needs a process group to sum over
+        self._dp = mesh is not None and mesh.group is not None
         self.x_dim = x_dim
         self.batch_size = batch_size
         self.epoch_chunk = max(1, int(epoch_chunk))   # no effect
@@ -195,9 +216,15 @@ class Trainer:
             weight_decay=self.weight_decay,
             capturable=self.device.type == 'cuda')
 
-    def _validation_loss(self, valid):
+    def _validation_loss(self, valid, shard=False):
+        """The mean NLL of ``valid``; with ``shard`` each rank sums its
+        rows' share and the shares are summed over the ranks."""
         with torch.no_grad():
-            return -torch.mean(self.model.log_prob(valid))
+            if not shard:
+                return -torch.mean(self.model.log_prob(valid))
+            rows, _ = shard_batch(valid, self.mesh)
+            part = torch.sum(self.model.log_prob(rows)) / valid.shape[0]
+            return -all_reduce_sum(part.reshape(1), self.mesh)[0]
 
     def train(self,
               samples,
@@ -237,6 +264,10 @@ class Trainer:
         bs = min(self.batch_size, n_train)
         nb = (n_train + bs - 1) // bs
 
+        # dp-shard the batches and the validation set when their row counts
+        # divide dp (nnest_tpu's rule); otherwise every rank computes all
+        shard = (self._dp and n_train % self.mesh.dp == 0,
+                 self._dp and n_valid % self.mesh.dp == 0)
         best_params = copy.deepcopy(self.model.state_dict())
         best_val, best_i, counter, i = 1e30, -1, 0, 0
         val_trace = []
@@ -246,7 +277,7 @@ class Trainer:
             noise = torch.randn((nb, bs, self.x_dim), generator=self.generator,
                                 device=self.device)
             train_loss, val_loss = self._train_epoch(
-                train, valid, order, noise, training_jitter, l2_norm)
+                train, valid, order, noise, training_jitter, l2_norm, *shard)
             val_trace.append(val_loss)
             if val_loss < best_val:
                 best_val, best_i, counter = val_loss, i, 0
@@ -281,14 +312,17 @@ class Trainer:
                 '[%5.4f]' % (self.best_validation_epoch,
                              self.best_validation_loss, time.time() - start))
 
-    def _train_epoch(self, train, valid, order, noise, jitter, l2_norm=0.0):
+    def _train_epoch(self, train, valid, order, noise, jitter, l2_norm=0.0,
+                     shard_train=False, shard_valid=False):
         """One epoch: the training rows in ``order`` (a permutation of
         ``len(train)``), padded to ``noise.shape[:2]`` = (batches, batch
         size) with repeated rows of weight 0, each batch plus ``jitter``
         times its ``noise`` rows, one Adam step a batch on the weighted mean
         NLL (plus ``l2_norm`` times the sum of squares of the parameter
-        tree). Returns (the batches' mean NLL as a 0-dim tensor, the
-        validation loss after the epoch as a float)."""
+        tree); ``shard_train`` and ``shard_valid`` dp-shard the steps and
+        the validation loss (module docstring). Returns (the batches' mean
+        NLL as a 0-dim tensor, the validation loss after the epoch as a
+        float)."""
         nb, bs = noise.shape[:2]
         pad = nb * bs - train.shape[0]
         epoch = train[order]
@@ -299,13 +333,19 @@ class Trainer:
         weights = torch.ones(nb, bs, device=train.device)
         if pad:
             weights[-1, bs - pad:] = 0.0
-        step = (self._graphed_step(bs, l2_norm) if self._use_graphs
-                else lambda x, w: self._step(x, w, l2_norm))
+        if shard_train:
+            step = (self._graphed_dp_step(bs, l2_norm) if self._use_graphs
+                    else make_sharded_train_step(self.model, self.optimizer,
+                                                 self.mesh, l2_norm))
+        else:
+            step = (self._graphed_step(bs, l2_norm) if self._use_graphs
+                    else lambda x, w: self._step(x, w, l2_norm))
         train_loss = 0.0
         for b in range(nb):
             train_loss = train_loss + step(epoch[b] + jitter * noise[b],
                                            weights[b])
-        return train_loss / nb, float(self._validation_loss(valid))
+        return train_loss / nb, float(self._validation_loss(valid,
+                                                            shard_valid))
 
     def _step(self, batch, w, l2_norm):
         """One Adam step on the weighted mean NLL of ``batch`` (plus the
@@ -344,26 +384,36 @@ class Trainer:
         return step
 
     def _capture(self, bs, l2_norm):
-        """Warm up and capture one training step. The warm-up steps move
-        the parameters and Adam's state; both are put back as they were
-        (a state not made yet as Adam makes it: zeros, step 0)."""
+        """Warm up and capture one training step (:meth:`_warmed_up`)."""
+        static_x = torch.zeros(bs, self.x_dim, device=self.device)
+        static_w = torch.ones(bs, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        with self._warmed_up(lambda: self._step(static_x, static_w,
+                                                l2_norm)):
+            with torch.cuda.graph(graph, capture_error_mode='thread_local'):
+                static_nll = self._step(static_x, static_w, l2_norm)
+        return static_x, static_w, static_nll, graph
+
+    @contextlib.contextmanager
+    def _warmed_up(self, step):
+        """Run ``step`` three times on a side stream (the warm-up a CUDA
+        graph capture needs), then the block (the captures). The warm-up
+        moves the parameters and Adam's state: on exit both are put back
+        as they were (a state not made yet as Adam makes it: zeros, step
+        0)."""
         opt = self.optimizer
         params = list(self.model.parameters())
         saved_params = [p.detach().clone() for p in params]
         saved_state = {p: {k: v.clone() for k, v in opt.state[p].items()}
                        for p in params if opt.state[p]}
-        static_x = torch.zeros(bs, self.x_dim, device=self.device)
-        static_w = torch.ones(bs, device=self.device)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(3):
-                self._step(static_x, static_w, l2_norm)
+                step()
         torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
         opt.zero_grad(set_to_none=True)
-        with torch.cuda.graph(graph, capture_error_mode='thread_local'):
-            static_nll = self._step(static_x, static_w, l2_norm)
+        yield
         with torch.no_grad():
             for p, saved in zip(params, saved_params):
                 p.copy_(saved)
@@ -373,7 +423,67 @@ class Trainer:
                         v.copy_(saved_state[p][k])
                     else:
                         v.zero_()
-        return static_x, static_w, static_nll, graph
+
+    def _graphed_dp_step(self, bs, l2_norm):
+        """The dp step (``parallel.make_sharded_train_step``) for (bs, d)
+        batches as two CUDA graphs: the forward and backward with the
+        gradients and NLL packed into one flat tensor, then (after the
+        eager collective sums it over the ranks) the unpacking into the
+        gradients and Adam. Captured as :meth:`_graphed_step` is."""
+        if self._graphs_for is not self.optimizer:
+            self._graphs, self._graphs_for = {}, self.optimizer
+        key = ('dp', int(bs), float(l2_norm))
+        if key not in self._graphs:
+            self._graphs[key] = self._capture_dp(int(bs), float(l2_norm))
+        static_x, static_w, static_wt, flat, reduced, graph_a, graph_b = \
+            self._graphs[key]
+
+        def step(batch, w):
+            rows, w_rows = dp_rows(self.mesh, batch, w)
+            static_x.copy_(rows)
+            static_w.copy_(w_rows)
+            static_wt.copy_(torch.sum(w))
+            graph_a.replay()
+            reduced.copy_(all_reduce_sum(flat, self.mesh))
+            graph_b.replay()
+            return reduced[-1].clone()
+
+        return step
+
+    def _capture_dp(self, bs, l2_norm):
+        """Warm up and capture the two graphs of :meth:`_graphed_dp_step`
+        (:meth:`_warmed_up`). The warm-up sums nothing over the ranks:
+        every rank runs it on the same zeros, and its result is
+        discarded."""
+        params = list(self.model.parameters())
+        m = shard_batch(torch.zeros(bs, 1), self.mesh)[0].shape[0]
+        static_x = torch.zeros(m, self.x_dim, device=self.device)
+        static_w = torch.ones(m, device=self.device)
+        static_wt = torch.full((), float(bs), device=self.device)
+
+        def backward():
+            nll = dp_backward(self.model, self.optimizer, self.mesh,
+                              static_x, static_w, static_wt, l2_norm,
+                              self._l2_tensors)
+            return torch.cat([p.grad.reshape(-1) for p in params]
+                             + [nll.reshape(1)])
+
+        def update(packed):
+            offset = 0
+            for p in params:
+                n = p.numel()
+                p.grad.copy_(packed[offset:offset + n].view_as(p))
+                offset += n
+            self.optimizer.step()
+
+        graph_a, graph_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with self._warmed_up(lambda: update(backward())):
+            with torch.cuda.graph(graph_a, capture_error_mode='thread_local'):
+                flat = backward()
+            reduced = torch.zeros_like(flat)
+            with torch.cuda.graph(graph_b, capture_error_mode='thread_local'):
+                update(reduced)
+        return static_x, static_w, static_wt, flat, reduced, graph_a, graph_b
 
     # --------------------------------------------------------- persistence
 

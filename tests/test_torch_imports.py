@@ -53,6 +53,11 @@ for kw in (dict(flow='nvp', scale='constant'), dict(flow='cholesky'),
 trainer = Trainer(3, device='cpu', log=False)
 trainer.restore_state(trainer.snapshot_state())
 import nnest_torch.cli.analyse, nnest_torch.cli.ensemble, nnest_torch.cli.nested
+import nnest_torch.cli.multihost
+from nnest_torch.parallel import get_mesh, make_sharded_mcmc, shard_batch
+mesh = get_mesh()
+assert shard_batch(torch.zeros(3, 2), mesh)[0].shape == (3, 2)
+assert nnest_torch.cli.multihost.build_parser().parse_args([]).device == 'cuda'
 from nnest_torch.utils.buffer import SampleBuffer
 from nnest_torch.utils.io_async import SerialWriter
 writer, rows = SerialWriter(), SampleBuffer(4)

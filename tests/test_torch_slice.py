@@ -213,3 +213,29 @@ def test_slice_strategy_gives_the_analytic_evidence(tmp_path):
     assert s.mixing_rel_ratio is not None and s._cond_infl == []
     with pytest.raises(ValueError, match="slice_adapt must be 'cov' or"):
         s.run(strategy=['slice'], slice_adapt='full')
+
+
+def test_slice_sample_final_from_explicit_starts():
+    """Slice chains from explicit starts (``_slice_sample_final``, the
+    slice counterpart of the seed refresh's Metropolis): one chain a start,
+    every end above loglstar with its likelihood recomputed, the starts'
+    given likelihoods not paid again, and the generation's mixing ratio
+    against the slice null; with cov directions from the given rows too."""
+    s = NestedSampler(2, Gaussian(2, 0.0, lim=3),
+                      transform=lambda u: 3.0 * u, num_live_points=50,
+                      log_dir=None, seed=2, device='cpu', log_level=30)
+    u0 = np.random.RandomState(0).uniform(-0.3, 0.3, size=(20, 2))
+    logl0, _ = s.loglike(u0)
+    loglstar = float(np.min(logl0)) - 1e-3
+    for cov_from in (None, torch.tensor(u0, dtype=torch.float32)):
+        calls = s.total_calls
+        u, logl, derived, moved, scale, jump, ncall = s._slice_sample_final(
+            3, 1.0, u0, init_loglikes=logl0, loglstar=loglstar,
+            cov_from=cov_from)
+        assert u.shape == (20, 2) and logl.shape == (20,)
+        assert derived.shape == (20, 0) and moved.any()
+        assert np.all(logl > loglstar) and np.all(np.abs(u) <= 1.0)
+        np.testing.assert_allclose(logl, s.loglike(u)[0], rtol=1e-5)
+        assert ncall >= 3 * 20 and s.total_calls == calls + ncall + 20
+        assert s._mix_rels[-1] == s._mix_ratios_eig[-1] / te.slice_mix_null(
+            3, 2)

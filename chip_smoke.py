@@ -2,12 +2,13 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs fourteen phases, printing one JSON line
+from JAX or ``nnest_tpu`` and runs fifteen phases, printing one JSON line
 per phase with its seconds:
 
-1. device: the card's name and power limit (``nvidia-smi``), and the build
-   of ``nnest_torch/csrc/spline_inverse.cu`` with the ``-Xptxas -v``
-   registers and spills of every instantiation;
+1. device: the card's name and power limit (``nvidia-smi``), and the builds
+   of ``nnest_torch/csrc/spline_inverse.cu`` and ``consume_pool.cu`` (one
+   ``nvcc`` each, started together) with the ``-Xptxas -v`` registers and
+   spills of every instantiation;
 2. kernel: the CUDA spline-flow inverse against its plain PyTorch twin on
    the card, at d in {2, 5, 16, 50, 100} (hidden 16/16/32/64/64) and N in
    {1, 128, 256, 512, 1000, 4096, 4097}, and at d in {16, 50} with N in
@@ -28,7 +29,14 @@ per phase with its seconds:
    shapes included) beside the least time the card could take;
    the per-block
    entry at d = 16; and the rows a thread block takes and the ring's
-   stages are swept (N = 65536: 32, 64 and 128 rows);
+   stages are swept (N = 65536: 32, 64 and 128 rows). Then the
+   pool-consumption kernel (``consume_pool``) against its twin, bit for
+   bit, at every shape a path runs it (``POOL_SHAPES``: 1000 live points x
+   256 Metropolis candidates at d = 16, with and without 3 derived values;
+   100 x 10 at d = 2; 1000 x 65536 rejection trials with 0.1% and 30%
+   flagged;
+   60000 live points, past its shared memory), each launch timed between
+   CUDA events beside its bound and the twin's time;
 3. main path: ``NestedSampler`` on a 16-D Gaussian (transform 5x, hidden 32,
    256 chains x 80 steps, default strategy and retrain gate) until the
    ladder has reached 'mcmc', the flow has been trained and at least three
@@ -139,7 +147,19 @@ per phase with its seconds:
    on the 5-D Gaussian to its logz, through MCMC generations; (d) a 2-rank
    run cut at ``max_iters=300`` and resumed by fresh ranks with another
    seed, ncall grown, to its logz. It prints the
-   backend of each part and the per-step syncs of (a).
+   backend of each part and the per-step syncs of (a);
+15. prefetch: multi-generation prefetch (``mcmc_gen_batch`` and
+   ``rejection_gen_batch``, 8 by default, so phases 3, 6, 8, 11, 12 and 13
+   run it, consume_pool launched on phases 3, 6 and 8): the phase-3 model
+   at one generation a dispatch, equal to phase 3's run in (logz, h, ncall,
+   niter); on its trained flow, one generation a dispatch against eight, in
+   turns, for a Metropolis and a prior-rejection generation: the wall a
+   generation, the host syncs a generation (under
+   ``torch.cuda.set_sync_debug_mode``), the device's busy share and the
+   launches a generation; then the 2-D Gaussian (100 live points) at 1 and
+   8 with speculation won and lost, with slice and with flow rejection,
+   equal bit for bit, and a run cut inside a Metropolis buffer and resumed
+   with another seed, equal to the uninterrupted run.
 
 ``--baseline SRC`` also builds SRC, an earlier version of the kernel with
 its own C entry point (the unpadded layout, no launch plan), checks it
@@ -151,7 +171,8 @@ kernel's launches by path (``mcmc``: phase 3, ``rejection_flow`` and
 ``density_flow``: phase 6, ``per_block``: phase 5, ``slice``: phase 8,
 ``mcmc_sampler`` and ``ensemble``: phase 10, ``dynamic`` and
 ``host_likelihood``: phase 11, ``derived``: phase 12, ``cli``: phase 13,
-``mesh``: phase 14, every rank's launches in parts a, b and d);
+``mesh``: phase 14, every rank's launches in parts a, b and d,
+``prefetch``: phase 15; consume_pool's by the first word of each path);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before that line.
@@ -387,6 +408,8 @@ def ptxas_report(build_log):
 
 
 def phase_device():
+    from concurrent.futures import ThreadPoolExecutor
+    from nnest_torch.ops import consume_pool as cp
     from nnest_torch.ops import spline_inverse as si
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -394,9 +417,14 @@ def phase_device():
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.time()
-    si.load_library()
+    # one nvcc for each source, started together
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(m.load_library) for m in (si, cp)]:
+            f.result()
     build_s = time.time() - t0
-    ptxas = ptxas_report(si.build_log)
+    ptxas = ptxas_report(si.build_log) + [
+        'consume_pool: ' + line.strip() for line in cp.build_log.splitlines()
+        if 'spill' in line or 'Used' in line]
     for line in ptxas:
         print(line, flush=True)
     return {'gpu': smi, 'kind': torch.cuda.get_device_name(0),
@@ -603,6 +631,7 @@ def phase_kernel(records, earlier):
                         si.launch_plan(n, d, hidden_for(d), 8)[k]
                         for k in ('rows', 'stages'))})
 
+    pool = consume_pool_checks(records[2])
     main, pb = timings[0], per_block[0]
     records[0].update({
         'max_abs_err': worst['x'], 'max_abs_err_logdet': worst['ld'],
@@ -616,7 +645,111 @@ def phase_kernel(records, earlier):
         'shape': 'd=16 hidden=32 K=8 blocks=3 N=256', 'shapes': per_block})
     return {'cases': cases, 'max_abs_dx': worst['x'],
             'max_abs_dlogdet': worst['ld'], 'timings': timings,
-            'per_block_timings': per_block, 'rows_sweep': sweep}
+            'per_block_timings': per_block, 'rows_sweep': sweep,
+            'consume_pool': pool}
+
+
+# consume_pool's shapes: (live points, candidates, d, derived values, share
+# of the candidates flagged, what runs it). A phase-3 Metropolis generation
+# (256 chains), the same with phase 12's derived values, the 2-D command
+# line's (100 live points in the CPU tests' runs, 10 chains), a rejection
+# generation at 65536 trials with few candidates passing and with many (a
+# flow generation just after the switch, before the ladder halves the
+# trials), and a live set past the kernel's shared memory (its
+# global-memory path).
+POOL_SHAPES = ((1000, 256, 16, 0, 0.9, 'mcmc'),
+               (1000, 256, 16, 3, 0.9, 'derived'),
+               (100, 10, 2, 0, 0.9, 'cli'),
+               (1000, 65536, 16, 0, 0.001, 'rejection'),
+               (1000, 65536, 16, 0, 0.3, 'rejection, many passing'),
+               (60000, 256, 2, 0, 0.9, 'global memory'))
+
+
+def pool_inputs(n, m, d, k, share, seed):
+    """Live set and candidates on the card, logl rounded to 0.01 so that
+    ties occur: (au, al, ad, it, flags, cand_logl, cand_x, cand_derived)."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+
+    def normal(*shape, mean=0.0):
+        return torch.randn(*shape, generator=g, device='cuda') + mean
+
+    al = torch.round(normal(n) * 100) / 100
+    cl = torch.round(normal(m, mean=0.5) * 100) / 100
+    flags = torch.rand(m, generator=g, device='cuda') < share
+    return (normal(n, d), al, normal(n, k) if k else None,
+            torch.tensor(5, dtype=torch.int32, device='cuda'), flags, cl,
+            normal(m, d), normal(m, k) if k else None)
+
+
+def pool_cost(n, m, d, k, accepts):
+    """(operations, bytes) that one consumption needs at these inputs:
+    a compare a candidate and an argmin of the live set at the start and
+    after each accept; the flags and logl read, the live logl read once,
+    and per accept a row of x and derived read and written and a logl."""
+    ops = m + n * (1 + accepts)
+    nbytes = 5 * m + 4 * n + accepts * (8 * d + 8 * k + 4)
+    return ops, nbytes
+
+
+def consume_pool_checks(record, reps=20):
+    """consume_pool against its twin at every shape a path runs
+    (:data:`POOL_SHAPES`), bit for bit (live set, logl, derived, it and
+    the boundary flag), then timed: each launch between CUDA events on
+    its own fresh copy of the inputs, queued behind a sleep so that the
+    host's launch cost stays out; the twin (which reads a flag to the host
+    an accept) by the host clock; the bound from :func:`pool_cost`."""
+    from nnest_torch.ops.consume_pool import consume_pool, consume_pool_twin
+    shapes = []
+    for i, (n, m, d, k, share, path) in enumerate(POOL_SHAPES):
+        inputs = pool_inputs(n, m, d, k, share, seed=40 + i)
+
+        def fresh():
+            return [None if t is None else t.clone() for t in inputs]
+
+        got = consume_pool(*fresh(), update_interval=7)
+        want = consume_pool_twin(*fresh(), update_interval=7)
+        torch.cuda.synchronize()
+        for name, a, b in zip(('au', 'al', 'ad', 'it', 'crossed'), got,
+                              want):
+            if (a is None) != (b is None) or (
+                    a is not None and not torch.equal(a, b)):
+                raise AssertionError('consume_pool differs from its twin in '
+                                     '%s at n=%d m=%d d=%d k=%d'
+                                     % (name, n, m, d, k))
+        accepts = int(got[3]) - 5
+        copies = [fresh() for _ in range(reps)]
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(reps)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(5e6))
+        for (start, end), args in zip(events, copies):
+            start.record()
+            consume_pool(*args, update_interval=7)
+            end.record()
+        torch.cuda.synchronize()
+        ms = float(np.median([a.elapsed_time(b) for a, b in events]))
+        plain = []
+        for _ in range(3):
+            args = fresh()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            consume_pool_twin(*args, update_interval=7)
+            torch.cuda.synchronize()
+            plain.append((time.perf_counter() - t0) * 1e3)
+        ops, nbytes = pool_cost(n, m, d, k, accepts)
+        b_ms, b_by = bound_ms(ops, nbytes)
+        shapes.append({'path': path, 'n': n, 'm': m, 'd': d, 'k': k,
+                       'accepts': accepts, 'ms': ms,
+                       'plain_ms': float(np.median(plain)), 'bound_ms': b_ms,
+                       'bound_by': b_by, 'over_bound': ms / b_ms,
+                       'ops': ops, 'bytes': nbytes})
+    main = shapes[0]
+    record.update({'max_abs_err': 0.0, 'ms': main['ms'],
+                   'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
+                   'bound_by': main['bound_by'],
+                   'shape': 'n=1000 m=256 d=16', 'shapes': shapes})
+    return shapes
 
 
 def phase_per_block_entry(record):
@@ -717,7 +850,7 @@ def phase_main_path(record, log_dir):
     t0 = time.time()
     sampler.run(max_iters=5200, train_iters=100)
     wall = time.time() - t0
-    launches = read_counts('mcmc')
+    launches = read_counts('mcmc', pool_launched=True)
     record['launches_by_path']['mcmc'] = launches
     stats = sampler.run_stats
     if stats['mcmc_generations'] < 3 or stats['trainings'] < 1:
@@ -727,6 +860,7 @@ def phase_main_path(record, log_dir):
         raise AssertionError('non-finite logz %r' % sampler.logz)
     return {'wall_s': wall, 'launches': launches, 'iterations': sampler.niter,
             'ncall': sampler.total_calls, 'logz_so_far': sampler.logz,
+            'h': sampler.h, 'pool_launches': POOL_LAUNCHES['mcmc'],
             'training_epochs': sampler.trainer.total_iters, **stats,
             'generation_profile': profile_generation(mcmc_generation(sampler)),
             'tooling_turns': tooling_turns(log_dir)}
@@ -831,16 +965,26 @@ def phase_correctness(log_dir):
     return out
 
 
+# consume_pool's launches by path (the first word of read_counts' path),
+# added up over the phases
+POOL_LAUNCHES = {}
+
+
 def reset_counts():
+    from nnest_torch.ops import consume_pool as cp
     from nnest_torch.ops import fused_spline
     from nnest_torch.ops import spline_inverse as si
     si.launches = si.launches_per_block = 0
     fused_spline.calls = 0
+    cp.launches = cp.twin_calls = 0
 
 
-def read_counts(path):
+def read_counts(path, pool_launched=False):
     """The launch counts after a path, checked: the whole-chain kernel
-    launched, the plain twin never called."""
+    launched, neither plain twin called, and with ``pool_launched`` the
+    consumption kernel launched too (a path that prefetches generations).
+    consume_pool's launches go to :data:`POOL_LAUNCHES`."""
+    from nnest_torch.ops import consume_pool as cp
     from nnest_torch.ops import fused_spline
     from nnest_torch.ops import spline_inverse as si
     torch.cuda.synchronize()
@@ -850,7 +994,49 @@ def read_counts(path):
     if twin != 0:
         raise AssertionError('the %s path called the plain twin %d times on '
                              'the card' % (path, twin))
+    if cp.twin_calls != 0:
+        raise AssertionError('the %s path called consume_pool\'s twin %d '
+                             'times on the card' % (path, cp.twin_calls))
+    if pool_launched and cp.launches <= 0:
+        raise AssertionError('the %s path never launched consume_pool'
+                             % path)
+    key = path.split()[0]
+    POOL_LAUNCHES[key] = POOL_LAUNCHES.get(key, 0) + cp.launches
     return launches
+
+
+def time_dispatches(sampler, names):
+    """Wrap the pool-generation methods ``names`` of ``sampler`` so that
+    each call records its wall (each ends in a device-to-host copy), the
+    spline kernel's launches and its generations (a batch helper's list,
+    else one). Returns (the records, a function that unwraps them)."""
+    from nnest_torch.ops import spline_inverse as si
+    calls = []
+    for name in names:
+        def timed(*args, _real=getattr(sampler, name), _name=name,
+                  **kwargs):
+            n0 = si.launches
+            t0 = time.perf_counter()
+            out = _real(*args, **kwargs)
+            calls.append({'method': _name,
+                          'ms': (time.perf_counter() - t0) * 1e3,
+                          'launches': si.launches - n0,
+                          'generations': (len(out) if _name.endswith('_batch')
+                                          else 1)})
+            return out
+        setattr(sampler, name, timed)
+
+    def undo():
+        for name in names:
+            delattr(sampler, name)
+
+    return calls, undo
+
+
+def per_generation_ms(calls):
+    """The median wall a generation over the dispatches ``calls``."""
+    return float(np.median([c['ms'] / max(c['generations'], 1)
+                            for c in calls])) if calls else None
 
 
 def phase_flow_rejection(records, log_dir):
@@ -863,16 +1049,8 @@ def phase_flow_rejection(records, log_dir):
     sampler = NestedSampler(d, Gaussian(d, 0.0), transform=lambda x: 5.0 * x,
                             log_dir=os.path.join(log_dir, 'flow'), seed=3,
                             device='cuda')
-    walls = []
-    real = sampler._rejection_flow_sample
-
-    def timed(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = real(*args, **kwargs)   # ends in a device-to-host copy
-        walls.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    sampler._rejection_flow_sample = timed
+    calls, undo = time_dispatches(sampler, (
+        '_rejection_flow_sample', '_rejection_flow_generations_batch'))
     reset_counts()
     t0 = time.time()
     # max_iters < update_interval (500): one training, no retrain check
@@ -880,8 +1058,8 @@ def phase_flow_rejection(records, log_dir):
                 train_iters=100, rejection_batch_size=FLOW_TRIALS,
                 rejection_max_trials=FLOW_TRIALS)
     wall = time.time() - t0
-    launches = read_counts('rejection_flow')
-    del sampler._rejection_flow_sample
+    launches = read_counts('rejection_flow', pool_launched=True)
+    undo()
     stats = sampler.run_stats
     if stats['rejection_flow_generations'] < 3 or stats['trainings'] < 1:
         raise AssertionError('flow rejection did not reach 3 generations '
@@ -890,9 +1068,12 @@ def phase_flow_rejection(records, log_dir):
     if stats['mcmc_generations'] != 0:
         raise AssertionError('the ladder reached mcmc; its launches would '
                              'count as rejection_flow ones: %s' % stats)
-    if launches != stats['rejection_flow_generations']:
-        raise AssertionError('%d launches for %d rejection_flow generations'
-                             % (launches, stats['rejection_flow_generations']))
+    # one a generation run, the served and those left in the buffer
+    run = sum(c['generations'] for c in calls)
+    if launches != run or run != (stats['rejection_flow_generations']
+                                  + stats['generations_discarded']):
+        raise AssertionError('%d launches for %d rejection_flow generations '
+                             'run: %s' % (launches, run, stats))
     if not math.isfinite(sampler.logz):
         raise AssertionError('non-finite logz %r' % sampler.logz)
     by_path = {'rejection_flow': launches}
@@ -940,8 +1121,8 @@ def phase_flow_rejection(records, log_dir):
     }
     return {'wall_s': wall, 'launches': launches, 'iterations': sampler.niter,
             'ncall': sampler.total_calls, 'logz_so_far': sampler.logz,
-            **stats, 'generation_walls_ms': walls,
-            'median_generation_ms': float(np.median(walls)),
+            **stats, 'dispatches': calls,
+            'median_generation_ms': per_generation_ms(calls),
             'density_candidates': int(s_d.shape[0]),
             'density_generation_ms': density_ms,
             'density_launches': by_path['density_flow'],
@@ -1002,23 +1183,12 @@ def phase_slice(record, log_dir):
     generation, a profile of one; then the 2-D slice evidence check."""
     from nnest_torch import NestedSampler
     from nnest_torch.likelihoods import Gaussian
-    from nnest_torch.ops import spline_inverse as si
     d = 16
     sampler = NestedSampler(d, Gaussian(d, 0.0), transform=lambda x: 5.0 * x,
                             log_dir=os.path.join(log_dir, 'slice'), seed=4,
                             device='cuda')
-    gens = []
-    real = sampler._slice_sample_live
-
-    def timed(*args, **kwargs):
-        n0 = si.launches
-        t0 = time.perf_counter()
-        out = real(*args, **kwargs)   # ends in a device-to-host copy
-        gens.append({'ms': (time.perf_counter() - t0) * 1e3,
-                     'launches': si.launches - n0})
-        return out
-
-    sampler._slice_sample_live = timed
+    gens, undo = time_dispatches(sampler, ('_slice_sample_live',
+                                           '_slice_generations_batch'))
     reset_counts()
     t0 = time.time()
     # prior rejection until the expected volume falls below e^-4 (it =
@@ -1026,8 +1196,8 @@ def phase_slice(record, log_dir):
     sampler.run(strategy=['rejection_prior', 'slice'], max_iters=5000,
                 train_iters=30, volume_switch=math.exp(-4.0))
     wall = time.time() - t0
-    launches = read_counts('slice')
-    del sampler._slice_sample_live
+    launches = read_counts('slice', pool_launched=True)
+    undo()
     stats = sampler.run_stats
     if stats['slice_generations'] < 3 or stats['trainings'] < 1:
         raise AssertionError('the slice path did not reach 3 generations '
@@ -1056,10 +1226,10 @@ def phase_slice(record, log_dir):
                              % evidence)
     return {'wall_s': wall, 'launches': launches,
             'iterations': sampler.niter, 'ncall': sampler.total_calls,
-            'logz_so_far': sampler.logz, **stats, 'generations': gens,
+            'logz_so_far': sampler.logz, **stats, 'dispatches': gens,
             'launches_per_generation': float(np.median(
-                [g['launches'] for g in gens])),
-            'median_generation_ms': float(np.median([g['ms'] for g in gens])),
+                [g['launches'] / g['generations'] for g in gens])),
+            'median_generation_ms': per_generation_ms(gens),
             'generation_profile': profile, 'evidence_2d': evidence}
 
 
@@ -2060,6 +2230,231 @@ def phase_mesh(record, log_dir, main_path):
     return out
 
 
+# ------------------------------------------------------------- phase 15
+
+def count_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode('warn')``: the host
+    syncs it made (the warnings of synchronizing calls; an explicit
+    ``torch.cuda.synchronize`` would not count, and the port makes none)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    return sum('synchroniz' in str(w.message) for w in caught)
+
+
+def prefetch_turns(sampler, batch=8, trials=4096, rounds=3):
+    """One generation a dispatch against ``batch`` a dispatch on the
+    phase-3 model's trained flow, in ``rounds`` of turns (1, batch, batch,
+    1), from a
+    synthetic shell: a Metropolis generation (256 chains x 80 steps, as
+    the run) and a prior-rejection generation at ``trials`` trials (the
+    ladder off, so a batch runs ``batch``). Each side does the host work
+    that serves its generations (the endpoint statistics, the compaction).
+    For each: the wall a generation (median of the turns), the host syncs
+    a generation (:func:`count_syncs`) and a profiled call's device busy
+    share and launches (:func:`profile_generation`); for Metropolis also
+    a speculating batch (no stop flag read; the generator's state read
+    before each generation) with its wall and syncs."""
+    u, logl, derived = synthetic_shell(sampler)
+    lstar = float(np.min(logl))
+    step = 1.0 / sampler.x_dim ** 0.5
+
+    def mcmc(n, speculate=False):
+        if n == 1:
+            sampler._mcmc_sample_live(80, u, logl, 256, lstar, step,
+                                      dynamic_step_size=True, adapt_cov=True,
+                                      active_derived=derived)
+            return 1
+        gens = sampler._mcmc_generations_batch(
+            80, u, logl, derived, 256, step, 0, 10 ** 9, n,
+            dynamic_step_size=True, speculate=speculate, adapt_cov=True)
+        for out, _, _, _ in gens:
+            sampler._consume_endpoint_out(out)
+        return len(gens)
+
+    def prior(n):
+        if n == 1:
+            sampler._rejection_prior_sample(lstar, num_trials=trials)
+            return 1
+        gens = sampler._rejection_prior_generations_batch(
+            u, logl, derived, 0, 2 ** 30, [], np.float32(1e30), 125, trials,
+            n, False, False, False)
+        for out, g_lstar, g_it, _ in gens:
+            sampler._compact_rejection_gen(
+                out['x'], out['logl'], np.zeros((trials, 0)), out['ok'],
+                None, None, None, g_lstar, g_it, trials)
+        return len(gens)
+
+    out = {}
+    for name, fn in (('metropolis', mcmc), ('prior_rejection', prior)):
+        walls = {1: [], batch: []}
+        gens = {}
+        for n in (1, batch, batch, 1) * rounds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gens[n] = fn(n)
+            torch.cuda.synchronize()
+            walls[n].append((time.perf_counter() - t0) * 1e3 / gens[n])
+        res = {}
+        for n in (1, batch):
+            holder = {}
+            syncs = count_syncs(lambda: holder.update(g=fn(n)))
+            prof = profile_generation(
+                lambda: (fn(n), torch.cuda.synchronize()))
+            res['batch_%d' % n] = {
+                'generations_a_dispatch': gens[n],
+                'generation_ms': walls[n],
+                'median_generation_ms': float(np.median(walls[n])),
+                'syncs_a_generation': syncs / holder['g'],
+                'device_busy_share': prof['device_busy_share'],
+                'device_busy_ms_a_generation': (
+                    prof['device_busy_ms'] / gens[n]
+                    if isinstance(prof['device_busy_ms'], float)
+                    else 'not measured'),
+                'kernel_launches_a_generation': (prof['kernel_launches']
+                                                 / gens[n]),
+                'spline_launches_a_generation': (
+                    prof['spline_inverse_launches'] / gens[n])}
+        out[name] = res
+    holder = {}
+    syncs = count_syncs(lambda: holder.update(g=mcmc(batch, True)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gens = mcmc(batch, True)
+    torch.cuda.synchronize()
+    out['metropolis']['batch_%d_speculating' % batch] = {
+        'generations_a_dispatch': gens,
+        'generation_ms': (time.perf_counter() - t0) * 1e3 / gens,
+        'syncs_a_generation': syncs / holder['g']}
+    return out
+
+
+def prefetch_2d(log_dir, name, batch, log=False, seed=7, **run_kw):
+    """The 2-D Gaussian (100 live points, 10 chains x 20 steps, a volume
+    switch at 0.5, 50 training epochs: the CPU tests' configuration at
+    nnest_tpu's size) at ``batch`` generations a dispatch, its counts
+    reset before and read after. Returns (final numbers, run_stats, spline
+    launches)."""
+    from nnest_torch import NestedSampler, Trainer
+    from nnest_torch.likelihoods import Gaussian
+    kw = {}
+    if log:
+        # a trainer without files: the checkpoints are the sampler's
+        kw = dict(log_dir=os.path.join(log_dir, 'prefetch_' + name),
+                  append_run_num=False,
+                  resume=True, trainer=Trainer(2, hidden_dim=16, seed=8,
+                                               device='cuda', log_level=30))
+    s = NestedSampler(2, Gaussian(2, 0.0, lim=3), transform=lambda x: 3.0 * x,
+                      num_live_points=100, seed=seed, device='cuda',
+                      log_level=30, **dict(dict(log_dir=None), **kw))
+    reset_counts()
+    s.run(**dict(dict(train_iters=50, dlogz=0.5, volume_switch=0.5,
+                      mcmc_num_chains=10, mcmc_steps=20,
+                      mcmc_gen_batch=batch, rejection_gen_batch=batch),
+                 **run_kw))
+    launches = read_counts('prefetch ' + name)
+    final = [float(s.logz), float(s.logzerr), float(s.h),
+             int(s.total_calls), int(s.niter)]
+    return final, dict(s.run_stats), launches, s
+
+
+def phase_prefetch(record, log_dir, main):
+    """Multi-generation prefetch on the card (module docstring, phase
+    15)."""
+    from nnest_torch.samplers.nested import EXACT_STATE
+    out, launches = {}, 0
+    # (a) the phase-3 model at one generation a dispatch beside phase 3's
+    # run at the default 8
+    sampler = main_path_sampler(log_dir, 'prefetch_b1', tooling='off')
+    reset_counts()
+    t0 = time.time()
+    sampler.run(max_iters=5200, train_iters=100, mcmc_gen_batch=1,
+                rejection_gen_batch=1)
+    wall = time.time() - t0
+    b1_launches = read_counts('prefetch phase-3')
+    b1 = [sampler.logz, sampler.h, sampler.total_calls, sampler.niter]
+    b8 = [main['logz_so_far'], main['h'], main['ncall'], main['iterations']]
+    keys = ('mcmc_generations', 'mcmc_dispatches', 'rejection_generations',
+            'rejection_dispatches', 'generations_discarded',
+            'speculation_losses', 'mcmc_s', 'rejection_s')
+    out['phase3'] = {
+        'batch_1': {'final': b1, 'wall_s': wall,
+                    'spline_launches': b1_launches,
+                    **{k: sampler.run_stats[k] for k in keys}},
+        'batch_8': {'final': b8, 'wall_s': main['wall_s'],
+                    'spline_launches': main['launches'],
+                    'pool_launches': main['pool_launches'],
+                    **{k: main[k] for k in keys}},
+        'equal': b1 == b8}
+    if b1 != b8:
+        raise AssertionError('phase-3 model at batch 1 differs from phase 3 '
+                             'at 8: %s' % out['phase3'])
+    out['turns'] = prefetch_turns(sampler)
+
+    # (b) 2-D pairs: speculation won and lost, slice, flow rejection
+    pairs = {
+        'speculation_won': dict(retrain_nll_threshold=1e9),
+        'speculation_lost': dict(retrain_nll_threshold=-1e9),
+        'slice': dict(strategy=['rejection_prior', 'slice'], slice_steps=8),
+        'flow': dict(strategy=['rejection_prior', 'rejection_flow', 'mcmc'],
+                     rejection_batch_size=64),
+    }
+    for name, kw in pairs.items():
+        spec = dict(mcmc_speculate=True) if 'speculation' in name else {}
+        one, st1, l1, _ = prefetch_2d(log_dir, name + '_1', 1, **kw)
+        eight, st8, l8, _ = prefetch_2d(log_dir, name + '_8', 8, **kw, **spec)
+        launches += l1 + l8
+        out[name] = {'batch_1': one, 'batch_8': eight, 'equal': one == eight,
+                     'spline_launches': [l1, l8],
+                     'stats_1': {k: v for k, v in st1.items() if v},
+                     'stats_8': {k: v for k, v in st8.items() if v}}
+        if one != eight:
+            raise AssertionError('2-D %s: batch 1 %s, batch 8 %s'
+                                 % (name, one, eight))
+    if not out['speculation_lost']['stats_8'].get('speculation_losses'):
+        raise AssertionError('no speculation was lost: %s'
+                             % out['speculation_lost'])
+    if out['speculation_won']['stats_8'].get('speculation_losses'):
+        raise AssertionError('a winning speculation lost generations: %s'
+                             % out['speculation_won'])
+
+    # (c) killed inside a Metropolis buffer and resumed with another seed
+    kw = dict(log_interval=20, mcmc_speculate=True, rejection_batch_size=32)
+    whole, _, l0, _ = prefetch_2d(log_dir, 'whole', 8, log=True, **kw)
+    launches += l0
+    cut = None
+    for stop in (150, 170, 190, 210, 230):
+        _, _, l_cut, s = prefetch_2d(log_dir, 'cut_%d' % stop, 8, log=True,
+                                     max_iters=stop, **kw)
+        launches += l_cut
+        s._drain_io()
+        es = torch.load(os.path.join(s.log_dir, 'checkpoint', EXACT_STATE),
+                        weights_only=True)
+        if es['pool']['mcmc_buf']:
+            cut = {'max_iters': stop, 'checkpoint_it': es['it'],
+                   'buffered': len(es['pool']['mcmc_buf'])}
+            break
+    if cut is None:
+        raise AssertionError('no cut landed inside a Metropolis buffer')
+    resumed, _, l_res, _ = prefetch_2d(log_dir, 'cut_%d' % cut['max_iters'],
+                                       8, log=True, seed=99, **kw)
+    launches += l_res
+    cut.update({'whole': whole, 'resumed': resumed,
+                'equal': whole == resumed})
+    out['resume'] = cut
+    if not cut['equal']:
+        raise AssertionError('resume inside a buffer differs: %s' % cut)
+    record['launches_by_path']['prefetch'] = launches + b1_launches
+    return out
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2081,7 +2476,7 @@ def main():
 
     paths = ('mcmc', 'rejection_flow', 'density_flow', 'per_block', 'slice',
              'mcmc_sampler', 'ensemble', 'dynamic', 'host_likelihood',
-             'derived', 'cli', 'mesh')
+             'derived', 'cli', 'mesh', 'prefetch')
     records = [
         {'name': 'spline_inverse', 'route': 'cuda',
          'source': 'nnest_torch/csrc/spline_inverse.cu',
@@ -2093,6 +2488,12 @@ def main():
          'replaces': 'nnest_tpu/ops/pallas_spline.py:346',
          'launches': None, 'library_ms': None,
          'launches_by_path': dict.fromkeys(paths, 0)},
+        # no Pallas kernel behind it: the XLA lax.scan of nnest_tpu's
+        # LatentKernels._consume_pool
+        {'name': 'consume_pool', 'route': 'cuda',
+         'source': 'nnest_torch/csrc/consume_pool.cu',
+         'replaces': 'nnest_tpu/samplers/kernels.py:708',
+         'launches': None, 'library_ms': None, 'launches_by_path': {}},
     ]
     outputs = {}
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as log_dir:
@@ -2117,14 +2518,17 @@ def main():
                 (12, 'derived', lambda: phase_derived(records[0], log_dir)),
                 (13, 'cli', lambda: phase_cli(records[0], log_dir)),
                 (14, 'mesh', lambda: phase_mesh(records[0], log_dir,
-                                                outputs[3]))):
+                                                outputs[3])),
+                (15, 'prefetch', lambda: phase_prefetch(records[0], log_dir,
+                                                        outputs[3]))):
             t0 = time.time()
             out = outputs[num] = fn()
             emit({'phase': num, 'name': name,
                   'seconds': time.time() - t0, **out})
+    records[2]['launches_by_path'] = dict(POOL_LAUNCHES)
     for rec in records:
         # launches on the paths that drive the kernel (phases 3, 5, 6, 8,
-        # 10, 11, 12, 13, 14)
+        # 10, 11, 12, 13, 14, 15)
         rec['launches'] = sum(rec['launches_by_path'].values())
     emit({'kernels': records})
     emit({'ok': True, 'device': {'platform': 'gpu',

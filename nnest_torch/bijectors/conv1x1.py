@@ -46,7 +46,8 @@ class Invertible1x1Conv(Bijector):
         return z, logdet.expand(x.shape[0])
 
     def inverse(self, z):
-        # x W = z  →  solve W^T x^T = z^T
-        x = torch.linalg.solve(self.assemble().T, z.T).T
+        # x W = z  →  solve W^T x^T = z^T (solve_ex: the same solve without
+        # the host read of its error flag; W = P L U is invertible)
+        x = torch.linalg.solve_ex(self.assemble().T, z.T)[0].T
         logdet = -torch.sum(torch.log(torch.abs(self.S)))
         return x, logdet.expand(z.shape[0])

@@ -123,14 +123,17 @@ def build_parser():
     parser.add_argument('--dlogz', type=float, default=0.5)
     parser.add_argument('--rejection_batch_size', type=int, default=512)
     parser.add_argument('--mcmc_gen_batch', type=int, default=8,
-                        help='accepted for nnest_tpu parity; this port '
-                             'dispatches one generation at a time (the '
-                             'results do not depend on it)')
+                        help='Metropolis or slice pool generations a '
+                             'dispatch, the live set evolved on the device '
+                             'between them (the results do not depend on '
+                             'it)')
     parser.add_argument('--mcmc_speculate', action='store_true',
-                        help='accepted for nnest_tpu parity; no effect '
-                             'here')
+                        help='let those batches run past retrain '
+                             'boundaries, rewinding when the flow does '
+                             'retrain (the results do not depend on it)')
     parser.add_argument('--rejection_gen_batch', type=int, default=8,
-                        help='as --mcmc_gen_batch')
+                        help='as --mcmc_gen_batch, for prior and flow '
+                             'rejection')
     parser.add_argument('--slice_adapt', choices=('cov', 'iso'),
                         default='cov',
                         help='slice direction law: live-set latent '

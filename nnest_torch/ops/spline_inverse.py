@@ -65,6 +65,9 @@ build_log = None
 
 _lib = None
 _lock = threading.Lock()
+# launch plans by (device, n, d, hidden, bins, rows, stages): the piece
+# and copy table on the device and the kernel's plan arguments
+_plans = {}
 
 
 def _ceil4(v):
@@ -291,8 +294,7 @@ def _shape(packed):
 
 def _prepared(packed, device):
     """The kernel's per-flow state, made once and kept in ``packed``: the
-    shape, the padded parameters on ``device``, and the launch plans (with
-    their piece and copy tables on ``device``) by (n, rows, stages)."""
+    shape and the padded parameters on ``device``."""
     prep = packed.get('kernel')
     if prep is not None and prep['device'] == device:
         return prep
@@ -310,7 +312,7 @@ def _prepared(packed, device):
     prep = packed['kernel'] = {
         'device': device, 'lib': lib, 'd': d, 'hidden': hidden,
         'num_bins': num_bins, 'tail_bound': float(tail_bound),
-        'total': total, 'flat': flat, 'plans': {}}
+        'total': total, 'flat': flat}
     return prep
 
 
@@ -335,12 +337,16 @@ def _launch(z, packed, first_block, num_blocks, include_const, rows=None,
     logdet = torch.empty(n, dtype=torch.float32, device=z.device)
     if n == 0:
         return x, logdet
-    plan = prep['plans'].get((n, rows, stages))
+    # The launch plans depend on the shape alone, so they outlive a packing
+    # of the flow (one a generation): their tables are copied to the card
+    # once, not a generation (each copy a host wait).
+    key = (z.device, n, d, prep['hidden'], prep['num_bins'], rows, stages)
+    plan = _plans.get(key)
     if plan is None:
         p = launch_plan(n, d, prep['hidden'], prep['num_bins'], rows, stages)
         table = torch.tensor(p['pieces'] + p['copies'], dtype=torch.int32,
                              device=z.device)
-        plan = prep['plans'][(n, rows, stages)] = (
+        plan = _plans[key] = (
             table, (p['rows'], p['stages'], p['stage_floats'],
                     len(p['pieces']), len(p['copies']), p['smem_bytes']))
     table, plan_args = plan

@@ -110,6 +110,39 @@ def _to_numpy(a):
     return np.asarray(a)
 
 
+def _pull(tensors):
+    """Host numpy copies of ``tensors`` in one device-to-host copy: the
+    bytes of each, padded to 8, concatenated on the device, copied once,
+    then viewed back with their dtypes and shapes. CPU tensors are viewed
+    as they are."""
+    if not tensors or tensors[0].device.type == 'cpu':
+        return [t.detach().numpy() for t in tensors]
+    parts, layout = [], []
+    for t in tensors:
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        layout.append((b.numel(), torch.empty(0, dtype=t.dtype).numpy().dtype,
+                       tuple(t.shape)))
+        parts.append(b)
+        if b.numel() % 8:
+            parts.append(b.new_zeros(8 - b.numel() % 8))
+    host = torch.cat(parts).cpu().numpy()
+    out, offset = [], 0
+    for nbytes, dtype, shape in layout:
+        out.append(host[offset:offset + nbytes].view(dtype).reshape(shape))
+        offset += -(-nbytes // 8) * 8
+    return out
+
+
+def _window(ncs):
+    """The host's efficiency window as the rejection batch runners' ring: (the
+    last 20 values as float32 at their absolute index modulo 20, the
+    count)."""
+    vals = np.zeros(20, np.float32)
+    for i in range(max(0, len(ncs) - 20), len(ncs)):
+        vals[i % 20] = np.float32(ncs[i])
+    return vals, len(ncs)
+
+
 def _identity(u):
     return u
 
@@ -540,13 +573,10 @@ class Sampler:
         if step_size <= 0.0:
             step_size = 2.0 / self.x_dim ** 0.5
         self.trainer.ensure_init()
+        au, al, ad = self._live_tensors(active_u, active_logl, active_derived)
         with torch.no_grad(), self._local_rows():
-            f32 = np.float32
             out = self.kernels.mcmc_from_live(
-                self.generator,
-                torch.as_tensor(active_u.astype(f32), device=self.device),
-                torch.as_tensor(active_logl.astype(f32), device=self.device),
-                active_derived=self._device_derived(active_derived),
+                self.generator, au, al, active_derived=ad,
                 num_chains=num_chains, loglstar=loglstar,
                 step_size=step_size, mcmc_steps=mcmc_steps,
                 dynamic_step_size=dynamic_step_size,
@@ -571,19 +601,142 @@ class Sampler:
 
         Returns (u, logl, derived, moved, scale, mean_jump, ncall)."""
         self.trainer.ensure_init()
+        au, al, ad = self._live_tensors(active_u, active_logl, active_derived)
         with torch.no_grad(), self._local_rows():
-            f32 = np.float32
             out = self.kernels.slice_from_live(
-                self.generator,
-                torch.as_tensor(active_u.astype(f32), device=self.device),
-                torch.as_tensor(active_logl.astype(f32), device=self.device),
-                active_derived=self._device_derived(active_derived),
+                self.generator, au, al, active_derived=ad,
                 num_chains=num_chains, loglstar=loglstar, width=width,
                 slice_steps=slice_steps, max_expand=max_expand,
                 max_shrink=max_shrink, adapt_cov=adapt_cov, mesh=self.mesh)
         return self._consume_endpoint_out(
             out, mix_null=slice_mix_null(slice_steps, self.x_dim),
             cond_null=latent_cond_null(self.x_dim, num_chains))
+
+    # ------------------------------------------- multi-generation prefetch
+
+    def _live_tensors(self, active_u, active_logl, active_derived):
+        """The live set as float32 device tensors, fresh copies (the
+        prefetch batch runners update them in place), derived None when
+        num_derived is 0."""
+        def dev(a):
+            return torch.tensor(np.asarray(a, dtype=np.float32),
+                                device=self.device)
+        return (dev(active_u), dev(active_logl),
+                dev(active_derived) if self.num_derived else None)
+
+    def _mcmc_generations_batch(self, mcmc_steps, active_u, active_logl,
+                                active_derived, num_chains, step_size, it,
+                                update_interval, max_gens,
+                                dynamic_step_size=False, speculate=False,
+                                adapt_cov=False):
+        """Up to ``max_gens`` Metropolis pool generations in one dispatch
+        and one pull (:meth:`LatentKernels.mcmc_pool_generations`), the
+        consumption replayed on the device between them: the generations
+        the one-generation route would run from this live set, drawn from
+        the sampler's generator in its order. The host feeds each through
+        :meth:`_consume_endpoint_out` when its replay reaches it; one it
+        never reaches is never counted. Returns :meth:`_gens_to_buffer`'s
+        list."""
+        if step_size <= 0.0:
+            step_size = 2.0 / self.x_dim ** 0.5
+        self.trainer.ensure_init()
+        with torch.no_grad():
+            res = self.kernels.mcmc_pool_generations(
+                self.generator,
+                *self._live_tensors(active_u, active_logl, active_derived),
+                it, step_size, update_interval, num_chains=num_chains,
+                mcmc_steps=mcmc_steps, max_gens=max_gens,
+                dynamic_step_size=dynamic_step_size, speculate=speculate,
+                adapt_cov=adapt_cov)
+        return self._gens_to_buffer(*res)
+
+    def _slice_generations_batch(self, slice_steps, active_u, active_logl,
+                                 active_derived, num_chains, width, it,
+                                 update_interval, max_gens, max_expand=4,
+                                 max_shrink=10, speculate=False,
+                                 adapt_cov=False):
+        """The slice analogue of :meth:`_mcmc_generations_batch`
+        (:meth:`LatentKernels.slice_pool_generations`)."""
+        self.trainer.ensure_init()
+        with torch.no_grad():
+            res = self.kernels.slice_pool_generations(
+                self.generator,
+                *self._live_tensors(active_u, active_logl, active_derived),
+                it, width, update_interval, num_chains=num_chains,
+                slice_steps=slice_steps, max_gens=max_gens,
+                max_expand=max_expand, max_shrink=max_shrink,
+                speculate=speculate, adapt_cov=adapt_cov)
+        return self._gens_to_buffer(*res)
+
+    def _rejection_prior_generations_batch(self, active_u, active_logl,
+                                           active_derived, it, it_stop, ncs,
+                                           expiry_thr, trials_target,
+                                           num_trials, max_gens,
+                                           adapt_trials, can_double,
+                                           can_halve):
+        """Up to ``max_gens`` prior-rejection generations in one dispatch
+        and one pull (:meth:`LatentKernels.rejection_prior_generations`).
+        ``ncs`` is the host's float64 efficiency window; its last 20 values
+        go to the batch runner's float32 ring keyed on the absolute index.
+        Returns :meth:`_gens_to_buffer`'s list (outputs x, logl, ok and
+        derived when num_derived > 0)."""
+        with torch.no_grad():
+            res = self.kernels.rejection_prior_generations(
+                self._user_prior, self.generator,
+                *self._live_tensors(active_u, active_logl, active_derived),
+                it, it_stop, *_window(ncs), expiry_thr, trials_target,
+                num_trials=num_trials, max_gens=max_gens,
+                adapt_trials=adapt_trials, can_double=can_double,
+                can_halve=can_halve)
+        return self._gens_to_buffer(*res)
+
+    def _rejection_flow_generations_batch(self, active_u, active_logl,
+                                          active_derived, it,
+                                          update_interval, ncs, expiry_thr,
+                                          trials_target, env_valid, env_gens,
+                                          max_log_det_j, max_r,
+                                          cache_interval, enlargement_factor,
+                                          num_trials, max_gens, adapt_trials,
+                                          can_double, can_halve):
+        """The flow-rejection analogue of
+        :meth:`_rejection_prior_generations_batch`
+        (:meth:`LatentKernels.rejection_flow_generations`, the envelope
+        carried on the device); the outputs add n_evals, mld and mr."""
+        self.trainer.ensure_init()
+        with torch.no_grad():
+            res = self.kernels.rejection_flow_generations(
+                self.generator,
+                *self._live_tensors(active_u, active_logl, active_derived),
+                it, update_interval, *_window(ncs), expiry_thr,
+                trials_target, env_valid, env_gens, max_log_det_j, max_r,
+                cache_interval, enlargement_factor, num_trials=num_trials,
+                max_gens=max_gens, adapt_trials=adapt_trials,
+                can_double=can_double, can_halve=can_halve)
+        return self._gens_to_buffer(*res)
+
+    @staticmethod
+    def _gens_to_buffer(bufs, meta, n_gens):
+        """A batch runner's stacked outputs as buffer entries, pulled to
+        the host in one copy: ``(out, start_loglstar, start_it,
+        gen_state)`` a generation, ``out`` a dict of numpy arrays,
+        ``gen_state`` the generator's state before it (None unless the
+        batch runner speculated)."""
+        keys = list(bufs)
+        host = _pull([bufs[k] for k in keys]
+                     + [meta['start_loglstar'], meta['start_it']])
+        lstars, its = host[-2], host[-1]
+        states = meta['gen_state']
+        # np.array: a 0-dim array, not a numpy scalar, for a 1-D output
+        # (the exact-state file takes arrays, as tensors, and plain Python)
+        return [({k: np.array(host[j][g]) for j, k in enumerate(keys)},
+                 float(lstars[g]), int(its[g]),
+                 None if states is None else states[g])
+                for g in range(n_gens)]
+
+    def _rewind_generator(self, state):
+        """Set the sampler's generator back to ``state`` (a buffer entry's
+        ``gen_state``): ``nnest_tpu``'s ``_rewind_key``."""
+        self.generator.set_state(state)
 
     # ------------------------------------------- posterior chains, ensemble
 

@@ -28,6 +28,16 @@ an ensemble's trajectory, goes through :meth:`LatentKernels._hot_inverse`,
 which for a single-speed spline flow on the GPU is the hand-written CUDA
 kernel (``ops/spline_inverse.py``).
 
+The multi-generation batch runners
+(:meth:`LatentKernels.mcmc_pool_generations`, ``slice_pool_generations``,
+``rejection_prior_generations`` and ``rejection_flow_generations``) run
+several pool generations back to back, replaying the host's consumption of
+each pool on the device's live set in between
+(:meth:`LatentKernels._consume_pool`: one launch of the port's own kernel
+``csrc/consume_pool.cu`` on the card, its twin on the CPU), drawing from
+the caller's generator in the one-generation route's order; they read one
+stop flag a generation to the host, none when speculating.
+
 Derived parameters ride beside the points as in the JAX package: the
 likelihood returns ``(logl, derived)``, and every body keeps the derived
 values of the point it keeps, by the same masks. With ``num_derived`` 0 no
@@ -39,9 +49,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from nnest_torch.ops import fused_spline
+from nnest_torch.ops.consume_pool import consume_pool
 from nnest_torch.ops.spline_inverse import spline_inverse
 from nnest_torch.parallel.mesh import (all_reduce_sum, batch_sharding,
                                        gather_columns, pad_rows, real_rows)
@@ -82,7 +94,7 @@ def ess_device(chains, mu, var):
     inactive = ~torch.any(active, dim=1)
     s_break = torch.where(torch.any(inactive),
                           torch.argmax(inactive.to(torch.int32)),
-                          torch.tensor(t - 1, device=chains.device))
+                          torch.full((), t - 1, device=chains.device))
     within = (torch.arange(t - 1, device=chains.device) < s_break)[:, None]
     contrib = torch.where(active & within, 2.0 * rho * (1.0 - lags[:, None] / t),
                           torch.zeros_like(rho))
@@ -310,8 +322,7 @@ class LatentKernels:
         device = z0.device
         num_chains, dim = z0.shape
         rows = _Rows(mesh, num_chains, device)
-        ll_star = (None if not constrained else
-                   torch.tensor(loglstar, dtype=torch.float32, device=device))
+        ll_star = None if not constrained else _f32(loglstar, z0)
         inverse = self._hot_inverse()
         cov_chol = self._cov_factor(cov_from, cov_mask)
         z_start = rows.local(z0)
@@ -320,7 +331,7 @@ class LatentKernels:
                                                   device))
         state = (z_start, x0, ldj0, sanitize_log_density(rows.local(logl0)),
                  sanitize_log_density(rows.local(logl_prior0)), derived0)
-        scale = torch.tensor(step_size, dtype=torch.float32, device=device)
+        scale = torch.full((), step_size, dtype=torch.float32, device=device)
         acc_ctr = torch.zeros((), device=device)
         rej_ctr = torch.zeros((), device=device)
         ncall = torch.zeros((), dtype=torch.int64, device=device)
@@ -424,7 +435,7 @@ class LatentKernels:
         idx_a = perm[: n_live // 2]
         mask_a = torch.zeros(n_live, dtype=torch.bool,
                              device=generator.device)
-        mask_a[idx_a] = True
+        mask_a.index_fill_(0, idx_a, True)
         return idx_a, ~mask_a
 
     @torch.no_grad()
@@ -697,6 +708,249 @@ class LatentKernels:
             cov_from=active_u if adapt_cov else None, cov_mask=cov_mask,
             derived0=derived0, mesh=mesh)
 
+    # ------------------------------------------- multi-generation prefetch
+
+    @staticmethod
+    def _consume_pool(au, al, ad, it, accept_flags, cand_logl, cand_x,
+                      cand_derived, update_interval=None):
+        """The host's pool consumption replayed on the device's live set
+        (``nnest_tpu``'s ``LatentKernels._consume_pool``): candidates in
+        order against the current worst point (argmin, the first index on a
+        tie); one whose flag is set and whose logl is strictly above it
+        replaces it (x row, logl, derived row) and advances ``it``. Updates
+        ``au``, ``al`` and ``ad`` (None without derived values) in place.
+        Returns (au, al, ad, it, crossed), ``crossed`` whether an accept
+        landed on ``it % update_interval == 0``. One launch of
+        ``csrc/consume_pool.cu`` on the card (``ops/consume_pool.py``)."""
+        return consume_pool(au, al, ad, it, accept_flags, cand_logl, cand_x,
+                            cand_derived, update_interval)
+
+    @staticmethod
+    def _ladder_window_update(n_ok, nc, wvals, wcount, expiry_thr,
+                              trials_target, adapt_trials, can_double,
+                              can_halve):
+        """The rejection batch runners' replica of the host's integer
+        trial ladder and ``ncs`` efficiency window (``samplers/nested.py``,
+        the block after a rejection generation): a change to one must be
+        mirrored in the other. ``wvals`` is the window's last 20 values as
+        float32, a ring keyed on the absolute push index ``wcount``; a
+        generation pushes ``nc`` min(max(n_ok, 1), 5) times. The expiry
+        proxy is the ring's float32 sum, added in index order and times
+        float32(0.05), the arithmetic XLA gives ``nnest_tpu``'s ``sum / 20``;
+        it must stay below ``expiry_thr`` (0.9 x the host's float64
+        threshold), so the host's expiry cannot fire inside a prefetched
+        batch. Runs on the host with the generation's ``n_ok``. Returns
+        (ladder_or_expiry_stop, wvals, wcount)."""
+        n_ok = int(n_ok)
+        nc = np.float32(nc)
+        wvals = np.array(wvals, dtype=np.float32)
+        wcount = int(wcount)
+        ladder = False
+        if adapt_trials:
+            if can_double:
+                ladder = ladder or n_ok < trials_target // 2
+            if can_halve:
+                ladder = ladder or n_ok > 2 * trials_target
+        for _ in range(min(max(n_ok, 1), 5)):
+            wvals[wcount % 20] = nc
+            wcount += 1
+        proxy = np.float32(0.0)
+        if wcount > 20:
+            total = np.float32(0.0)
+            for v in wvals:
+                total = np.float32(total + v)
+            proxy = np.float32(total * np.float32(0.05))
+        return bool(ladder or proxy > np.float32(expiry_thr)), wvals, wcount
+
+    @staticmethod
+    def _host_ints(*tensors):
+        """0-dim device tensors as Python ints, in one device-to-host copy
+        (the one read a generation that a stop rule needs)."""
+        return torch.stack([t.reshape(()).to(torch.int64)
+                            for t in tensors]).tolist()
+
+    def _pool_generations(self, core, generator, active_u, active_logl,
+                          active_derived, it0, update_interval, max_gens,
+                          speculate=False):
+        """The endpoint kernels' multi-generation batch runner (``nnest_tpu``'s
+        ``_pool_generations``): up to ``max_gens`` generations of ``core``
+        (a live-set generation drawing from ``generator`` in the order of
+        the one-generation route), each launched from the live set the
+        previous one's consumption (:meth:`_consume_pool`) left on the
+        device, so consecutive generations need nothing from the host. The
+        live set ``active_u``/``active_logl``/``active_derived`` (float32
+        device tensors, derived None without derived values) is updated in
+        place.
+
+        Without ``speculate`` the batch runner stops after a generation whose
+        consumption crosses an ``update_interval`` boundary, where the host
+        may retrain the flow; it reads that one flag a generation. With
+        ``speculate`` it reads nothing and runs on past boundaries, and
+        ``meta['gen_state']`` holds the generator's state before each
+        generation, to rewind to when the host retrains after all. The
+        host's ``max_iters`` is not a stop rule: generations past it are
+        discarded unconsumed, which changes nothing the run returns.
+
+        Returns (bufs, meta, n_gens): ``bufs`` each output of ``core``
+        stacked over the generations run, ``meta`` their ``start_loglstar``
+        and ``start_it`` (stacked device tensors) and ``gen_state``."""
+        au, al, ad = active_u, active_logl, active_derived
+        it = torch.tensor(int(it0), dtype=torch.int32, device=au.device)
+        outs, lstars, its, states = [], [], [], []
+        for _ in range(max_gens):
+            if speculate:
+                states.append(generator.get_state())
+            loglstar = torch.min(al)
+            out = core(generator, au, al, ad, loglstar)
+            lstars.append(loglstar)
+            its.append(it)
+            au, al, ad, it, crossed = self._consume_pool(
+                au, al, ad, it, out['moved'], out['final_logl'],
+                out['final_x'], out.get('final_derived'),
+                update_interval=update_interval)
+            outs.append(out)
+            if not speculate and self._host_ints(crossed)[0]:
+                break
+        return _stacked(outs, lstars, its, states if speculate else None)
+
+    def mcmc_pool_generations(self, generator, active_u, active_logl,
+                              active_derived, it, step_size, update_interval,
+                              *, num_chains, mcmc_steps, max_gens,
+                              dynamic_step_size=False, prior_volume_steps=1,
+                              speculate=False, adapt_cov=False):
+        """Up to ``max_gens`` Metropolis pool generations from the live set
+        (:meth:`mcmc_from_live` each, ``loglstar`` the device live set's
+        minimum), with the consumption replayed on the device between them
+        (:meth:`_pool_generations`). Under ``adapt_cov`` each generation's
+        proposal covariance comes from the evolving device live set: the
+        live set the one-generation route would pass."""
+        def core(generator, au, al, ad, loglstar):
+            return self.mcmc_from_live(
+                generator, au, al, num_chains=num_chains, loglstar=loglstar,
+                step_size=step_size, mcmc_steps=mcmc_steps,
+                dynamic_step_size=dynamic_step_size,
+                prior_volume_steps=prior_volume_steps, adapt_cov=adapt_cov,
+                active_derived=ad)
+
+        return self._pool_generations(core, generator, active_u, active_logl,
+                                      active_derived, it, update_interval,
+                                      max_gens, speculate)
+
+    def slice_pool_generations(self, generator, active_u, active_logl,
+                               active_derived, it, width, update_interval, *,
+                               num_chains, slice_steps, max_gens,
+                               max_expand=4, max_shrink=10, speculate=False,
+                               adapt_cov=False):
+        """The slice analogue of :meth:`mcmc_pool_generations`
+        (:meth:`slice_from_live` each; the same stop rules and generator
+        discipline)."""
+        def core(generator, au, al, ad, loglstar):
+            return self.slice_from_live(
+                generator, au, al, num_chains=num_chains, loglstar=loglstar,
+                width=width, slice_steps=slice_steps, max_expand=max_expand,
+                max_shrink=max_shrink, adapt_cov=adapt_cov,
+                active_derived=ad)
+
+        return self._pool_generations(core, generator, active_u, active_logl,
+                                      active_derived, it, update_interval,
+                                      max_gens, speculate)
+
+    def rejection_prior_generations(self, prior, generator, active_u,
+                                    active_logl, active_derived, it, it_stop,
+                                    window_vals, window_count, expiry_thr,
+                                    trials_target, *, num_trials, max_gens,
+                                    adapt_trials, can_double, can_halve):
+        """Up to ``max_gens`` prior-rejection generations
+        (:meth:`rejection_prior` each) with the consumption replayed on the
+        device between them. The batch runner stops after a generation the
+        host's replay might not follow with another of the same kind, so the
+        generator's stream stays that of one generation a dispatch: the
+        ladder would change the trial count, or the expiry proxy passes
+        ``expiry_thr`` (:meth:`_ladder_window_update`, on the host from the
+        generation's ``n_ok``), or ``it`` reached ``it_stop`` (two
+        iterations before the volume switch can fire). It reads
+        (``n_ok``, ``it``) once a generation.
+
+        Returns (bufs, meta, n_gens): ``bufs`` x, logl, derived (when
+        ``num_derived`` > 0) and ok stacked over the generations run."""
+        au, al, ad = active_u, active_logl, active_derived
+        it_t = torch.tensor(int(it), dtype=torch.int32, device=au.device)
+        wvals, wcount = window_vals, window_count
+        outs, lstars, its = [], [], []
+        for _ in range(max_gens):
+            loglstar = torch.min(al)
+            x, logl, derived, ok = self.rejection_prior(
+                prior, generator, loglstar, num_trials)
+            lstars.append(loglstar)
+            its.append(it_t)
+            au, al, ad, it_t, _ = self._consume_pool(au, al, ad, it_t, ok,
+                                                     logl, x, derived)
+            outs.append(_rejection_out(x, logl, derived, ok))
+            n_ok, it2 = self._host_ints(torch.sum(ok), it_t)
+            nc = (np.float32(num_trials) / np.float32(max(n_ok, 1))
+                  if n_ok > 0 else np.float32(num_trials))
+            stop, wvals, wcount = self._ladder_window_update(
+                n_ok, nc, wvals, wcount, expiry_thr, trials_target,
+                adapt_trials, can_double, can_halve)
+            if stop or it2 >= it_stop:
+                break
+        return _stacked(outs, lstars, its, None)
+
+    def rejection_flow_generations(self, generator, active_u, active_logl,
+                                   active_derived, it, update_interval,
+                                   window_vals, window_count, expiry_thr,
+                                   trials_target, env_valid, env_gens,
+                                   max_log_det_j, max_r, cache_interval,
+                                   enlargement_factor, *, num_trials,
+                                   max_gens, adapt_trials, can_double,
+                                   can_halve):
+        """Up to ``max_gens`` flow-rejection generations
+        (:meth:`rejection_flow_live` each) with the consumption replayed on
+        the device between them and the Jacobian envelope carried on the
+        device: each generation recomputes it from the device live set and
+        max-folds it into the carried maxima, or replaces them when it is
+        not valid yet or after ``cache_interval`` generations (the host's
+        ``env_gens`` counter, kept here in the same integers). The stop
+        rules are :meth:`rejection_prior_generations`'s ladder and expiry
+        proxy plus an ``update_interval`` crossing (a retrain invalidates
+        the flow and the envelope); it reads (``n_ok``, ``n_evals``, ``it``,
+        ``crossed``) once a generation.
+
+        Returns (bufs, meta, n_gens): ``bufs`` x, logl, derived (when
+        ``num_derived`` > 0), ok, n_evals and each generation's envelope
+        ``mld`` and ``mr``."""
+        au, al, ad = active_u, active_logl, active_derived
+        it_t = torch.tensor(int(it), dtype=torch.int32, device=au.device)
+        mld = _f32(max_log_det_j, au)
+        mr = _f32(max_r, au)
+        wvals, wcount = window_vals, window_count
+        outs, lstars, its = [], [], []
+        for _ in range(max_gens):
+            loglstar = torch.min(al)
+            recompute = not env_valid or env_gens >= cache_interval
+            x, logl, derived, ok, n_evals, mld, mr = self.rejection_flow_live(
+                generator, loglstar, au, mld, mr, not recompute,
+                enlargement_factor, num_trials)
+            env_gens = 0 if recompute else env_gens + 1
+            env_valid = True
+            lstars.append(loglstar)
+            its.append(it_t)
+            au, al, ad, it_t, crossed = self._consume_pool(
+                au, al, ad, it_t, ok, logl, x, derived,
+                update_interval=update_interval)
+            outs.append(dict(_rejection_out(x, logl, derived, ok),
+                             n_evals=n_evals, mld=mld, mr=mr))
+            n_ok, nev, crossed = self._host_ints(torch.sum(ok), n_evals,
+                                                 crossed)
+            nc = (np.float32(nev) / np.float32(max(n_ok, 1)) if n_ok > 0
+                  else max(np.float32(nev), np.float32(1.0)))
+            stop, wvals, wcount = self._ladder_window_update(
+                n_ok, nc, wvals, wcount, expiry_thr, trials_target,
+                adapt_trials, can_double, can_halve)
+            if stop or crossed:
+                break
+        return _stacked(outs, lstars, its, None)
+
     # --------------------------------------------------------- ensemble
 
     def latent_log_prob(self, z, loglstar=None, inverse=None):
@@ -845,8 +1099,7 @@ class LatentKernels:
         all evaluated; returns (x, logl, derived, ok)."""
         x = prior.sample_torch(num_trials, generator)
         logl, derived = self.like_fn(x)
-        ok = torch.isfinite(logl) & (logl > torch.tensor(
-            loglstar, dtype=torch.float32, device=x.device))
+        ok = torch.isfinite(logl) & (logl > _f32(loglstar, x))
         return x, logl, derived, ok
 
     # --------------------------------------------------- rejection/flow
@@ -946,6 +1199,25 @@ class LatentKernels:
 def _f32(value, like):
     """``value`` as a float32 tensor on ``like``'s device."""
     return torch.as_tensor(value, dtype=torch.float32, device=like.device)
+
+
+def _rejection_out(x, logl, derived, ok):
+    """One rejection generation's outputs as a dict (derived only when the
+    kernels carry it)."""
+    out = {'x': x, 'logl': logl, 'ok': ok}
+    if derived is not None:
+        out['derived'] = derived
+    return out
+
+
+def _stacked(outs, lstars, its, states):
+    """A batch runner's per-generation outputs and starts as (bufs, meta,
+    n_gens), every output stacked over the generations (a leading axis)."""
+    bufs = {k: torch.stack([torch.as_tensor(o[k]) for o in outs])
+            for k in outs[0]}
+    meta = {'start_loglstar': torch.stack(lstars),
+            'start_it': torch.stack(its), 'gen_state': states}
+    return bufs, meta, len(outs)
 
 
 def _real(mask, real):

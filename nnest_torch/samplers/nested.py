@@ -61,10 +61,32 @@ writer before the final results are written. ``run(show_progress=True)``
 shows a tqdm bar (imported when asked for; without tqdm, no bar), closed
 when the run raises.
 
-``run(mcmc_gen_batch=, rejection_gen_batch=, mcmc_speculate=)`` are
-accepted and checked: ``nnest_tpu`` prefetches that many generations a
-dispatch, with results that do not depend on them; this port dispatches
-one generation at a time for every value (the prefetch is ROADMAP A.7).
+Multi-generation prefetch (``run(mcmc_gen_batch=, rejection_gen_batch=,
+mcmc_speculate=)``, ``nnest_tpu``'s): with a batch above 1 a dispatch runs
+up to that many pool generations of the current strategy back to back on
+the device, replaying the host's consumption of each pool on the device's
+copy of the live set between them (``LatentKernels._consume_pool``, one
+launch of ``csrc/consume_pool.cu`` on the card), so a generation starts
+from the live set the previous one left without a round trip. The host
+then replays the same consumption in float64 for the evidence and serves
+each generation from its buffer (``mcmc_buf``, ``prior_buf``,
+``flow_buf``) when its replay reaches it. The batch runners stop before a
+generation the host might not run next: an ``update_interval`` crossing
+(a possible retrain; Metropolis, slice and flow rejection), a change of
+the trial ladder, the efficiency expiry's float32 proxy at 0.9x its
+threshold, or two iterations before the volume switch (prior rejection).
+With ``mcmc_speculate`` (and a ``retrain_nll_threshold``) the Metropolis
+and slice batch runners run past crossings, betting that the NLL gate skips the
+retrain; when it retrains after all, the buffered generations are dropped
+and the generator is set back to the first one's state. Results are
+those of one generation a dispatch, bit for bit, whenever every live logl
+is a float32 value (the device replays in float32; a monotonic cast keeps
+its min, argmin and compares the host's); otherwise, as under a mesh, a
+generation a dispatch. The buffers ride in the checkpoints, so a resume
+inside a buffer is bit-exact too. ``run_stats`` counts each strategy's
+dispatches (``<stem>_dispatches``) beside its generations, the buffered
+generations a retrain dropped (``speculation_losses``) and those left
+unserved when the run ended (``generations_discarded``).
 
 Under a mesh (``mesh=``, :mod:`nnest_torch.parallel`) every rank runs this
 loop in lockstep. A Metropolis or slice pool generation takes the
@@ -95,7 +117,10 @@ from nnest_torch.priors import UniformPrior
 from nnest_torch.samplers.base import Sampler
 from nnest_torch.utils.evaluation import (adjusted_logzerr,
                                           bootstrap_logz_error, insertion_ks,
-                                          rolling_insertion_ks)
+                                          latent_cond_null,
+                                          metropolis_mix_null,
+                                          rolling_insertion_ks,
+                                          slice_mix_null)
 
 # the strategy ladder's methods, in nnest_tpu's order
 _METHODS = ('rejection_prior', 'rejection_flow', 'density_flow', 'mcmc',
@@ -114,16 +139,39 @@ def _tensors(tree):
         return torch.from_numpy(np.array(tree))
     if isinstance(tree, dict):
         return {k: _tensors(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v) for v in tree]
     return tree
 
 
 def _arrays(tree):
-    """Inverse of :func:`_tensors`."""
+    """Inverse of :func:`_tensors` (sequences come back as lists)."""
     if isinstance(tree, torch.Tensor):
         return tree.numpy()
     if isinstance(tree, dict):
         return {k: _arrays(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_arrays(v) for v in tree]
     return tree
+
+
+def _f32_exact(logl):
+    """Whether every value of ``logl`` is a float32 value: the condition
+    under which the device's float32 replay of the consumption makes the
+    host's float64 decisions (the prefetch's gate)."""
+    return bool(np.all(logl.astype(np.float32).astype(np.float64) == logl))
+
+
+def _check_sync(kind, g_it, g_loglstar, it, loglstar, g_trials=None,
+                trials=None):
+    """Raise when a buffered generation did not start where the host's
+    replay is: the device and host consumption disagreed."""
+    host = float(np.float32(loglstar))
+    if g_it != it or g_loglstar != host or g_trials != trials:
+        raise RuntimeError(
+            '%s generation prefetch desync: device (it=%d, loglstar=%r, '
+            'trials=%s) vs host (it=%d, loglstar=%r, trials=%s)' % (
+                kind, g_it, g_loglstar, g_trials, it, host, trials))
 
 
 class NestedSampler(Sampler):
@@ -237,9 +285,11 @@ class NestedSampler(Sampler):
             logl_ceiling=None,
             show_progress=False):
         """Run to ``dlogz`` (or ``max_iters``). ``mcmc_gen_batch`` and
-        ``rejection_gen_batch`` (integers >= 1) and ``mcmc_speculate`` (a
-        bool) are checked and change nothing here (module docstring);
-        ``show_progress`` shows a tqdm bar. The dynamic-batch hooks
+        ``rejection_gen_batch`` (integers >= 1) are the pool generations a
+        dispatch runs and ``mcmc_speculate`` (a bool, in effect with a
+        ``retrain_nll_threshold``) lets the Metropolis and slice batches run
+        past retrain boundaries; none of them changes the results (module
+        docstring). ``show_progress`` shows a tqdm bar. The dynamic-batch hooks
         (``samplers/dynamic.py``) default to a plain prior-seeded run:
         ``init_points`` a dict of live points already uniform within
         {logl > birth_floor} (``u`` (num_live_points, x_dim), ``logl``,
@@ -310,6 +360,10 @@ class NestedSampler(Sampler):
         # 'slice': each step pays ~1 shrink hit and up to max_expand
         # stepping-out probes. The rejection phases expire past it.
         slice_calls = slice_steps * (1 + slice_max_expand)
+        # Speculation wins only through the NLL retrain gate: without one
+        # every boundary retrains and voids what was prefetched past it.
+        mcmc_speculate = bool(mcmc_speculate
+                              and retrain_nll_threshold is not None)
         rejection_max_trials = max(int(rejection_max_trials),
                                    rejection_batch_size)
         self.logger.info('MCMC steps [%d]' % mcmc_steps)
@@ -386,6 +440,11 @@ class NestedSampler(Sampler):
         need_pool = True
         pool = None
         pool_pos = 0
+        # prefetched generations: Metropolis or slice (buffer entries of
+        # Sampler._gens_to_buffer), prior and flow rejection (compact dicts
+        # of _compact_rejection_gen)
+        mcmc_buf, prior_buf, flow_buf = [], [], []
+        self._spec_losses = 0
         env_gens = 0   # flow-rejection generations since the envelope
         ncs = []
         mean_calls = 0.0
@@ -412,6 +471,12 @@ class NestedSampler(Sampler):
             need_pool = pool_state['need_pool']
             pool = pool_state['pool']
             pool_pos = pool_state['pool_pos']
+            # checkpoints written before the prefetch have no buffers
+            mcmc_buf = [(g[0], g[1], g[2],
+                         None if g[3] is None else torch.as_tensor(g[3]))
+                        for g in pool_state.get('mcmc_buf', [])]
+            prior_buf = list(pool_state.get('prior_buf', []))
+            flow_buf = list(pool_state.get('flow_buf', []))
 
         def controller_snapshot():
             return {
@@ -432,7 +497,9 @@ class NestedSampler(Sampler):
 
         def pool_snapshot():
             return {'need_pool': bool(need_pool), 'pool': pool,
-                    'pool_pos': int(pool_pos)}
+                    'pool_pos': int(pool_pos), 'mcmc_buf': list(mcmc_buf),
+                    'prior_buf': list(prior_buf),
+                    'flow_buf': list(flow_buf)}
 
         # counts, and host wall seconds of the phases (each ends in a device
         # to host copy, so the clock covers the device work)
@@ -441,6 +508,7 @@ class NestedSampler(Sampler):
                           'checkpoint_s': 0.0}
         for stem in _STAT_KEY.values():
             self.run_stats[stem + '_generations'] = 0
+            self.run_stats[stem + '_dispatches'] = 0
             self.run_stats[stem + '_s'] = 0.0
 
         def checkpoint():
@@ -527,6 +595,24 @@ class NestedSampler(Sampler):
                     retrain = not (nll_now < self.trainer.best_validation_loss
                                    + retrain_nll_threshold)
                 if retrain:
+                    if mcmc_buf:
+                        # A lost speculation: the buffered generations were
+                        # made with the flow this retrain replaces, where
+                        # one generation a dispatch would make them after
+                        # it. Drop them and set the generator back to the
+                        # first one's state, so they are made again from
+                        # the same numbers. The generation being consumed
+                        # stays: that route made it before the retrain too.
+                        state0 = mcmc_buf[0][3]
+                        if state0 is None:
+                            raise RuntimeError(
+                                'prefetched generations span a retrain '
+                                'boundary but carry no generator state (a '
+                                'batch run without speculation; did '
+                                'update_interval change across a resume?)')
+                        self._rewind_generator(state0)
+                        self._spec_losses += len(mcmc_buf)
+                        mcmc_buf = []
                     t0 = time.perf_counter()
                     self.trainer.train(active_u.astype(np.float32),
                                        max_iters=train_iters, jitter=jitter)
@@ -543,22 +629,66 @@ class NestedSampler(Sampler):
                 stem = _STAT_KEY[current_method]
                 t0 = time.perf_counter()
                 if current_method in ('mcmc', 'slice'):
-                    if current_method == 'mcmc':
-                        u_f, logl_f, d_f, moved, mcmc_scale, _, _ = \
-                            self._mcmc_sample_live(
+                    is_slice = current_method == 'slice'
+                    adapt_cov = (slice_adapt if is_slice
+                                 else mcmc_adapt) == 'cov'
+                    # 'mcmc' and 'slice' share the buffer: neither
+                    # expires, so only the first in the strategy runs.
+                    use_batch = self.mesh is None and mcmc_gen_batch > 1
+                    if use_batch and not mcmc_buf:
+                        use_batch = _f32_exact(active_logl)
+                    if use_batch and not mcmc_buf:
+                        self.run_stats[stem + '_dispatches'] += 1
+                        if is_slice:
+                            mcmc_buf = self._slice_generations_batch(
+                                slice_steps, active_u, active_logl,
+                                active_derived, mcmc_num_chains,
+                                slice_width, it, update_interval,
+                                mcmc_gen_batch, max_expand=slice_max_expand,
+                                max_shrink=slice_max_shrink,
+                                speculate=mcmc_speculate,
+                                adapt_cov=adapt_cov)
+                        else:
+                            mcmc_buf = self._mcmc_generations_batch(
                                 mcmc_steps, active_u, active_logl,
-                                mcmc_num_chains, loglstar, step_size,
+                                active_derived, mcmc_num_chains, step_size,
+                                it, update_interval, mcmc_gen_batch,
                                 dynamic_step_size=mcmc_dynamic_step_size,
-                                adapt_cov=mcmc_adapt == 'cov',
-                                active_derived=active_derived)
-                    else:
+                                speculate=mcmc_speculate,
+                                adapt_cov=adapt_cov)
+                    if use_batch and mcmc_buf:
+                        out, g_lstar, g_it, _ = mcmc_buf.pop(0)
+                        _check_sync(current_method, g_it, g_lstar, it,
+                                    loglstar)
+                        u_f, logl_f, d_f, moved, mcmc_scale, _, _ = \
+                            self._consume_endpoint_out(
+                                out,
+                                mix_null=(
+                                    slice_mix_null(slice_steps, self.x_dim)
+                                    if is_slice else metropolis_mix_null(
+                                        mcmc_steps, self.x_dim,
+                                        adapt_cov=adapt_cov)),
+                                cond_null=latent_cond_null(
+                                    self.x_dim, mcmc_num_chains),
+                                cond_inflates=not is_slice)
+                    elif is_slice:
+                        self.run_stats[stem + '_dispatches'] += 1
                         u_f, logl_f, d_f, moved, mcmc_scale, _, _ = \
                             self._slice_sample_live(
                                 slice_steps, active_u, active_logl,
                                 mcmc_num_chains, loglstar, slice_width,
                                 max_expand=slice_max_expand,
                                 max_shrink=slice_max_shrink,
-                                adapt_cov=slice_adapt == 'cov',
+                                adapt_cov=adapt_cov,
+                                active_derived=active_derived)
+                    else:
+                        self.run_stats[stem + '_dispatches'] += 1
+                        u_f, logl_f, d_f, moved, mcmc_scale, _, _ = \
+                            self._mcmc_sample_live(
+                                mcmc_steps, active_u, active_logl,
+                                mcmc_num_chains, loglstar, step_size,
+                                dynamic_step_size=mcmc_dynamic_step_size,
+                                adapt_cov=adapt_cov,
                                 active_derived=active_derived)
                     # Chain endpoints are the candidates: a chain that
                     # never moved contributes nothing.
@@ -566,33 +696,105 @@ class NestedSampler(Sampler):
                             'derived': d_f[moved],
                             'stats': self._last_kernel_stats}
                 else:
-                    if current_method == 'rejection_prior':
+                    # The rejection batch runners stop before any
+                    # generation the host might not run next (module
+                    # docstring); the gate and the buffers as for 'mcmc'.
+                    served = False
+                    use_batch = (self.mesh is None and rejection_gen_batch > 1
+                                 and current_method != 'density_flow')
+                    buf = (prior_buf if current_method == 'rejection_prior'
+                           else flow_buf)
+                    if use_batch and not buf:
+                        use_batch = _f32_exact(active_logl)
+                    can_double = cur_trials * 2 <= rejection_max_trials
+                    can_halve = cur_trials >= 2 * rejection_batch_size
+                    max_gens = min(rejection_gen_batch,
+                                   max(1, 2 ** 18 // cur_trials))
+                    recompute = (self._max_log_det_j is None
+                                 or env_gens >= rejection_cache_interval)
+                    if use_batch and not buf:
+                        self.run_stats[stem + '_dispatches'] += 1
+                        if current_method == 'rejection_prior':
+                            # two iterations before the volume switch can
+                            # fire; the expiry proxy at 0.9x its threshold
+                            it_stop = (int(np.ceil(-self.num_live_points
+                                                   * np.log(volume_switch)))
+                                       - 2 if volume_switch > 0 else 2 ** 30)
+                            thr = (0.9 * switch_calls
+                                   if volume_switch < 0
+                                   and mcmc_like is not None
+                                   else np.float32(1e30))
+                            gens = self._rejection_prior_generations_batch(
+                                active_u, active_logl, active_derived, it,
+                                it_stop, ncs, thr, trials_target, cur_trials,
+                                max_gens, rejection_adapt_trials, can_double,
+                                can_halve)
+                        else:
+                            thr = (0.9 * switch_calls
+                                   if mcmc_like is not None
+                                   else np.float32(1e30))
+                            env_valid = self._max_log_det_j is not None
+                            gens = self._rejection_flow_generations_batch(
+                                active_u, active_logl, active_derived, it,
+                                update_interval, ncs, thr, trials_target,
+                                env_valid, env_gens,
+                                self._max_log_det_j if env_valid else 0.0,
+                                self._max_r if env_valid else 0.0,
+                                rejection_cache_interval,
+                                rejection_enlargement_factor, cur_trials,
+                                max_gens, rejection_adapt_trials,
+                                can_double, can_halve)
+                        buf.extend(self._compact_rejection_gen(
+                            out['x'], out['logl'],
+                            out.get('derived', np.zeros(
+                                (cur_trials, self.num_derived))),
+                            out['ok'], out.get('n_evals'), out.get('mld'),
+                            out.get('mr'), g_lstar, g_it, cur_trials)
+                            for out, g_lstar, g_it, _ in gens)
+                    if use_batch and buf:
+                        g = buf.pop(0)
+                        _check_sync(current_method, g['it'], g['loglstar'],
+                                    it, loglstar, g['trials'], cur_trials)
+                        nev = (g['trials'] if g['nev'] is None
+                               else g['nev'])
+                        if g['mld'] is not None:
+                            self._max_log_det_j = g['mld']
+                            self._max_r = g['mr']
+                        self.total_calls += nev
+                        nc = (nev / max(g['n_ok'], 1) if g['n_ok'] > 0
+                              else max(nev, 1))
+                        s, ll, ds = g['s'], g['ll'], g['ds']
+                        served = True
+                    elif current_method == 'rejection_prior':
+                        self.run_stats[stem + '_dispatches'] += 1
                         s, ll, ds, nc = self._rejection_prior_sample(
                             loglstar, num_trials=cur_trials)
                     elif current_method == 'rejection_flow':
                         # A fresh envelope after a retrain or every
                         # rejection_cache_interval generations; in between
                         # the live set's values are max-folded into it.
-                        recompute = (self._max_log_det_j is None
-                                     or env_gens >= rejection_cache_interval)
+                        self.run_stats[stem + '_dispatches'] += 1
                         s, ll, ds, nc = self._rejection_flow_sample(
                             active_u, loglstar,
                             enlargement_factor=rejection_enlargement_factor,
                             cache=not recompute, num_trials=cur_trials)
-                        env_gens = 0 if recompute else env_gens + 1
                     else:
+                        self.run_stats[stem + '_dispatches'] += 1
                         s, ll, ds, nc = self._density_sample(
                             loglstar, num_trials=cur_trials)
+                    if current_method == 'rejection_flow':
+                        env_gens = 0 if recompute else env_gens + 1
+                    # The trial ladder and the efficiency window, mirrored
+                    # by LatentKernels._ladder_window_update: a change to
+                    # one must be made in the other.
                     if rejection_adapt_trials:
                         # Power-of-two trial ladder: keep candidates per
                         # generation near trials_target as the shell
                         # shrinks.
                         n_ok = int(s.shape[0])
-                        if (n_ok < trials_target // 2
-                                and cur_trials * 2 <= rejection_max_trials):
+                        if n_ok < trials_target // 2 and can_double:
                             cur_trials *= 2
-                        elif (n_ok > trials_target * 2
-                                and cur_trials >= 2 * rejection_batch_size):
+                        elif n_ok > trials_target * 2 and can_halve:
                             cur_trials //= 2
                     # Efficiency window; each generation contributes at
                     # most 5 entries so the switch averages several
@@ -610,6 +812,15 @@ class NestedSampler(Sampler):
                                          'sampling method' % current_method)
                         expired.append(current_method)
                         ncs = []
+                    # The stop rules keep a batch from outrunning a ladder
+                    # or expiry decision; a leftover here would mean numbers
+                    # drawn for generations this route would not run.
+                    if served and buf and (switch
+                                           or buf[0]['trials'] != cur_trials):
+                        raise RuntimeError(
+                            'rejection generation prefetch outran a ladder '
+                            'or expiry decision (switch=%s, trials %d -> %d)'
+                            % (switch, buf[0]['trials'], cur_trials))
                     pool = {'u': s, 'logl': ll, 'derived': ds}
                 self.run_stats[stem + '_s'] += time.perf_counter() - t0
                 self.run_stats[stem + '_generations'] += 1
@@ -695,6 +906,9 @@ class NestedSampler(Sampler):
         if pbar is not None:
             pbar.close()
             self._run_pbar = None
+        self.run_stats['speculation_losses'] = self._spec_losses
+        self.run_stats['generations_discarded'] = (
+            len(mcmc_buf) + len(prior_buf) + len(flow_buf))
 
         # Integrate the remaining live points.
         logvol = (-len(saved_v) / self.num_live_points
@@ -748,6 +962,30 @@ class NestedSampler(Sampler):
                                   logz, self.logzerr, h))
         self._log_diagnostics()
         return self.logz
+
+    @staticmethod
+    def _compact_rejection_gen(x, ll, ds, ok, nev, mld, mr, loglstar, it,
+                               trials):
+        """One rejection generation of a batch in the form the host
+        serves: the passing trials' rows ``s`` (x as it came), ``ll`` and
+        ``ds`` (float64), and the scalars ``n_ok``, ``nev`` (the likelihood
+        calls, None for prior rejection, which pays ``trials``), the
+        envelope ``mld`` and ``mr`` (None for prior rejection), the
+        generation's start ``loglstar`` and ``it``, and ``trials``. A few
+        KB a generation, so the buffer rides in the checkpoints."""
+        ok = np.asarray(ok)
+        return {
+            's': np.asarray(x)[ok],
+            'll': np.asarray(ll, dtype=np.float64)[ok],
+            'ds': np.asarray(ds, dtype=np.float64)[ok],
+            'n_ok': int(ok.sum()),
+            'nev': None if nev is None else int(nev),
+            'mld': None if mld is None else float(mld),
+            'mr': None if mr is None else float(mr),
+            'loglstar': float(loglstar),
+            'it': int(it),
+            'trials': int(trials),
+        }
 
     def _saved_row(self, v, derived):
         """A saved point: ``v``, then its derived values when

@@ -1,4 +1,4 @@
-"""GPU-only tests of the CUDA spline-inverse kernel (``cuda`` marker).
+"""GPU-only tests of the CUDA kernels (``cuda`` marker).
 
 They skip with a reason where CUDA is unavailable. On a machine with a
 GPU and nvcc, run them with ``python -m pytest --noconftest -m cuda
@@ -321,3 +321,37 @@ def test_graphed_training_step_equals_the_eager_one():
                     trainers[1].model.parameters()):
         assert float((a - b).abs().max()) <= 1e-6
     assert trainers[0].optimizer.state_dict()['state'][0]['step'] == 10
+
+
+@pytest.mark.parametrize('n,m,d,k,share', [(1000, 256, 16, 0, 0.9),
+                                           (100, 10, 2, 3, 0.9),
+                                           (1000, 65536, 16, 0, 0.001),
+                                           (60000, 256, 2, 0, 0.9)])
+def test_consume_pool_kernel_equals_its_twin(n, m, d, k, share):
+    """The pool-consumption kernel against its plain twin, bit for bit
+    (ties in the live logl included), with its launch counted; the last
+    case holds the live logl in global memory."""
+    from nnest_torch.ops import consume_pool as cp
+    _needs_gpu()
+    g = torch.Generator(device='cuda').manual_seed(n + m)
+    al = torch.round(torch.randn(n, generator=g, device='cuda') * 100) / 100
+    inputs = (torch.randn(n, d, generator=g, device='cuda'), al,
+              torch.randn(n, k, generator=g, device='cuda') if k else None,
+              torch.tensor(3, dtype=torch.int32, device='cuda'),
+              torch.rand(m, generator=g, device='cuda') < share,
+              torch.round(torch.randn(m, generator=g, device='cuda') * 100)
+              / 100 + 0.5,
+              torch.randn(m, d, generator=g, device='cuda'),
+              torch.randn(m, k, generator=g, device='cuda') if k else None)
+
+    def fresh():
+        return [None if t is None else t.clone() for t in inputs]
+
+    before = cp.launches
+    got = cp.consume_pool(*fresh(), update_interval=7)
+    want = cp.consume_pool_twin(*fresh(), update_interval=7)
+    torch.cuda.synchronize()
+    assert cp.launches == before + 1
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert int(got[3]) > 3

@@ -28,6 +28,7 @@ from nnest_torch.likelihoods import (DoubleGaussianShell, Eggbox,
                                      GaussianMix, GaussianShell, Himmelblau)
 from nnest_torch.ops.fused_spline import pack_inverse_consts
 from nnest_torch.ops.spline_inverse import spline_inverse
+import nnest_torch.ops.consume_pool
 from nnest_torch.samplers.kernels import LatentKernels
 model = build_flow(3, device='cpu')
 x, logdet = spline_inverse(torch.randn(5, 3), pack_inverse_consts(model))

@@ -34,13 +34,15 @@ per phase with its seconds:
    bit, at every shape a path runs it (``POOL_SHAPES``: 1000 live points x
    256 Metropolis candidates at d = 16, with and without 3 derived values;
    100 x 10 at d = 2; 1000 x 65536 rejection trials with 0.1% and 30%
-   flagged;
-   60000 live points, past its shared memory), each launch timed between
-   CUDA events beside its bound and the twin's time;
+   flagged; 60000 live points, past its shared memory; 1000 x 512 and
+   1000 x 16384 prior-rejection trials with 25% and 0.8% flagged), each
+   launch timed between CUDA events beside its bound and the twin's time;
 3. main path: ``NestedSampler`` on a 16-D Gaussian (transform 5x, hidden 32,
    256 chains x 80 steps, default strategy and retrain gate) until the
    ladder has reached 'mcmc', the flow has been trained and at least three
-   MCMC generations have run; the kernel's launch counter must be > 0;
+   MCMC generations have run; the kernel's launch counter must be > 0; the
+   share of their trials its prior-rejection generations passed, by trial
+   count (its ``run_stats``), beside ``POOL_SHAPES``' prior rows;
    then the same run with its trainer's files and TensorBoard events on,
    its files alone, and neither, in turns, and the host cost of one
    TensorBoard scalar, for what the run tooling costs;
@@ -165,6 +167,10 @@ per phase with its seconds:
 its own C entry point (the unpadded layout, no launch plan), checks it
 against the twin and times it beside this kernel at every phase-2 shape
 and the sweep's, in turns (earlier, this, this, earlier).
+``--pool-baseline SRC`` does the same for another ``consume_pool.cu``
+(its C entry with or without the scratch argument): built under its own
+library name beside the port's sources, held to the twin bit for bit and
+timed in turns with this kernel at every ``POOL_SHAPES`` row.
 
 Before the last line it prints the ``{"kernels": [...]}`` record, with each
 kernel's launches by path (``mcmc``: phase 3, ``rejection_flow`` and
@@ -407,7 +413,10 @@ def ptxas_report(build_log):
     return out
 
 
-def phase_device():
+def phase_device(earlier):
+    """The card, and the builds: the port's two sources and the earlier
+    versions of ``earlier`` (a dict of name to a constructor, replaced by
+    what each returns), one nvcc for each, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from nnest_torch.ops import consume_pool as cp
     from nnest_torch.ops import spline_inverse as si
@@ -417,10 +426,12 @@ def phase_device():
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.time()
-    # one nvcc for each source, started together
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(m.load_library) for m in (si, cp)]:
+    with ThreadPoolExecutor(2 + len(earlier)) as pool:
+        port = [pool.submit(m.load_library) for m in (si, cp)]
+        more = {name: pool.submit(make) for name, make in earlier.items()}
+        for f in port:
             f.result()
+        earlier.update({name: f.result() for name, f in more.items()})
     build_s = time.time() - t0
     ptxas = ptxas_report(si.build_log) + [
         'consume_pool: ' + line.strip() for line in cp.build_log.splitlines()
@@ -485,6 +496,56 @@ class EarlierKernel:
         return x, logdet
 
 
+class EarlierPool:
+    """An earlier version of the pool-consumption kernel, built from ``src``
+    (``--pool-baseline``) under its own library name: C entry
+    ``nnest_consume_pool(au, al, ad, it_in, it_out, crossed_out, flags,
+    cand_logl, cand_x, cand_d, n, d, k, m, update_interval, stream)``, or,
+    where the library has ``nnest_consume_pool_scratch_bytes``, the
+    wrapper's entry with its scratch pointer before the stream. Called as
+    ``consume_pool`` is; it is timed beside the port's kernel, counts no
+    launch and is no part of the port."""
+
+    def __init__(self, src, build_dir):
+        import ctypes
+        from nnest_torch.ops.consume_pool import bind
+        from nnest_torch.ops.spline_inverse import NVCC_FLAGS, _find_nvcc
+        so = os.path.join(build_dir, 'libconsume_pool_earlier.so')
+        subprocess.run([_find_nvcc(), *NVCC_FLAGS, '-o', so, src],
+                       check=True, capture_output=True, text=True)
+        self.lib = ctypes.CDLL(so)
+        self.scratch = hasattr(self.lib, 'nnest_consume_pool_scratch_bytes')
+        if self.scratch:
+            self.lib = bind(so)
+        else:
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            self.lib.nnest_consume_pool.argtypes = [vp] * 10 + [ci] * 5 + [vp]
+            self.lib.nnest_consume_pool.restype = ci
+
+    def __call__(self, au, al, ad, it, flags, cand_logl, cand_x,
+                 cand_derived, update_interval=None):
+        n, d = au.shape
+        k = 0 if ad is None else ad.shape[1]
+        it_out = torch.empty((), dtype=torch.int32, device=au.device)
+        crossed = torch.empty((), dtype=torch.bool, device=au.device)
+        m = cand_logl.shape[0]
+        scratch = []
+        if self.scratch:
+            buf = torch.empty(self.lib.nnest_consume_pool_scratch_bytes(n, m),
+                              dtype=torch.uint8, device=au.device)
+            scratch = [buf.data_ptr()]
+        err = self.lib.nnest_consume_pool(
+            au.data_ptr(), al.data_ptr(), ad.data_ptr() if k else None,
+            it.data_ptr(), it_out.data_ptr(), crossed.data_ptr(),
+            flags.data_ptr(), cand_logl.data_ptr(), cand_x.data_ptr(),
+            cand_derived.data_ptr() if k else None, n, d, k, m,
+            int(update_interval or 0), *scratch,
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError('earlier pool kernel launch failed: %d' % err)
+        return au, al, ad, it_out, crossed
+
+
 def max_diff(a, b):
     return float((a[0] - b[0]).abs().max()), float((a[1] - b[1]).abs().max())
 
@@ -527,7 +588,7 @@ TIMED_SHAPES = ((16, 256), (16, 4096), (2, 128), (50, 256), (50, 4096),
     + POSTERIOR_SHAPES + ((16, DYN_BATCH_LIVE),) + CLI_SHAPES + MESH_SHAPES
 
 
-def phase_kernel(records, earlier):
+def phase_kernel(records, earlier, earlier_pool):
     from nnest_torch.ops import spline_inverse as si
     from nnest_torch.ops.fused_spline import _inverse_body, pack_inverse_consts
     device = torch.device('cuda')
@@ -631,7 +692,7 @@ def phase_kernel(records, earlier):
                         si.launch_plan(n, d, hidden_for(d), 8)[k]
                         for k in ('rows', 'stages'))})
 
-    pool = consume_pool_checks(records[2])
+    pool = consume_pool_checks(records[2], earlier_pool)
     main, pb = timings[0], per_block[0]
     records[0].update({
         'max_abs_err': worst['x'], 'max_abs_err_logdet': worst['ld'],
@@ -655,14 +716,19 @@ def phase_kernel(records, earlier):
 # line's (100 live points in the CPU tests' runs, 10 chains), a rejection
 # generation at 65536 trials with few candidates passing and with many (a
 # flow generation just after the switch, before the ladder halves the
-# trials), and a live set past the kernel's shared memory (its
-# global-memory path).
+# trials), a live set past the kernel's shared memory (its global-memory
+# path), and phase 3's prior-rejection generations (44 of its 49
+# launches): the trial ladder's start (rejection_batch_size 512, the ladder
+# holding n_ok near trials_target = 1000 // 8 = 125) and a deep rung
+# (16384 trials); phase 3 reports the shares its prior generations passed.
 POOL_SHAPES = ((1000, 256, 16, 0, 0.9, 'mcmc'),
                (1000, 256, 16, 3, 0.9, 'derived'),
                (100, 10, 2, 0, 0.9, 'cli'),
                (1000, 65536, 16, 0, 0.001, 'rejection'),
                (1000, 65536, 16, 0, 0.3, 'rejection, many passing'),
-               (60000, 256, 2, 0, 0.9, 'global memory'))
+               (60000, 256, 2, 0, 0.9, 'global memory'),
+               (1000, 512, 16, 0, 0.25, 'prior'),
+               (1000, 16384, 16, 0, 0.008, 'prior, deep'))
 
 
 def pool_inputs(n, m, d, k, share, seed):
@@ -681,23 +747,46 @@ def pool_inputs(n, m, d, k, share, seed):
             normal(m, d), normal(m, k) if k else None)
 
 
-def pool_cost(n, m, d, k, accepts):
+def pool_cost(n, m, d, k, flagged, sectors, accepts, slots):
     """(operations, bytes) that one consumption needs at these inputs:
-    a compare a candidate and an argmin of the live set at the start and
-    after each accept; the flags and logl read, the live logl read once,
-    and per accept a row of x and derived read and written and a logl."""
-    ops = m + n * (1 + accepts)
-    nbytes = 5 * m + 4 * n + accepts * (8 * d + 8 * k + 4)
+    a compare a flagged candidate, a tournament over the live set at the
+    start (n compares) and its path after each accept (ceil(log2 n)
+    compares); the m flags read, the logl of the flagged candidates only
+    (``sectors``: the 32-byte sectors of the candidates' logl that hold a
+    flagged one), the live logl read once, ``it`` read and written and the
+    boundary flag written, and for each slot replaced (``slots``; a slot's
+    last accept overwrites the others) its row of x and derived read and
+    written and its logl written."""
+    ops = flagged + n + accepts * math.ceil(math.log2(max(n, 2)))
+    nbytes = m + 32 * sectors + 4 * n + 9 + slots * (8 * d + 8 * k + 4)
     return ops, nbytes
 
 
-def consume_pool_checks(record, reps=20):
+def pool_ms(fn, fresh, reps=20):
+    """Device ms of one consumption by ``fn``: each launch between CUDA
+    events on its own fresh copy of the inputs, all queued behind a sleep
+    so that the host's launch cost stays out; the median."""
+    copies = [fresh() for _ in range(reps)]
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(5e6))
+    for (start, end), args in zip(events, copies):
+        start.record()
+        fn(*args, update_interval=7)
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
+def consume_pool_checks(record, earlier=None):
     """consume_pool against its twin at every shape a path runs
     (:data:`POOL_SHAPES`), bit for bit (live set, logl, derived, it and
-    the boundary flag), then timed: each launch between CUDA events on
-    its own fresh copy of the inputs, queued behind a sleep so that the
-    host's launch cost stays out; the twin (which reads a flag to the host
-    an accept) by the host clock; the bound from :func:`pool_cost`."""
+    the boundary flag, signed zeros included), then timed by
+    :func:`pool_ms`; the twin (which reads a flag to the host an accept)
+    by the host clock; the bound from :func:`pool_cost`. With ``earlier``
+    (an :class:`EarlierPool`) that kernel is held to the twin the same way
+    and timed in turns with this one (earlier, this, this, earlier)."""
     from nnest_torch.ops.consume_pool import consume_pool, consume_pool_twin
     shapes = []
     for i, (n, m, d, k, share, path) in enumerate(POOL_SHAPES):
@@ -706,29 +795,38 @@ def consume_pool_checks(record, reps=20):
         def fresh():
             return [None if t is None else t.clone() for t in inputs]
 
-        got = consume_pool(*fresh(), update_interval=7)
         want = consume_pool_twin(*fresh(), update_interval=7)
-        torch.cuda.synchronize()
-        for name, a, b in zip(('au', 'al', 'ad', 'it', 'crossed'), got,
-                              want):
-            if (a is None) != (b is None) or (
-                    a is not None and not torch.equal(a, b)):
-                raise AssertionError('consume_pool differs from its twin in '
-                                     '%s at n=%d m=%d d=%d k=%d'
-                                     % (name, n, m, d, k))
-        accepts = int(got[3]) - 5
-        copies = [fresh() for _ in range(reps)]
-        events = [(torch.cuda.Event(enable_timing=True),
-                   torch.cuda.Event(enable_timing=True))
-                  for _ in range(reps)]
-        torch.cuda.synchronize()
-        torch.cuda._sleep(int(5e6))
-        for (start, end), args in zip(events, copies):
-            start.record()
-            consume_pool(*args, update_interval=7)
-            end.record()
-        torch.cuda.synchronize()
-        ms = float(np.median([a.elapsed_time(b) for a, b in events]))
+        kernels = [('this', consume_pool)]
+        if earlier is not None:
+            kernels.append(('earlier', earlier))
+        for name, fn in kernels:
+            got = fn(*fresh(), update_interval=7)
+            torch.cuda.synchronize()
+            for part, a, b in zip(('au', 'al', 'ad', 'it', 'crossed'), got,
+                                  want):
+                # the same bits, signed zeros included
+                if (a is None) != (b is None) or (a is not None and not (
+                        torch.equal(a.reshape(-1).view(torch.uint8),
+                                    b.reshape(-1).view(torch.uint8)))):
+                    raise AssertionError(
+                        '%s consume_pool differs from its twin in %s at '
+                        'n=%d m=%d d=%d k=%d' % (name, part, n, m, d, k))
+        accepts = int(want[3]) - 5
+        flags = inputs[4]
+        flagged = int(flags.sum())
+        padded = torch.zeros(m + -m % 8, dtype=torch.bool, device='cuda')
+        padded[:m] = flags
+        sectors = int(padded.view(-1, 8).any(1).sum())
+        # a replaced slot ends strictly above its first value
+        slots = int((want[1] != inputs[1]).sum())
+        if earlier is None:
+            ms, e_ms = pool_ms(consume_pool, fresh), None
+        else:
+            e1 = pool_ms(earlier, fresh)
+            f1 = pool_ms(consume_pool, fresh)
+            f2 = pool_ms(consume_pool, fresh)
+            e2 = pool_ms(earlier, fresh)
+            ms, e_ms = (f1 + f2) / 2, (e1 + e2) / 2
         plain = []
         for _ in range(3):
             args = fresh()
@@ -737,13 +835,23 @@ def consume_pool_checks(record, reps=20):
             consume_pool_twin(*args, update_interval=7)
             torch.cuda.synchronize()
             plain.append((time.perf_counter() - t0) * 1e3)
-        ops, nbytes = pool_cost(n, m, d, k, accepts)
+        ops, nbytes = pool_cost(n, m, d, k, flagged, sectors, accepts, slots)
         b_ms, b_by = bound_ms(ops, nbytes)
-        shapes.append({'path': path, 'n': n, 'm': m, 'd': d, 'k': k,
-                       'accepts': accepts, 'ms': ms,
-                       'plain_ms': float(np.median(plain)), 'bound_ms': b_ms,
-                       'bound_by': b_by, 'over_bound': ms / b_ms,
-                       'ops': ops, 'bytes': nbytes})
+        row = {'path': path, 'n': n, 'm': m, 'd': d, 'k': k,
+               'share': share, 'flagged': flagged, 'sectors': sectors,
+               'accepts': accepts, 'slots': slots, 'ms': ms,
+               'plain_ms': float(np.median(plain)), 'bound_ms': b_ms,
+               'bound_by': b_by, 'over_bound': ms / b_ms, 'ops': ops,
+               'bytes': nbytes}
+        if e_ms is not None:
+            row.update({'earlier_ms': e_ms, 'earlier_over_this': e_ms / ms,
+                        'turns_ms': {'earlier': [e1, e2], 'this': [f1, f2]}})
+        print('consume_pool %-24s n=%-5d m=%-5d accepts %-4d slots %-4d '
+              '%.6f ms%s, bound %.3g ms (%s)' % (
+                  path, n, m, accepts, slots, ms,
+                  '' if e_ms is None else ' (earlier %.6f)' % e_ms,
+                  b_ms, b_by), flush=True)
+        shapes.append(row)
     main = shapes[0]
     record.update({'max_abs_err': 0.0, 'ms': main['ms'],
                    'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
@@ -844,6 +952,19 @@ def tooling_turns(log_dir):
             'scalars': scalars, 'scalar_cost': scalar_cost(log_dir)}
 
 
+def prior_shares(by_trials):
+    """The share of its trials phase 3's prior-rejection generations passed
+    (``n_ok / trials``), by trial count, from the sampler's
+    ``run_stats['rejection_by_trials']``, beside :data:`POOL_SHAPES`'
+    prior rows."""
+    return {'generations': sum(g for g, _ in by_trials.values()),
+            'pool_shapes': {m: share for _, m, _, _, share, path in
+                            POOL_SHAPES if path.startswith('prior')},
+            'by_trials': {t: {'generations': g, 'passed': ok,
+                              'share': ok / (g * t)}
+                          for t, (g, ok) in sorted(by_trials.items())}}
+
+
 def phase_main_path(record, log_dir):
     sampler = main_path_sampler(log_dir, 'main')
     reset_counts()
@@ -861,6 +982,7 @@ def phase_main_path(record, log_dir):
     return {'wall_s': wall, 'launches': launches, 'iterations': sampler.niter,
             'ncall': sampler.total_calls, 'logz_so_far': sampler.logz,
             'h': sampler.h, 'pool_launches': POOL_LAUNCHES['mcmc'],
+            'prior_shares': prior_shares(stats['rejection_by_trials']),
             'training_epochs': sampler.trainer.total_iters, **stats,
             'generation_profile': profile_generation(mcmc_generation(sampler)),
             'tooling_turns': tooling_turns(log_dir)}
@@ -2461,6 +2583,9 @@ def main():
     parser.add_argument('--baseline', metavar='SRC',
                         help='an earlier kernel source to time beside '
                              'this one in phase 2')
+    parser.add_argument('--pool-baseline', metavar='SRC',
+                        help='an earlier consume_pool source to hold to '
+                             'the twin and time beside this one in phase 2')
     # one rank of phase 14, started by the script itself
     parser.add_argument('--mesh-part', choices=('a', 'b', 'd1', 'd2'),
                         help=argparse.SUPPRESS)
@@ -2497,11 +2622,17 @@ def main():
     ]
     outputs = {}
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as log_dir:
-        earlier = (EarlierKernel(os.path.abspath(args.baseline), log_dir)
-                   if args.baseline else None)
+        earlier = {}
+        if args.baseline:
+            earlier['spline'] = lambda: EarlierKernel(
+                os.path.abspath(args.baseline), log_dir)
+        if args.pool_baseline:
+            earlier['pool'] = lambda: EarlierPool(
+                os.path.abspath(args.pool_baseline), log_dir)
         for num, name, fn in (
-                (1, 'device', phase_device),
-                (2, 'kernel', lambda: phase_kernel(records, earlier)),
+                (1, 'device', lambda: phase_device(earlier)),
+                (2, 'kernel', lambda: phase_kernel(
+                    records, earlier.get('spline'), earlier.get('pool'))),
                 (3, 'main_path', lambda: phase_main_path(records[0],
                                                          log_dir)),
                 (4, 'correctness', lambda: phase_correctness(log_dir)),

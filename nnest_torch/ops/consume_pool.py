@@ -5,9 +5,11 @@ update_interval)`` replays the nested sampler's consumption of one candidate
 pool on the device's copy of the live set (the JAX package's
 ``LatentKernels._consume_pool``, an XLA ``lax.scan``; there is no Pallas
 kernel behind it). For a CUDA tensor it launches the hand-written kernel in
-``csrc/consume_pool.cu`` (one thread block); for a CPU tensor it runs the
-plain PyTorch twin :func:`consume_pool_twin`. There is no fallback between
-the two: a CUDA tensor launches the kernel or raises.
+``csrc/consume_pool.cu`` (one thread block: a pre-filter of the candidates
+against the first worst value, then one warp's walk over a 32-ary min-tree
+of the live logl; the source's header has the design); for a CPU tensor it
+runs the plain PyTorch twin :func:`consume_pool_twin`. There is no fallback
+between the two: a CUDA tensor launches the kernel or raises.
 
 Both update ``au``, ``al`` and ``ad`` in place and return them with the new
 iteration count and the boundary flag as 0-dim tensors; the work is
@@ -68,14 +70,21 @@ def load_library():
             os.replace(tmp, so)
         with open(log_path) as f:
             build_log = f.read()
-        lib = ctypes.CDLL(so)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nnest_consume_pool.argtypes = [vp] * 10 + [ci] * 5 + [vp]
-        lib.nnest_consume_pool.restype = ci
-        lib.nnest_consume_pool_shared_capacity.argtypes = []
-        lib.nnest_consume_pool_shared_capacity.restype = ci
-        _lib = lib
-        return lib
+        _lib = bind(so)
+        return _lib
+
+
+def bind(so):
+    """The kernel library at ``so``, its C entries typed."""
+    lib = ctypes.CDLL(so)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.nnest_consume_pool.argtypes = [vp] * 10 + [ci] * 5 + [vp, vp]
+    lib.nnest_consume_pool.restype = ci
+    lib.nnest_consume_pool_shared_capacity.argtypes = []
+    lib.nnest_consume_pool_shared_capacity.restype = ci
+    lib.nnest_consume_pool_scratch_bytes.argtypes = [ci, ci]
+    lib.nnest_consume_pool_scratch_bytes.restype = ctypes.c_longlong
+    return lib
 
 
 def consume_pool_twin(au, al, ad, it, flags, cand_logl, cand_x, cand_derived,
@@ -166,12 +175,16 @@ def consume_pool(au, al, ad, it, flags, cand_logl, cand_x, cand_derived,
     lib = load_library()
     it_out = torch.empty((), dtype=torch.int32, device=au.device)
     crossed = torch.empty((), dtype=torch.bool, device=au.device)
+    # the kernel's device scratch (each slot's last accept; the survivor
+    # list and the tree's inner nodes where they outgrow shared memory)
+    scratch = torch.empty(lib.nnest_consume_pool_scratch_bytes(n, m),
+                          dtype=torch.uint8, device=au.device)
     args = (au.data_ptr(), al.data_ptr(), ad.data_ptr() if k else None,
             it.data_ptr(), it_out.data_ptr(), crossed.data_ptr(),
             flags.data_ptr(),
             cand_logl.data_ptr(), cand_x.data_ptr(),
             cand_derived.data_ptr() if k else None, n, d, k, m,
-            int(update_interval or 0),
+            int(update_interval or 0), scratch.data_ptr(),
             torch.cuda.current_stream(au.device).cuda_stream)
     with torch.cuda.device(au.device):
         err = lib.nnest_consume_pool(*args)

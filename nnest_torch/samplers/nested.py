@@ -1,13 +1,15 @@
 """Nested sampler: evidence (logZ) and posterior samples.
 
-Port of ``nnest_tpu/samplers/nested.py`` without meshes: the strategy
+Port of ``nnest_tpu/samplers/nested.py``, on one process or on the ranks
+of a mesh (``mesh=``, ``nnest_torch.parallel``): the strategy
 ladder over ``'rejection_prior'``, ``'rejection_flow'``, ``'density_flow'``,
 ``'mcmc'`` and ``'slice'`` with efficiency-based expiry (a rejection phase
 expires once its likelihood calls per candidate pass those of the
 downstream kernel: ``mcmc_steps``, or ``slice_steps * (1 +
 slice_max_expand)`` for slice), the adaptive rejection trial
 ladder, the NLL-gated flow retrain (which also invalidates the
-flow-rejection envelope), one candidate pool generation per call consumed
+flow-rejection envelope), candidate pool generations (up to
+``mcmc_gen_batch`` or ``rejection_gen_batch`` a dispatch, below) consumed
 across iterations, and the float64 host evidence (logz, h, logzerr). The
 worst-point replacement loop stays on the host in float64; candidate
 generation and flow training run on the sampler's device.
@@ -86,7 +88,9 @@ generation a dispatch. The buffers ride in the checkpoints, so a resume
 inside a buffer is bit-exact too. ``run_stats`` counts each strategy's
 dispatches (``<stem>_dispatches``) beside its generations, the buffered
 generations a retrain dropped (``speculation_losses``) and those left
-unserved when the run ended (``generations_discarded``).
+unserved when the run ended (``generations_discarded``); for each
+rejection strategy, its generations and the candidates they passed by
+trial count (``<stem>_by_trials``).
 
 Under a mesh (``mesh=``, :mod:`nnest_torch.parallel`) every rank runs this
 loop in lockstep. A Metropolis or slice pool generation takes the
@@ -506,10 +510,13 @@ class NestedSampler(Sampler):
         self.run_stats = {'trainings': 0, 'retrains_skipped': 0,
                           'train_s': 0.0, 'checkpoints': 0,
                           'checkpoint_s': 0.0}
-        for stem in _STAT_KEY.values():
+        for method, stem in _STAT_KEY.items():
             self.run_stats[stem + '_generations'] = 0
             self.run_stats[stem + '_dispatches'] = 0
             self.run_stats[stem + '_s'] = 0.0
+            if method not in ('mcmc', 'slice'):
+                # trial count -> [generations, candidates passed]
+                self.run_stats[stem + '_by_trials'] = {}
 
         def checkpoint():
             if self.logs is None:
@@ -782,6 +789,10 @@ class NestedSampler(Sampler):
                         self.run_stats[stem + '_dispatches'] += 1
                         s, ll, ds, nc = self._density_sample(
                             loglstar, num_trials=cur_trials)
+                    rung = self.run_stats[stem + '_by_trials'].setdefault(
+                        cur_trials, [0, 0])
+                    rung[0] += 1
+                    rung[1] += int(s.shape[0])
                     if current_method == 'rejection_flow':
                         env_gens = 0 if recompute else env_gens + 1
                     # The trial ladder and the efficiency window, mirrored

@@ -323,35 +323,88 @@ def test_graphed_training_step_equals_the_eager_one():
     assert trainers[0].optimizer.state_dict()['state'][0]['step'] == 10
 
 
-@pytest.mark.parametrize('n,m,d,k,share', [(1000, 256, 16, 0, 0.9),
-                                           (100, 10, 2, 3, 0.9),
-                                           (1000, 65536, 16, 0, 0.001),
-                                           (60000, 256, 2, 0, 0.9)])
-def test_consume_pool_kernel_equals_its_twin(n, m, d, k, share):
+# (live points, candidates, d, derived values, share flagged, inputs): the
+# paths' shapes, then the regimes the kernel's design splits on: one live
+# point, 33 (a second tree level), n not a multiple of 32, n one past the
+# leaves' shared capacity, no candidate flagged, many accepts, a survivor
+# list larger than shared memory, views not aligned for the vector loads,
+# +0.0/-0.0 with multi-way ties at the minimum, and 2^20 + 1 live points
+# (five tree levels, the inner nodes past shared memory)
+POOL_CASES = [(1000, 256, 16, 0, 0.9, 'random'),
+              (100, 10, 2, 3, 0.9, 'random'),
+              (1000, 65536, 16, 0, 0.001, 'random'),
+              (60000, 256, 2, 0, 0.9, 'random'),
+              (1, 64, 4, 0, 0.9, 'random'),
+              (33, 200, 4, 2, 0.9, 'random'),
+              (77, 300, 3, 0, 0.5, 'random'),
+              ('capacity+1', 512, 2, 0, 0.9, 'random'),
+              (1000, 4096, 16, 0, 0.0, 'random'),
+              (1000, 65536, 16, 0, 0.3, 'random'),
+              (1000, 65536, 16, 3, 0.9, 'random'),
+              (1000, 1001, 5, 2, 0.5, 'unaligned'),
+              (1000, 4096, 3, 1, 0.6, 'zeros'),
+              (2000, 4096, 3, 0, 0.6, 'ties'),
+              (2 ** 20 + 1, 256, 2, 0, 0.9, 'random')]
+
+
+@pytest.mark.parametrize(
+    'n,m,d,k,share,kind', POOL_CASES,
+    ids=['-'.join(map(str, c[:5])) + ('' if c[5] == 'random' else '-' + c[5])
+         for c in POOL_CASES])
+def test_consume_pool_kernel_equals_its_twin(n, m, d, k, share, kind):
     """The pool-consumption kernel against its plain twin, bit for bit
-    (ties in the live logl included), with its launch counted; the last
-    case holds the live logl in global memory."""
+    (ties in the live logl included), with its launch counted; from
+    capacity+1 live points on, the live logl stay in global memory."""
     from nnest_torch.ops import consume_pool as cp
     _needs_gpu()
+    if n == 'capacity+1':
+        n = cp.load_library().nnest_consume_pool_shared_capacity() + 1
     g = torch.Generator(device='cuda').manual_seed(n + m)
     al = torch.round(torch.randn(n, generator=g, device='cuda') * 100) / 100
-    inputs = (torch.randn(n, d, generator=g, device='cuda'), al,
-              torch.randn(n, k, generator=g, device='cuda') if k else None,
-              torch.tensor(3, dtype=torch.int32, device='cuda'),
-              torch.rand(m, generator=g, device='cuda') < share,
-              torch.round(torch.randn(m, generator=g, device='cuda') * 100)
-              / 100 + 0.5,
-              torch.randn(m, d, generator=g, device='cuda'),
+    if kind == 'random':
+        x = torch.randn(n, d, generator=g, device='cuda')
+        ad = torch.randn(n, k, generator=g, device='cuda') if k else None
+        flags = torch.rand(m, generator=g, device='cuda') < share
+        cl = torch.round(torch.randn(m, generator=g, device='cuda') * 100) \
+            / 100 + 0.5
+    else:
+        cl = torch.round(torch.randn(m + 1, generator=g, device='cuda')
+                         * 100) / 100 + 0.5
+        flags = torch.rand(m + 1, generator=g, device='cuda') < share
+        if kind in ('zeros', 'ties'):
+            at = torch.randperm(n, generator=g, device='cuda')[:n // 10]
+            if kind == 'zeros':
+                # the minimum is zero, held as -0.0 and +0.0 by a tenth each
+                al = al.abs()
+                al[at] = 0.0
+                al[at[::2]] = -0.0
+                cl[torch.rand(m + 1, generator=g, device='cuda') < 0.1] = -0.0
+            else:
+                al[at] = al.min()
+                cl[torch.rand(m + 1, generator=g, device='cuda') < 0.1] = \
+                    al.min()
+        # 'unaligned': views one element in, past the kernel's vector loads
+        off = 1 if kind == 'unaligned' else 0
+        cl, flags = cl[off:off + m], flags[off:off + m]
+        x = torch.randn(n, d, generator=g, device='cuda')
+        ad = torch.randn(n, k, generator=g, device='cuda') if k else None
+    inputs = (x, al, ad, torch.tensor(3, dtype=torch.int32, device='cuda'),
+              flags, cl, torch.randn(m, d, generator=g, device='cuda'),
               torch.randn(m, k, generator=g, device='cuda') if k else None)
 
     def fresh():
-        return [None if t is None else t.clone() for t in inputs]
+        return [None if t is None else
+                (t if t is cl or t is flags else t.clone()) for t in inputs]
 
     before = cp.launches
     got = cp.consume_pool(*fresh(), update_interval=7)
     want = cp.consume_pool_twin(*fresh(), update_interval=7)
     torch.cuda.synchronize()
     assert cp.launches == before + 1
-    for a, b in zip(got, want):
-        assert (a is None and b is None) or torch.equal(a, b)
-    assert int(got[3]) > 3
+    for a, b in zip(got, want):   # the same bits, signed zeros included
+        assert (a is None and b is None) or torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+    if share == 0.0:
+        assert int(got[3]) == 3
+    else:
+        assert int(got[3]) > 3

@@ -295,6 +295,11 @@ def test_gen_batch_bit_identical(case):
         gens = one.run_stats[stem + '_generations']
         assert eight.run_stats[stem + '_generations'] == gens
         assert one.run_stats[stem + '_dispatches'] == gens
+        if stem.startswith('rejection'):
+            # the same generations and passes by trial count on both routes
+            by = one.run_stats[stem + '_by_trials']
+            assert eight.run_stats[stem + '_by_trials'] == by
+            assert sum(g for g, _ in by.values()) == gens
     if case == 'flow':
         assert eight.run_stats['rejection_flow_generations'] >= 2
     if halves is not None:

@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs fifteen phases, printing one JSON line
+from JAX or ``nnest_tpu`` and runs sixteen phases, printing one JSON line
 per phase with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the builds
@@ -18,15 +18,19 @@ per phase with its seconds:
    (phase 13's command lines: chains, half-updates, the ensemble's starts
    and trajectories) and N in {4, 8} (a rank's share of 8 and 16 chains on
    2 ranks; phase 14's share of 256 chains, d = 16 at N = 128, is in the
-   first list), with inputs beyond ±3, exactly at
+   first list), and at hidden 256 (phase 16's tensor-parallel width) at
+   d = 16 with N in {1, 16, 256, 4096, 4097} and d = 4 with N in {1, 64,
+   4097}, with inputs beyond ±3, exactly at
    ±3 and on spline knots; max |dx| <= 3e-5 and max |dlogdet| <= 3e-4.
    The per-block entry against the twin (the same limits) and against the
    whole-chain kernel (1e-6, 1e-5) at d in {5, 16}. Then the kernel is
    timed by CUDA-graph replay (and eagerly, back to back) and the twin
    eagerly, at the main path's shapes (N = 512, a slice expansion's
    2 x 256 stacked rows, N = 65536, phase 10's N = 16, 32 and 32064,
-   phase 11's N = 200, phase 13's d = 2 shapes and phase 14's per-rank
-   shapes included) beside the least time the card could take;
+   phase 11's N = 200, phase 13's d = 2 shapes, phase 14's per-rank
+   shapes and phase 16's hidden-256 shapes (d = 16 at N = 16, 256 and
+   4096, d = 4 at N = 64) included) beside the least time the card could
+   take;
    the per-block
    entry at d = 16; and the rows a thread block takes and the ring's
    stages are swept (N = 65536: 32, 64 and 128 rows). Then the
@@ -136,7 +140,8 @@ per phase with its seconds:
 14. mesh: multi-process data parallelism (``nnest_torch.parallel``) on the
    one card, the script starting itself as rank processes with the rank
    variables ``torchrun`` sets: (a) the phase-3 model on 2 ranks over gloo
-   (two ranks share the card, which NCCL refuses), 128 chains a rank: the
+   (two ranks share the card, which NCCL refuses), 128 chains a rank, 50
+   training epochs a training: the
    ranks equal on logz, ncall and niter, the kernel launched on each rank
    (> 0) and the twin never; the run's wall beside phase 3's, one sharded
    generation's wall and collectives (one a step for the dynamic step
@@ -161,7 +166,30 @@ per phase with its seconds:
    launches a generation; then the 2-D Gaussian (100 live points) at 1 and
    8 with speculation won and lost, with slice and with flow rejection,
    equal bit for bit, and a run cut inside a Metropolis buffer and resumed
-   with another seed, equal to the uninterrupted run.
+   with another seed, equal to the uninterrupted run;
+16. tp and runtime: (a) tensor parallelism on the one card, the script
+   starting itself as 2 ranks over gloo on a (dp 1, tp 2) mesh:
+   ``MCMCSampler`` on phase 10's model (16-D, correlation 0.9) at
+   ``hidden_dim=256``, 16 chains, 500 steps, 10 training epochs; the ranks
+   equal on the samples bit for bit, the moments within bounds from the
+   run's ESS, the kernel launched one a step plus one a call on each rank
+   and the twin never; the run's wall, its collectives in training and a
+   sampling step, one all-gather's time; a tp training epoch (eager) beside
+   a one-rank epoch (graphed) from the same weights on the same data, in
+   turns, timed, with their losses and flows after the epoch, and the
+   epoch's first step on both: its NLL equal within 1e-5 relative, its
+   gradients within rtol 1e-4, atol 1e-5; (b) the native runtime
+   (``nnest_torch.runtime``, its g++ build log line printed) against its
+   numpy twins on phase 10's MCMC chains and phase 13's ensemble chains:
+   ESS, acceptance and jump within 1e-12 relative, timed in turns (native,
+   numpy, numpy, native), and the ensemble's 64 chain files written
+   natively against ``np.savetxt``, byte-equal, timed in turns; the
+   runtime's native calls (> 0) and fallbacks (0) on phases 10 and 13.
+
+Depth cut to keep the script inside its time limit (widths and checks
+unchanged; old -> new): phase 2's plain-twin timing, 5 warm-up calls then
+10 runs of 20 -> 2 then 3 runs of 5 (``PLAIN_TIMING``); phase 14 (a)'s
+training epochs, 100 -> 50 (``MESH_TRAIN_ITERS``).
 
 ``--baseline SRC`` also builds SRC, an earlier version of the kernel with
 its own C entry point (the unpadded layout, no launch plan), checks it
@@ -178,7 +206,8 @@ kernel's launches by path (``mcmc``: phase 3, ``rejection_flow`` and
 ``mcmc_sampler`` and ``ensemble``: phase 10, ``dynamic`` and
 ``host_likelihood``: phase 11, ``derived``: phase 12, ``cli``: phase 13,
 ``mesh``: phase 14, every rank's launches in parts a, b and d,
-``prefetch``: phase 15; consume_pool's by the first word of each path);
+``prefetch``: phase 15, ``tp``: phase 16, both ranks' launches;
+consume_pool's by the first word of each path);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before that line.
@@ -231,6 +260,9 @@ ROSENBROCK_LOGZ, ROSENBROCK_TOL = -5.80, 0.2
 # MCMC at ~140 iterations, 50 training epochs); the resumed run is cut at
 # this iteration, past the switch
 MESH_RANKS = 2
+# part (a)'s training epochs (cut from phase 3's 100, which took ~25 s of
+# a rank's 34 s run)
+MESH_TRAIN_ITERS = 50
 MESH_2D_LIVE, MESH_2D_TRAIN_ITERS, MESH_2D_SWITCH = 200, 50, 0.5
 MESH_CUT_ITERS = 300
 # the multihost command line's dimension in phase 14: the smallest at which
@@ -273,6 +305,12 @@ def cuda_time_ms(fn, reps=10, calls=20, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+# the plain twin's timing in phase 2: 2 warm-up calls, then the median of
+# 3 runs of 5 calls (cut from 5, then 10 runs of 20: ~75 s of the phase at
+# the large shapes)
+PLAIN_TIMING = {'reps': 3, 'calls': 5, 'warmup': 2}
 
 
 def graph_time_ms(fn, reps=10, calls=20):
@@ -366,11 +404,13 @@ def bound_ms(ops, nbytes):
                                  else 'bytes')
 
 
-def random_flow(d, seed, device):
-    """A random spline flow at the autoscaled width, ActNorm initialised on
-    a non-trivial data batch so every block is off the identity."""
+def random_flow(d, seed, device, hidden=None):
+    """A random spline flow at the autoscaled width (or ``hidden``),
+    ActNorm initialised on a non-trivial data batch so every block is off
+    the identity."""
     from nnest_torch.flows import build_flow
-    model = build_flow(d, hidden_dim=hidden_for(d), seed=seed, device=device)
+    model = build_flow(d, hidden_dim=hidden or hidden_for(d), seed=seed,
+                       device=device)
     g = torch.Generator(device=device).manual_seed(seed)
     data = 0.7 * torch.randn(512, d, generator=g, device=device) + 0.3
     model.data_init(data)
@@ -583,6 +623,11 @@ CLI_SHAPES = ((2, 10), (2, 16), (2, 32), (2, CLI_WALKERS),
 # model's 256 chains on 2 ranks, and the 2-D runs' 8 and 16 chains of the
 # CPU tests on 2 ranks
 MESH_SHAPES = ((16, 128), (2, 4), (2, 8))
+# the tensor-parallel path's width (phase 16: the 16-D model at hidden
+# 256, 16 chains) and its shapes: a full-MH step's 16 chains, 256 and 4096
+# rows, and the CPU tests' 4-D flow at 64 rows (tests/test_torch_tp.py)
+TP_HIDDEN = 256
+TP_SHAPES = ((16, 16), (16, 256), (16, 4096), (4, 64))
 TIMED_SHAPES = ((16, 256), (16, 4096), (2, 128), (50, 256), (50, 4096),
                 (16, FLOW_TRIALS), (50, FLOW_TRIALS), (16, 512)) \
     + POSTERIOR_SHAPES + ((16, DYN_BATCH_LIVE),) + CLI_SHAPES + MESH_SHAPES
@@ -641,8 +686,26 @@ def phase_kernel(records, earlier, earlier_pool):
                              'earlier_over_this': e_ms / ms})
             cases.append(case)
 
-    def shape_timing(d, n, per_block=False):
-        model = random_flow(d, seed=200 + d, device=device)
+    # the tensor-parallel path's width, a new shape for the kernel
+    for d in sorted({d for d, _ in TP_SHAPES}):
+        model = random_flow(d, seed=400 + d, device=device,
+                            hidden=TP_HIDDEN)
+        packed = pack_inverse_consts(model)
+        for n in sorted({n for dd, n in TP_SHAPES if dd == d} | {1, 4097}):
+            z = kernel_inputs(model, n, seed=11 * n + d, device=device)
+            got = si.spline_inverse(z, packed)
+            ref = _inverse_body(z, packed)
+            torch.cuda.synchronize()
+            ex, eld = check('kernel at hidden %d' % TP_HIDDEN, got, ref,
+                            TOL_X, TOL_LOGDET, d, n)
+            cases.append({'d': d, 'hidden': TP_HIDDEN, 'n': n,
+                          'max_abs_dx': ex, 'max_abs_dlogdet': eld})
+            worst['x'], worst['ld'] = max(worst['x'], ex), max(worst['ld'],
+                                                               eld)
+
+    def shape_timing(d, n, per_block=False, hidden=None):
+        hidden = hidden or hidden_for(d)
+        model = random_flow(d, seed=200 + d, device=device, hidden=hidden)
         packed = pack_inverse_consts(model)
         z = kernel_inputs(model, n, seed=n, device=device)
         fn = ((lambda: si.spline_inverse_per_block(z, packed)) if per_block
@@ -650,11 +713,14 @@ def phase_kernel(records, earlier, earlier_pool):
         ms, e_ms = timed_pair(fn, None if (earlier is None or per_block)
                               else (lambda: earlier(z, packed)))
         eager_ms = cuda_time_ms(fn)
-        plain_ms = cuda_time_ms(lambda: _inverse_body(z, packed))
-        ops, nbytes = inverse_cost(n, d, hidden_for(d), 8, 3)
+        # the plain twin (tens of ms a call at the large shapes) is timed
+        # with fewer calls than the kernel: PLAIN_TIMING
+        plain_ms = cuda_time_ms(lambda: _inverse_body(z, packed),
+                                **PLAIN_TIMING)
+        ops, nbytes = inverse_cost(n, d, hidden, 8, 3)
         b_ms, b_by = bound_ms(ops, nbytes)
-        plan = si.launch_plan(n, d, hidden_for(d), 8)
-        out = {'d': d, 'hidden': hidden_for(d), 'n': n, 'ms': ms,
+        plan = si.launch_plan(n, d, hidden, 8)
+        out = {'d': d, 'hidden': hidden, 'n': n, 'ms': ms,
                'eager_ms': eager_ms, 'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
                'over_bound': ms / b_ms, 'ops': ops, 'bytes': nbytes,
                'rows': plan['rows'], 'stages': plan['stages']}
@@ -662,7 +728,8 @@ def phase_kernel(records, earlier, earlier_pool):
             out.update({'earlier_ms': e_ms, 'earlier_over_this': e_ms / ms})
         return out
 
-    timings = [shape_timing(d, n) for d, n in TIMED_SHAPES]
+    timings = [shape_timing(d, n) for d, n in TIMED_SHAPES] + [
+        shape_timing(d, n, hidden=TP_HIDDEN) for d, n in TP_SHAPES]
     per_block = [shape_timing(16, n, per_block=True) for n in (256, 4096)]
 
     sweep = []
@@ -1441,6 +1508,39 @@ def ess_bounded_moments(chains, corr, name):
     return out
 
 
+def correlated_training(d, corr):
+    """1000 exact draws of the d-D Gaussian with pairwise correlation
+    ``corr``, the posterior samplers' training set (rejection from the box
+    is hopeless at 16-D)."""
+    cov = np.eye(d) + corr * (1.0 - np.eye(d))
+    return np.random.default_rng(10).multivariate_normal(np.zeros(d), cov,
+                                                         size=1000)
+
+
+# chains a phase leaves for phase 16's runtime checks: (samples (chains,
+# steps, d), loglikes (chains, steps)) by name
+CHAINS = {}
+
+
+def reset_runtime_counts():
+    """Set the native runtime's counts to 0 (before a path that uses
+    it)."""
+    from nnest_torch import runtime
+    runtime.native_calls = runtime.fallbacks = 0
+
+
+def read_runtime_counts():
+    """The native runtime's calls and fallbacks since
+    :func:`reset_runtime_counts`, checked: native calls, no fallback."""
+    from nnest_torch import runtime
+    out = {'native_calls': runtime.native_calls,
+           'fallbacks': runtime.fallbacks}
+    if out['native_calls'] <= 0 or out['fallbacks'] != 0:
+        raise AssertionError('the native runtime was not what ran: %s'
+                             % out)
+    return out
+
+
 def phase_mcmc_ensemble(record, log_dir):
     """MCMCSampler and EnsembleSampler (bootstrap, then run) on the 16-D
     Gaussian with pairwise correlation 0.9 in the box [-5, 5]^16, each
@@ -1456,11 +1556,8 @@ def phase_mcmc_ensemble(record, log_dir):
     from nnest_torch.ops import spline_inverse as si
     from nnest_torch.priors import UniformPrior
     d, corr = 16, 0.9
-    cov = np.eye(d) + corr * (1.0 - np.eye(d))
-    # exact posterior draws as the training set (rejection from the box is
-    # hopeless at 16-D)
-    training = np.random.default_rng(10).multivariate_normal(
-        np.zeros(d), cov, size=1000)
+    training = correlated_training(d, corr)
+    reset_runtime_counts()
 
     def sampler(cls, name, seed):
         s = cls(d, Gaussian(d, corr), prior=UniformPrior(d, -5.0, 5.0),
@@ -1521,6 +1618,8 @@ def phase_mcmc_ensemble(record, log_dir):
                                       'EnsembleSampler')
     record['launches_by_path'].update(mcmc_sampler=mcmc_launches,
                                       ensemble=ens_launches)
+    runtime_counts = read_runtime_counts()
+    CHAINS['mcmc_sampler'] = (mcmc.samples[:, :, :d], mcmc.loglikes)
 
     def mcmc_call():
         mcmc._mcmc_sample(500, num_chains=MCMC_CHAINS,
@@ -1538,6 +1637,7 @@ def phase_mcmc_ensemble(record, log_dir):
             'ensemble_launches': ens_launches, 'ensemble_calls': ens.calls,
             'ensemble_moments': ens_moments, 'total_calls': {
                 'mcmc': mcmc.total_calls, 'ensemble': ens.total_calls},
+            'runtime': runtime_counts,
             'mcmc_call_profile_500_steps': profile_generation(mcmc_call),
             'ensemble_call_profile_100_steps': profile_generation(
                 ensemble_call)}
@@ -1947,6 +2047,7 @@ def phase_cli(record, log_dir):
     print(json.dumps({'optional_packages': has}), flush=True)
     root = os.path.join(log_dir, 'cli')
     launches, out = {}, {'optional_packages': has}
+    reset_runtime_counts()
 
     reset_counts()
     t0 = time.time()
@@ -2040,8 +2141,11 @@ def phase_cli(record, log_dir):
             raise AssertionError('trace.png %s with matplotlib %s'
                                  % (out[sampler]['trace_plot'],
                                     has['matplotlib']))
+        if sampler == 'ensemble':
+            CHAINS['cli_ensemble'] = (e.samples, e.loglikes)
     record['launches_by_path']['cli'] = sum(launches.values())
     out['launches'] = launches
+    out['runtime'] = read_runtime_counts()
     return out
 
 
@@ -2122,7 +2226,7 @@ def mesh_main_path(mesh, log_dir, counts):
     reset_counts()
     counts['collectives'] = 0
     t0 = time.time()
-    sampler.run(max_iters=5200, train_iters=100)
+    sampler.run(max_iters=5200, train_iters=MESH_TRAIN_ITERS)
     wall = time.time() - t0
     launches = read_counts('mesh')
     stats = sampler.run_stats
@@ -2577,6 +2681,322 @@ def phase_prefetch(record, log_dir, main):
     return out
 
 
+# ------------------------------------------------------------- phase 16
+
+# part (a): phase 10's 16-D model at the tensor-parallel width on 2 ranks
+# sharing the card (dp 1, tp 2): chains, steps and training epochs
+TP_RANKS, TP_CHAINS, TP_STEPS, TP_EPOCHS = 2, 16, 500, 10
+
+
+def tp_epoch_turns(trainer, data, counts):
+    """One training epoch of the tp trainer (eager, tp-sharded) beside one
+    of a one-rank trainer (no mesh; its steps a CUDA graph, captured by a
+    warm-up epoch) from the same whole weights with a fresh Adam, on the
+    same rows, order and noise, in turns (tp, one, one, tp): their ms, the
+    collectives of a tp epoch and of its validation forward, and the two
+    epochs' losses and flows after them (reported: nine Adam steps amplify
+    the rounding of the two layouts' products). Then the epoch's first
+    step on both from the same weights, before Adam: the NLL of its
+    jittered batch (its relative difference) and the gradients (the worst
+    excess of |a - b| over 1e-5 + 1e-4 |b|, tests/test_tp_sharding.py's
+    tolerance)."""
+    from nnest_torch import Trainer
+    from nnest_torch.flows import params_to_jax
+    d = trainer.x_dim
+    tree = params_to_jax(trainer.model)   # whole: a collective over tp
+    tp_state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    one = Trainer(d, hidden_dim=TP_HIDDEN, log=False, seed=0, device='cuda',
+                  learning_rate=trainer.learning_rate,
+                  weight_decay=trainer.weight_decay)
+    one.load_params(tree)
+    one_state = {k: v.clone() for k, v in one.model.state_dict().items()}
+    x = torch.as_tensor(data.astype(np.float32), device='cuda')
+    valid, train = x[:100], x[100:]
+    order = torch.arange(train.shape[0], device='cuda')
+    g = torch.Generator(device='cuda').manual_seed(9)
+    noise = torch.randn((-(-train.shape[0] // 100), 100, d), generator=g,
+                        device='cuda')
+
+    def epoch(which):
+        if which == 'tp':
+            trainer.model.load_state_dict(tp_state)
+            trainer._new_optimizer()
+        else:   # in place: the captured graph holds these tensors
+            one.model.load_state_dict(one_state)
+            for state in one.optimizer.state.values():
+                for v in state.values():
+                    v.zero_()
+        t, shard = (trainer, True) if which == 'tp' else (one, False)
+        counts['collectives'] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = t._train_epoch(train, valid, order, noise, 0.01, 0.0,
+                                shard, shard)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3, counts['collectives'],
+                (float(losses[0]), losses[1]))
+
+    epoch('one')   # the graph's capture
+    ms, losses = {'tp': [], 'one': []}, {}
+    for which in ('tp', 'one', 'one', 'tp'):
+        t, n, losses[which] = epoch(which)
+        ms[which].append(t)
+        if which == 'tp':
+            epoch_collectives = n
+    counts['collectives'] = 0
+    with torch.no_grad():
+        trainer._validation_loss(valid, True)
+    val_collectives = counts['collectives']
+    got = params_to_jax(trainer.model)
+    want = params_to_jax(one.model)
+    dparam = max(float(np.max(np.abs(a - b))) for a, b in zip(
+        _leaves(got), _leaves(want)))
+
+    batch = train[order[:noise.shape[1]]] + 0.01 * noise[0]
+
+    def nll_grads(model, state):
+        model.load_state_dict(state)
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = -torch.mean(model.log_prob(batch))
+            loss.backward()
+        grads = []
+        for p in model.parameters():
+            shard = getattr(p, 'tp_shard', None)
+            grads.append(p.grad if shard is None else shard.gather(p.grad))
+        return float(loss), grads
+
+    (l_tp, g_tp), (l_one, g_one) = (nll_grads(trainer.model, tp_state),
+                                    nll_grads(one.model, one_state))
+    grad_excess = max(float(torch.max(
+        (a - b).abs() - (1e-5 + 1e-4 * b.abs()))) for a, b in zip(g_tp, g_one))
+    return {'first_step_nll': [l_tp, l_one],
+            'first_step_nll_rel_diff': abs(l_tp - l_one) / abs(l_one),
+            'first_step_grad_excess': grad_excess,
+            'tp_epoch_ms': ms['tp'], 'one_rank_graphed_epoch_ms': ms['one'],
+            'steps_a_epoch': int(noise.shape[0]),
+            'tp_epoch_collectives': epoch_collectives,
+            'tp_validation_collectives': val_collectives,
+            'collectives_a_tp_step': (epoch_collectives - val_collectives)
+            / int(noise.shape[0]),
+            'tp_losses': losses['tp'], 'one_rank_losses': losses['one'],
+            'max_abs_dparam_after_epoch': dparam}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = [tree[k] for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return [np.asarray(tree)]
+
+
+def tp_rank_main(args):
+    """One rank of phase 16 (a), run by :func:`run_ranks`: ``MCMCSampler``
+    on phase 10's model at hidden 256 on a (dp 1, tp 2) mesh, its counts
+    reset just before and read just after; its collectives in training and
+    in sampling; one all-gather of a layer's activations timed; then
+    :func:`tp_epoch_turns`."""
+    import hashlib
+    from nnest_torch import MCMCSampler
+    from nnest_torch.likelihoods import Gaussian
+    from nnest_torch.parallel import get_mesh, initialize_distributed
+    from nnest_torch.priors import UniformPrior
+    import torch.distributed as dist
+    backend = initialize_distributed(device='cuda')
+    mesh = get_mesh(dp=1, tp=TP_RANKS)
+    counts = count_collectives()
+    d, corr = 16, 0.9
+    training = correlated_training(d, corr)
+    s = MCMCSampler(d, Gaussian(d, corr), prior=UniformPrior(d, -5.0, 5.0),
+                    hidden_dim=TP_HIDDEN,
+                    log_dir=os.path.join(args.mesh_dir, 'tp'), seed=10,
+                    mesh=mesh, device='cuda')
+    parts = {}
+    for obj, name in ((s.trainer, 'train'), (s, '_mcmc_sample')):
+        real = getattr(obj, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            counts['collectives'] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _real(*a, **k)
+            torch.cuda.synchronize()
+            parts[_name] = {'s': time.perf_counter() - t0,
+                            'collectives': counts['collectives']}
+            return out
+
+        setattr(obj, name, counted)
+    reset_counts()
+    t0 = time.time()
+    s.run(TP_STEPS, TP_CHAINS, training, train_iters=TP_EPOCHS)
+    wall = time.time() - t0
+    launches = read_counts('tp')
+    if launches != TP_STEPS + 1:
+        raise AssertionError('the tp run launched the kernel %d times, '
+                             'expected %d (one a step, one a call)'
+                             % (launches, TP_STEPS + 1))
+    samples = np.ascontiguousarray(s.samples)
+    moments = ess_bounded_moments(samples[:, TP_STEPS // 10:], corr,
+                                  'MCMCSampler at tp = 2')
+    sharded = [t for t in s.trainer.model.parameters()
+               if getattr(t, 'tp_shard', None) is not None]
+    shard = sharded[0].tp_shard
+    act = torch.randn(TP_CHAINS, TP_HIDDEN // TP_RANKS, device='cuda')
+    times = []
+    for _ in range(200):
+        t1 = time.perf_counter()
+        shard.gather(act).sum().item()
+        times.append((time.perf_counter() - t1) * 1e6)
+    data = (training - training.mean(axis=0)) / training.std(axis=0)
+    out = {'rank': mesh.rank, 'dp_rank': mesh.dp_rank,
+           'tp_rank': mesh.tp_rank, 'backend': backend, 'wall_s': wall,
+           'launches': launches, 'twin_calls': 0,
+           'samples_shape': list(samples.shape),
+           'samples_sha256': hashlib.sha256(samples.tobytes()).hexdigest(),
+           'sharded_tensors': len(sharded),
+           'train_s': parts['train']['s'],
+           'train_collectives': parts['train']['collectives'],
+           'train_epochs': s.trainer.total_iters,
+           'sample_s': parts['_mcmc_sample']['s'],
+           'sample_collectives': parts['_mcmc_sample']['collectives'],
+           'sample_collectives_a_step': parts['_mcmc_sample']['collectives']
+           / TP_STEPS, 'gather_us_median': float(np.median(times)),
+           'scale': s.scale, 'moments': moments,
+           'epoch': tp_epoch_turns(s.trainer, data, counts)}
+    print('RESULT ' + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def timed_turns(fns):
+    """``fns`` (a dict of two names to calls) in turns a, b, b, a: each
+    call's seconds by name, and each call's result by name (the last)."""
+    (a, fa), (b, fb) = fns.items()
+    secs, results = {a: [], b: []}, {}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        t0 = time.perf_counter()
+        results[name] = fn()
+        secs[name].append(time.perf_counter() - t0)
+    return secs, results
+
+
+def runtime_turns():
+    """Part (b): the native runtime against its numpy twins on phase 10's
+    MCMC chains and phase 13's ensemble chains (the ESS, acceptance and
+    jump, within 1e-12 relative; native, numpy, numpy, native), and the
+    ensemble's chain files, one a walker, written natively and by
+    ``np.savetxt`` (byte-equal; in turns)."""
+    from nnest_torch import runtime
+    from nnest_torch.utils import evaluation as ev
+    runtime.load_library()   # built at its first use, by phase 3
+    out = {'build_log': runtime.build_log}
+    print('phase 16 (b): %s' % runtime.build_log.splitlines()[0],
+          flush=True)
+
+    def native(x, mu, var):
+        return (ev.effective_sample_size(x, mu, var), ev.acceptance_rate(x),
+                ev.mean_jump_distance(x))
+
+    def numpy_twin(x, mu, var):
+        return (ev.effective_sample_size_numpy(x, mu, var),
+                ev.acceptance_rate_numpy(x), ev.mean_jump_distance_numpy(x))
+
+    for name, (x, _) in CHAINS.items():
+        x = np.asarray(x, dtype=np.float64)
+        flat = x.reshape(-1, x.shape[2])
+        mu, var = flat.mean(axis=0), flat.var(axis=0)
+        reset_runtime_counts()
+        secs, res = timed_turns({'native': lambda: native(x, mu, var),
+                                 'numpy': lambda: numpy_twin(x, mu, var)})
+        (ess, acc, jump), (ess_np, acc_np, jump_np) = (res['native'],
+                                                       res['numpy'])
+        rel = {'ess': float(np.max(np.abs(ess - ess_np) / np.abs(ess_np))),
+               'acceptance': abs(acc - acc_np) / abs(acc_np),
+               'jump': abs(jump - jump_np) / abs(jump_np)}
+        out[name] = {'shape': list(x.shape), 'native_s': secs['native'],
+                     'numpy_s': secs['numpy'], 'max_rel_diff': rel,
+                     'runtime': read_runtime_counts()}
+        if max(rel.values()) > 1e-12:
+            raise AssertionError('native diagnostics of %s differ from '
+                                 'numpy: %s' % (name, rel))
+    samples, loglikes = CHAINS['cli_ensemble']
+    root = tempfile.mkdtemp(prefix='chain_files_')
+
+    def write(kind):
+        folder = os.path.join(root, kind)
+        os.makedirs(folder, exist_ok=True)
+        for i in range(samples.shape[0]):
+            path = os.path.join(folder, 'chain_%d.txt' % (i + 1))
+            w = np.ones(samples.shape[1])
+            if kind == 'native':
+                if not runtime.write_chain(path, w, loglikes[i], samples[i]):
+                    raise AssertionError('no native chain writer')
+            else:
+                np.savetxt(path, np.hstack([
+                    np.maximum(w, 1e-30)[:, None], -loglikes[i][:, None],
+                    samples[i]]), fmt='%.5E', header='', comments='')
+        return folder
+
+    secs, folders = timed_turns({'native': lambda: write('native'),
+                                 'numpy': lambda: write('numpy')})
+    names = sorted(os.listdir(folders['native']))
+    equal = all(open(os.path.join(folders['native'], f), 'rb').read()
+                == open(os.path.join(folders['numpy'], f), 'rb').read()
+                for f in names)
+    out['chain_files'] = {'files': len(names), 'rows': int(samples.shape[1]),
+                          'native_s': secs['native'],
+                          'numpy_s': secs['numpy'], 'byte_equal': equal}
+    if not equal or len(names) != samples.shape[0]:
+        raise AssertionError('native chain files differ from np.savetxt\'s: '
+                             '%s' % out['chain_files'])
+    return out
+
+
+def phase_tp_runtime(record, log_dir, outputs):
+    """Phase 16: (a) tensor parallelism on the one card, (b) the native
+    runtime against its numpy twins, and its counts on phases 10 and 13."""
+    t0 = time.time()
+    ranks = run_ranks(TP_RANKS, ['--mesh-part', 'tp', '--mesh-dir',
+                                 log_dir], timeout=500)
+    if len({r['samples_sha256'] for r in ranks}) != 1:
+        raise AssertionError('tp ranks disagree on the samples: %s'
+                             % [r['samples_sha256'] for r in ranks])
+    if {r['backend'] for r in ranks} != {'gloo'} or \
+            [r['tp_rank'] for r in ranks] != list(range(TP_RANKS)):
+        raise AssertionError('tp ranks: %s' % [
+            (r['backend'], r['tp_rank']) for r in ranks])
+    record['launches_by_path']['tp'] = sum(r['launches'] for r in ranks)
+    r0 = ranks[0]
+    e = r0['epoch']
+    print('phase 16 (a): %d sharded tensors a rank, wall %.1f s (train '
+          '%.1f s, %d collectives; sampling %.1f s, %g collectives a step), '
+          'an all-gather %.0f us, a tp epoch %s ms against a one-rank graphed '
+          'epoch %s ms; first step NLL rel diff %.3g, gradient excess %.3g; '
+          'after the epoch losses %s vs %s, max |dparam| %.3g' % (
+              r0['sharded_tensors'], r0['wall_s'], r0['train_s'],
+              r0['train_collectives'], r0['sample_s'],
+              r0['sample_collectives_a_step'], r0['gather_us_median'],
+              ['%.1f' % v for v in e['tp_epoch_ms']],
+              ['%.1f' % v for v in e['one_rank_graphed_epoch_ms']],
+              e['first_step_nll_rel_diff'], e['first_step_grad_excess'],
+              e['tp_losses'], e['one_rank_losses'],
+              e['max_abs_dparam_after_epoch']), flush=True)
+    for r in ranks:
+        e = r['epoch']
+        if e['first_step_nll_rel_diff'] > 1e-5 or \
+                e['first_step_grad_excess'] > 0:
+            raise AssertionError('a tp step and a one-rank step differ: %s'
+                                 % e)
+    out = {'a': {'seconds': time.time() - t0, 'ranks': ranks}}
+    t0 = time.time()
+    out['b'] = runtime_turns()
+    out['b']['seconds'] = time.time() - t0
+    out['b']['runtime_by_phase'] = {
+        10: outputs[10]['runtime'], 13: outputs[13]['runtime']}
+    return out
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2586,8 +3006,8 @@ def main():
     parser.add_argument('--pool-baseline', metavar='SRC',
                         help='an earlier consume_pool source to hold to '
                              'the twin and time beside this one in phase 2')
-    # one rank of phase 14, started by the script itself
-    parser.add_argument('--mesh-part', choices=('a', 'b', 'd1', 'd2'),
+    # one rank of phase 14 or 16, started by the script itself
+    parser.add_argument('--mesh-part', choices=('a', 'b', 'd1', 'd2', 'tp'),
                         help=argparse.SUPPRESS)
     parser.add_argument('--mesh-dir', help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -2596,12 +3016,14 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import nnest_torch  # noqa: F401  (fails outside a checkout of the repo)
+    if args.mesh_part == 'tp':
+        return tp_rank_main(args)
     if args.mesh_part:
         return mesh_rank_main(args)
 
     paths = ('mcmc', 'rejection_flow', 'density_flow', 'per_block', 'slice',
              'mcmc_sampler', 'ensemble', 'dynamic', 'host_likelihood',
-             'derived', 'cli', 'mesh', 'prefetch')
+             'derived', 'cli', 'mesh', 'prefetch', 'tp')
     records = [
         {'name': 'spline_inverse', 'route': 'cuda',
          'source': 'nnest_torch/csrc/spline_inverse.cu',
@@ -2651,7 +3073,9 @@ def main():
                 (14, 'mesh', lambda: phase_mesh(records[0], log_dir,
                                                 outputs[3])),
                 (15, 'prefetch', lambda: phase_prefetch(records[0], log_dir,
-                                                        outputs[3]))):
+                                                        outputs[3])),
+                (16, 'tp_runtime', lambda: phase_tp_runtime(
+                    records[0], log_dir, outputs))):
             t0 = time.time()
             out = outputs[num] = fn()
             emit({'phase': num, 'name': name,
@@ -2659,7 +3083,7 @@ def main():
     records[2]['launches_by_path'] = dict(POOL_LAUNCHES)
     for rec in records:
         # launches on the paths that drive the kernel (phases 3, 5, 6, 8,
-        # 10, 11, 12, 13, 14, 15)
+        # 10, 11, 12, 13, 14, 15, 16)
         rec['launches'] = sum(rec['launches_by_path'].values())
     emit({'kernels': records})
     emit({'ok': True, 'device': {'platform': 'gpu',

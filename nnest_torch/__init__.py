@@ -19,15 +19,19 @@ checkpoint and chain file; the trainer with its transport API (``forward``,
 (``netG.pkl`` in ``nnest_tpu``'s format, plots, TensorBoard) and, on a GPU,
 its training step replayed as a CUDA graph; the background writer, the
 progress bar and the command lines (``nnest_torch.cli``); multi-process
-data parallelism (``nnest_torch.parallel``).
+data and tensor parallelism (``nnest_torch.parallel``); the host C++
+runtime of the chain files and diagnostics (``nnest_torch.runtime``); and
+``nnest_tpu``'s import surface (``samplers``, ``utils``, ``ops``,
+``distributions``, ``parallel``, ``priors.Prior``).
 
 ``mesh=`` (every sampler and the ``Trainer``) runs one process a rank on
 ``torch.distributed``, every rank the same loop from the same seed: the
 Metropolis and slice chains and the training batches are dp-sharded, the
 flow strategies and the ensemble replicated with a host likelihood farmed
 over the ranks, and rank 0 alone owns the run directory and broadcasts a
-resume. It does not cover tensor parallelism (``tp > 1`` raises; ROADMAP
-A). Launch with ``torchrun --nproc_per_node N -m nnest_torch.cli.multihost``
+resume. With a (dp, tp) mesh whose tp > 1 the ``MCMCSampler``'s flow is
+also sharded over the tp group: its wide conditioner layers column-parallel
+(``parallel.get_mesh(dp, tp)``). Launch with ``torchrun --nproc_per_node N -m nnest_torch.cli.multihost``
 or with the rank given by hand (``--num_processes N --process_id i
 --coordinator host:port``, plus ``--local_rank`` and ``--local_world_size``
 where ranks share a host; or ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,

@@ -9,12 +9,24 @@ Data-dependent initialisation (ActNorm) is the optional ``data_init(x)``
 hook; ``Chain.data_init`` threads the batch through the chain so each
 bijector sees the activations of the ones before it, as the JAX
 ``Chain.init`` does.
+
+Under tensor parallelism (``parallel.shard_params``) a tensor may hold
+only this rank's columns; :func:`whole` gives the whole tensor wherever a
+bijector needs it.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+def whole(t):
+    """``t``, or, where tensor parallelism keeps only this rank's columns
+    of it (a ``tp_shard`` on the tensor), all of them gathered over the tp
+    group (differentiable; every tp rank calls it)."""
+    shard = getattr(t, 'tp_shard', None)
+    return t if shard is None else shard.gather(t)
 
 
 class Bijector(nn.Module):

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from nnest_torch.bijectors.base import Bijector
+from nnest_torch.bijectors.base import Bijector, whole
 
 
 def random_orthogonal(dim, generator=None):
@@ -36,9 +36,9 @@ class Invertible1x1Conv(Bijector):
 
     def assemble(self):
         eye = torch.eye(self.dim, dtype=self.L.dtype, device=self.L.device)
-        L = torch.tril(self.L, diagonal=-1) + eye
-        U = torch.triu(self.U, diagonal=1) + torch.diag(self.S)
-        return self._P @ L @ U
+        L = torch.tril(whole(self.L), diagonal=-1) + eye
+        U = torch.triu(whole(self.U), diagonal=1) + torch.diag(self.S)
+        return whole(self._P) @ L @ U
 
     def forward(self, x):
         z = x @ self.assemble()

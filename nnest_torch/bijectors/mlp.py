@@ -6,7 +6,11 @@ and tanh (scale) or ReLU (translation) for the NVP coupling. Weights keep
 the JAX layout ``(n_in, n_out)`` and the layer computes ``x @ w + b``, so a
 JAX parameter tree loads leaf by leaf (``flows/convert.py``) and the CUDA
 kernel reads the same layout. Init follows ``nn.Linear``'s default (uniform
-±1/sqrt(fan_in) for weight and bias), as the JAX package does.
+±1/sqrt(fan_in) for weight and bias), as the JAX package does. Under
+tensor parallelism (``parallel.shard_params``) a weight whose output
+columns are sharded holds this rank's columns, and its layer is
+column-parallel: this rank's part of the product, all-gathered over the tp
+group, plus the whole (replicated) bias.
 """
 
 from __future__ import annotations
@@ -52,7 +56,10 @@ class MLP(nn.Module):
     def forward(self, x):
         n = len(self.w)
         for i in range(n):
-            x = x @ self.w[i] + self.b[i]
+            w = self.w[i]
+            # column-parallel under tp: this rank's output columns, gathered
+            shard = getattr(w, 'tp_shard', None)
+            x = (x @ w if shard is None else shard.matmul(x, w)) + self.b[i]
             if i < n - 1:
                 x = self._act(x)
         return x

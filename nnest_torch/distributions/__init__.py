@@ -1,4 +1,5 @@
-from nnest_torch.distributions.base import (DiagNormal, GeneralisedNormal,
-                                            LogitUniform)
+from nnest_torch.distributions.base import (BaseDistribution, DiagNormal,
+                                            GeneralisedNormal, LogitUniform)
 
-__all__ = ['DiagNormal', 'GeneralisedNormal', 'LogitUniform']
+__all__ = ['BaseDistribution', 'DiagNormal', 'GeneralisedNormal',
+           'LogitUniform']

@@ -11,8 +11,11 @@ order, each a dict with numpy (or array-like) leaves:
 
 A fast-slow flow's params are ``{'slow': chain, 'fast': chain, 'combine':
 coupling}``. The port keeps the same tensor layouts (MLP weights are
-``(n_in, n_out)``), so conversion is a leaf-by-leaf copy. Nothing here
-imports JAX: callers hand over numpy leaves.
+``(n_in, n_out)``), so conversion is a leaf-by-leaf copy. A tensor that
+tensor parallelism shards (``parallel.shard_params``) is loaded with this
+rank's columns of the leaf and exported whole (gathered over the tp group:
+every tp rank calls :func:`params_to_jax`). Nothing here imports JAX:
+callers hand over numpy leaves.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from nnest_torch.bijectors import (ActNorm, AffineCoupling, CholeskyLinear,
                                    Invertible1x1Conv, ScaleLayer,
                                    SplineCoupling)
+from nnest_torch.bijectors.base import whole
 from nnest_torch.flows.model import FastSlowFlowModel
 
 # the tensors of each bijector type, by their JAX names; MLPs apart
@@ -47,6 +51,9 @@ def _check(b):
 
 def _copy(dst, src):
     src = torch.from_numpy(np.array(src, dtype=np.float32))
+    shard = getattr(dst, 'tp_shard', None)
+    if shard is not None and src.shape[-1:] == (shard.cols,):
+        src = src[shard.index]
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError('shape mismatch: %s vs %s'
                          % (tuple(src.shape), tuple(dst.shape)))
@@ -91,8 +98,9 @@ def params_from_jax(model, tree):
     return model
 
 
+@torch.no_grad()
 def _np(t):
-    return t.detach().cpu().numpy().copy()
+    return whole(t).detach().cpu().numpy().copy()
 
 
 def _bijector_tree(b, leaf):
@@ -104,7 +112,7 @@ def _bijector_tree(b, leaf):
     return out
 
 
-def _model_tree(model, leaf):
+def model_tree(model, leaf):
     """The JAX layout of ``model`` with ``leaf`` of each tensor."""
     def chain(c):
         return tuple(_bijector_tree(b, leaf) for b in c.bijectors)
@@ -118,7 +126,7 @@ def _model_tree(model, leaf):
 def params_to_jax(model):
     """The inverse of :func:`params_from_jax`: the JAX package's layout
     with numpy leaves."""
-    return _model_tree(model, _np)
+    return model_tree(model, _np)
 
 
 def _flatten(tree):
@@ -134,4 +142,4 @@ def _flatten(tree):
 def param_tensors(model):
     """The model's tensors that :func:`params_to_jax` emits, frozen buffers
     included (the JAX package's leaves), as the live tensors themselves."""
-    return list(_flatten(_model_tree(model, lambda t: t)))
+    return list(_flatten(model_tree(model, lambda t: t)))

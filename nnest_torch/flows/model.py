@@ -38,6 +38,10 @@ class FlowModel(nn.Module):
         return self.base_dist.sample(num, generator,
                                      device=next(self.parameters()).device)
 
+    def sample(self, num, generator=None):
+        """``num`` draws of the flow: base draws through the inverse."""
+        return self.inverse(self.sample_base(num, generator))[0]
+
 
 class FastSlowFlowModel(FlowModel):
     """Fast-slow flow: the slow dims [0:num_slow] and the fast dims

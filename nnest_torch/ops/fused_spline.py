@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from nnest_torch.bijectors import ActNorm, Invertible1x1Conv, SplineCoupling
+from nnest_torch.parallel.mesh import unshard
 
 # Calls of the plain twin since import (or since a caller reset it):
 # chip_smoke.py sets it to 0 before a path on the card and checks that the
@@ -39,8 +40,11 @@ def is_fusable_spline(model) -> bool:
 @torch.no_grad()
 def pack_inverse_consts(model):
     """Per block {s, t, winv, sc}, plus the constant logdet. ``sc`` is the
-    block's SplineCoupling module (its MLP weights are used as they are)."""
-    bijs = list(model.chain.bijectors)
+    block's SplineCoupling module (its MLP weights are used as they are).
+    Under tensor parallelism the constants come from the whole weights,
+    gathered over the tp group once a packing (``parallel.unshard``), so
+    the inverse needs no collective."""
+    bijs = list(unshard(model).chain.bijectors)
     blocks = []
     const_logdet = bijs[0].s.new_zeros(())
     for i in range(0, len(bijs), 3):

@@ -31,7 +31,7 @@ import threading
 
 import torch
 
-from nnest_torch.ops.fused_spline import _inverse_body
+from nnest_torch.ops.fused_spline import _inverse_body, pack_inverse_consts
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc', 'spline_inverse.cu')
@@ -376,6 +376,15 @@ def spline_inverse(z, packed):
     out = _launch(z, packed, 0, len(packed['blocks']), True)
     launches += 1
     return out
+
+
+def fused_inverse_fn(model):
+    """The single-speed spline flow's inverse ``z -> (x, logdet)`` through
+    :func:`spline_inverse`, its constants packed once, now (the counterpart
+    of ``nnest_tpu``'s ``fused_inverse_fn``, which packs inside the traced
+    call)."""
+    packed = pack_inverse_consts(model)
+    return lambda z: spline_inverse(z, packed)
 
 
 def spline_inverse_per_block(z, packed):

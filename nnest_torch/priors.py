@@ -1,8 +1,11 @@
 """Priors: the box prior (the nested sampler's unit cube, or a physical
 prior of the MCMC and ensemble samplers).
 
-Port of ``UniformPrior`` in ``nnest_tpu/priors.py``. ``logpdf`` takes a
-(batch, d) tensor and returns 0 inside the box and -inf outside;
+Port of ``Prior`` and ``UniformPrior`` in ``nnest_tpu/priors.py``.
+``logpdf`` takes a (batch, d) tensor and returns 0 inside the box and -inf
+outside (the subclass hook; batched, where the JAX package's is a point's
+and is vmapped); calling a prior, as ``nnest_tpu``'s, takes one point (a
+list or a 1-D array: a Python float) or a batch (float64 numpy).
 ``sample`` draws host points from a seeded numpy generator (the initial
 live set, the ensemble bootstrap's walkers) and ``sample_torch`` draws on a
 ``torch.Generator``'s device (batched prior rejection).
@@ -14,7 +17,27 @@ import numpy as np
 import torch
 
 
-class UniformPrior:
+class Prior:
+    """A prior over ``x_dim`` parameters: subclasses define the batched
+    ``logpdf``."""
+
+    def __init__(self, x_dim: int):
+        self.x_dim = x_dim
+
+    def logpdf(self, x):
+        raise NotImplementedError
+
+    def __call__(self, x):
+        x = torch.as_tensor(np.asarray(x), dtype=torch.float32)
+        if x.dim() > 1:
+            return self.logpdf(x).numpy().astype(np.float64)
+        return float(self.logpdf(x[None])[0])
+
+    def sample(self, num_samples):
+        raise NotImplementedError
+
+
+class UniformPrior(Prior):
     """Box prior on [minimum, maximum]^dim."""
 
     def __init__(self, x_dim: int, minimum, maximum):
@@ -24,7 +47,7 @@ class UniformPrior:
             maximum = [maximum] * x_dim
         if len(minimum) != x_dim or len(maximum) != x_dim:
             raise ValueError('prior bounds must have x_dim entries')
-        self.x_dim = x_dim
+        super().__init__(x_dim)
         self.minimum = np.asarray(minimum, dtype=np.float64)
         self.maximum = np.asarray(maximum, dtype=np.float64)
         self._rng = np.random.default_rng(0)

@@ -46,8 +46,9 @@ Port of ``nnest_tpu/samplers/base.py``:
 - derived parameters carried beside every point the kernels return
   (float32 on the device, float64 on the host, as in the JAX package);
 - getdist-style ``chain.txt`` (``chain_<i>.txt`` a chain for trajectories;
-  rows ``weight -logl params derived`` under the ``param_names`` header)
-  and ``params.txt``;
+  rows ``weight -logl params derived`` under the ``param_names`` header),
+  written by the native runtime (``nnest_torch.runtime``), and
+  ``params.txt``;
 - the run's tooling: the default trainer writes into the run directory
   (``models/``, ``data/``, ``plots/``, TensorBoard), ``_plot_trace`` draws
   the first chain's trace (``plots/trace.png``, matplotlib's Agg canvas,
@@ -75,6 +76,10 @@ transform called inside a replicated kernel is a *farm* (the JAX package's
 evaluates its rows of the batch, padded to a multiple of dp by repeating
 row 0, and the results are gathered; inside a sharded kernel the rows are
 already the rank's own. Padded rows are never counted in ``total_calls``.
+A mesh with tp > 1 (tensor parallelism: the trainer's flow sharded over the
+tp group, ``nnest_torch.parallel``) serves ``MCMCSampler``, whose chains are
+dp-sharded and each dp shard's stepped by its tp replicas alike; nested and
+ensemble runs take tp = 1, as in ``nnest_tpu``.
 """
 
 from __future__ import annotations
@@ -88,6 +93,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from nnest_torch import runtime as _runtime
 from nnest_torch.parallel.mesh import (broadcast_exact, gather_columns,
                                        shard_batch)
 from nnest_torch.samplers.kernels import LatentKernels
@@ -210,6 +216,11 @@ class Sampler:
                  device='cuda',
                  mesh=None):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.tp > 1 and \
+                getattr(self, 'sampler', '') != 'mcmc':
+            raise ValueError('tensor parallelism (tp > 1) serves '
+                             'MCMCSampler; nested and ensemble runs take '
+                             'tp = 1, as in nnest_tpu')
         self.mesh = mesh
         # one rank of the process group, or rank 0 of 1 without one
         grouped = dist.is_available() and dist.is_initialized()
@@ -1049,7 +1060,9 @@ class Sampler:
         [derived]`, the derived columns from ``derived_samples`` (shaped
         like ``samples`` but for the last axis) when given. Samples
         (chains, steps, dim) write one file a chain, ``<outfile>_<i>.txt``
-        with i from 1."""
+        with i from 1. Each file is written by the native runtime
+        (``runtime.write_chain``), by ``np.savetxt`` where the machine has
+        no ``g++``: the same bytes."""
         if self.logs is None:
             return
         if weights is None:
@@ -1058,22 +1071,25 @@ class Sampler:
         if self.param_names is not None:
             header = 'weight minusloglike ' + ' '.join(self.param_names)
 
-        if derived_samples is not None:
-            samples = np.concatenate((samples, derived_samples), axis=-1)
-
-        def write(name, s, ll, w):
-            mat = np.hstack([np.maximum(w, min_weight)[:, None],
-                             -np.asarray(ll)[:, None], s])
-            np.savetxt(os.path.join(self.logs['chains'], name + '.txt'), mat,
-                       fmt='%.5E', header=header,
+        def write(name, s, ll, w, d):
+            path = os.path.join(self.logs['chains'], name + '.txt')
+            if _runtime.write_chain(path, w, ll, s, derived=d,
+                                    min_weight=min_weight, header=header):
+                return
+            cols = [np.maximum(w, min_weight)[:, None],
+                    -np.asarray(ll)[:, None], s]
+            if d is not None:
+                cols.append(d)
+            np.savetxt(path, np.hstack(cols), fmt='%.5E', header=header,
                        comments='#' if header else '')
 
         if samples.ndim == 2:
-            write(outfile, samples, loglikes, weights)
+            write(outfile, samples, loglikes, weights, derived_samples)
         else:
             for i in range(samples.shape[0]):
                 write('%s_%d' % (outfile, i + 1), samples[i], loglikes[i],
-                      weights[i])
+                      weights[i], None if derived_samples is None
+                      else derived_samples[i])
 
     def _plot_trace(self, samples, latent_samples):
         """The first chain's trace, each dim in the chains' space (left)

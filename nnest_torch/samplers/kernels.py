@@ -54,7 +54,7 @@ import torch
 
 from nnest_torch.ops import fused_spline
 from nnest_torch.ops.consume_pool import consume_pool
-from nnest_torch.ops.spline_inverse import spline_inverse
+from nnest_torch.ops.spline_inverse import fused_inverse_fn
 from nnest_torch.parallel.mesh import (all_reduce_sum, batch_sharding,
                                        gather_columns, pad_rows, real_rows)
 
@@ -177,8 +177,7 @@ class LatentKernels:
         JAX package, where no Pallas kernel covers them."""
         if not self._fusable:
             return self.model.inverse
-        packed = fused_spline.pack_inverse_consts(self.model)
-        return lambda z: spline_inverse(z, packed)
+        return fused_inverse_fn(self.model)
 
     # ------------------------------------------------------------- MCMC
 

@@ -9,7 +9,10 @@ inverse a step for a single-speed spline flow, and one a call). The chain
 statistics are logged, and the first chain's trace plotted, as in
 ``nnest_tpu``. ``mesh=`` (among the keyword arguments, passed to
 :class:`~nnest_torch.samplers.ensemble.EnsembleSampler`) dp-shards the
-chains over the ranks of a process group.
+chains over the ranks of a process group; a mesh with tp > 1 also shards
+the flow's wide conditioner weights over its tp group (tensor
+parallelism; the spline kernel then packs the whole weights, gathered once
+a call).
 """
 
 from __future__ import annotations

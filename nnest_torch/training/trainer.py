@@ -54,6 +54,13 @@ makes (spline, NVP, Cholesky, fast-slow):
   the sharded step is two CUDA graphs, the forward and backward, then Adam,
   with the collective eager between them (gloo cannot be captured); a
   one-rank mesh without a process group trains as ``mesh=None`` does.
+- Tensor parallelism (a mesh with tp > 1): the flow is sharded at
+  construction (``parallel.shard_params``), its wide conditioner layers
+  column-parallel over the tp group; the batches are dp-sharded as above
+  over the dp shards, and the step is eager (a collective inside the
+  forward cannot be captured). Every rank calls ``train`` and the
+  transport API; the model file and the plots are made from the whole
+  flow, gathered on every rank (``parallel.unshard``), by rank 0.
 
 Training is the flow's forward plus autograd in plain PyTorch, and the
 transport API the flow's plain ``forward`` and ``inverse``; the JAX package
@@ -80,8 +87,9 @@ import torch
 from nnest_torch.flows import build_flow
 from nnest_torch.flows.convert import (param_tensors, params_from_jax,
                                        params_to_jax)
-from nnest_torch.parallel.mesh import all_reduce_sum, shard_batch
-from nnest_torch.parallel.sharded import (dp_backward, dp_rows,
+from nnest_torch.parallel.mesh import (all_reduce_sum, shard_batch,
+                                       shard_params, unshard)
+from nnest_torch.parallel.sharded import (dp_backward, dp_rows, l2_term,
                                           make_sharded_train_step)
 from nnest_torch.utils.device import resolve_device
 from nnest_torch.utils.logger import create_logger
@@ -138,6 +146,8 @@ class Trainer:
                                 base_dist=base_dist, num_bins=num_bins,
                                 tail_bound=tail_bound, seed=seed,
                                 device=self.device)
+        if mesh is not None:
+            shard_params(self.model, mesh)
         # the tensors of nnest_tpu's parameter tree, which l2_norm sums over
         self._l2_tensors = param_tensors(self.model)
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -146,9 +156,11 @@ class Trainer:
         self.weight_decay = weight_decay
         self.initialized = False
         self.optimizer = None
-        # on a GPU a training step runs as a CUDA graph (_graphed_step);
-        # the tests turn it off to compare with the eager step
-        self._use_graphs = self.device.type == 'cuda'
+        # on a GPU a training step runs as a CUDA graph (_graphed_step),
+        # but for a collective inside the forward (tp); the tests turn it
+        # off to compare with the eager step
+        self._use_graphs = self.device.type == 'cuda' and (
+            mesh is None or mesh.tp == 1)
         self._graphs, self._graphs_for = {}, None
         self.last_training_jitter = None
         self.plot_seconds = 0.0
@@ -298,19 +310,32 @@ class Trainer:
         self.model.load_state_dict(best_params)
         self.best_validation_epoch = best_i + 1 if best_i >= 0 else 0
         self.best_validation_loss = float(best_val)
-        if self.path:
-            self.save(os.path.join(self.path, 'models', 'netG.pkl'))
-            if self.x_dim >= 2:
-                t0 = time.time()
-                self.plot_samples(samples, outfile=os.path.join(
-                    self.path, 'plots', 'plot_%s.png' % self.total_iters),
-                    asynchronous=True)
-                self.plot_seconds += time.time() - t0
+        with self._unsharded():
+            if self.path:
+                self.save(os.path.join(self.path, 'models', 'netG.pkl'))
+                if self.x_dim >= 2:
+                    t0 = time.time()
+                    self.plot_samples(samples, outfile=os.path.join(
+                        self.path, 'plots',
+                        'plot_%s.png' % self.total_iters), asynchronous=True)
+                    self.plot_seconds += time.time() - t0
         if self.log:
             self.logger.info(
                 'Best epoch [%i] validation loss [%5.4f] train time (s) '
                 '[%5.4f]' % (self.best_validation_epoch,
                              self.best_validation_loss, time.time() - start))
+
+    @contextlib.contextmanager
+    def _unsharded(self):
+        """``self.model`` whole inside the block: under tensor parallelism
+        a copy gathered over the tp group (every rank enters), else the
+        model itself."""
+        model = self.model
+        self.model = unshard(model)
+        try:
+            yield
+        finally:
+            self.model = model
 
     def _train_epoch(self, train, valid, order, noise, jitter, l2_norm=0.0,
                      shard_train=False, shard_valid=False):
@@ -354,8 +379,7 @@ class Trainer:
             nll = -torch.sum(self.model.log_prob(batch) * w) / torch.sum(w)
             loss = nll
             if l2_norm > 0:
-                loss = nll + l2_norm * sum(torch.sum(t ** 2)
-                                           for t in self._l2_tensors)
+                loss = nll + l2_norm * l2_term(self._l2_tensors, self.mesh)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         self.optimizer.step()

@@ -2,14 +2,17 @@
 
 The port's own copy of the diagnostic functions of
 ``nnest_tpu/utils/evaluation.py`` (the port imports nothing from the JAX
-package; these are pure numpy there too, where the JAX package's optional
-C++ runtime does not take them):
+package):
 
 - the chain diagnostics of the MCMC and ensemble samplers, on chains shaped
   (num_chains, num_steps, dim): :func:`auto_correlation_time`,
   :func:`effective_sample_size`, :func:`acceptance_rate`,
   :func:`mean_jump_distance`, :func:`gelman_rubin_diagnostic` and
-  :func:`integrated_autocorr_time` (the bootstrap's thinning);
+  :func:`integrated_autocorr_time` (the bootstrap's thinning). As in
+  ``nnest_tpu``, the ESS, the acceptance and the jump run in the native
+  runtime (:mod:`nnest_torch.runtime`) first; their numpy twins
+  (:func:`effective_sample_size_numpy`, :func:`acceptance_rate_numpy`,
+  :func:`mean_jump_distance_numpy`) serve a machine without ``g++``;
 - the insertion-index uniformity test (Fowlie, Handley & Su 2020,
   arXiv:2006.03371): :func:`kolmogorov_pvalue`, :func:`insertion_ks`,
   :func:`rolling_insertion_ks`;
@@ -30,6 +33,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from nnest_torch import runtime as _native
+
 
 def auto_correlation_time(x, s, mu, var):
     """Lag-s autocorrelation per dim, averaged over chains and steps."""
@@ -43,6 +48,13 @@ def effective_sample_size(x, mu, var):
     """Truncated-autocorrelation ESS per dim (per chain): accumulate
     2 rho_s (1 - s/t) over the dims with rho_s > 0.05 while any has it,
     then ESS = t / (1 + sum)."""
+    native = _native.ess(x, mu, var)
+    return native if native is not None else effective_sample_size_numpy(
+        x, mu, var)
+
+
+def effective_sample_size_numpy(x, mu, var):
+    """:func:`effective_sample_size` in numpy."""
     x = np.asarray(x)
     _, t, d = x.shape
     ess = np.ones(d)
@@ -57,6 +69,12 @@ def effective_sample_size(x, mu, var):
 
 def acceptance_rate(x):
     """Fraction of steps in which a chain moved."""
+    native = _native.acceptance_rate(x)
+    return native if native is not None else acceptance_rate_numpy(x)
+
+
+def acceptance_rate_numpy(x):
+    """:func:`acceptance_rate` in numpy."""
     x = np.asarray(x)
     moved = np.any(x[:, 1:, :] != x[:, :-1, :], axis=-1)
     return float(np.mean(moved))
@@ -64,6 +82,12 @@ def acceptance_rate(x):
 
 def mean_jump_distance(x):
     """Mean Euclidean length of a step, moves and stays alike."""
+    native = _native.mean_jump(x)
+    return native if native is not None else mean_jump_distance_numpy(x)
+
+
+def mean_jump_distance_numpy(x):
+    """:func:`mean_jump_distance` in numpy."""
     x = np.asarray(x)
     jumps = np.linalg.norm(x[:, 1:, :] - x[:, :-1, :], axis=-1)
     return float(np.mean(jumps))

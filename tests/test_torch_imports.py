@@ -1,11 +1,14 @@
 """nnest_torch stands alone: it imports neither jax nor nnest_tpu, and its
-entry points run on CUDA unless asked for the CPU."""
+entry points run on CUDA unless asked for the CPU. It offers nnest_tpu's
+import surface: every name of nnest_tpu's ``__all__`` lists but the
+JAX-only ones, ``Prior.__call__`` as nnest_tpu's, ``FlowModel.sample``."""
 
 import os
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -86,6 +89,23 @@ boot = EnsembleSampler(2, Gaussian(2, 0.0), prior=UniformPrior(2, -5, 5),
                        log_dir=None, device='cpu', log_level=30)
 assert boot.bootstrap(3, 4, iters=1, thin=1, train_iters=1,
                       moves={'stretch': 1, 'kde': 1}).shape[1] == 2
+from nnest_torch.samplers import (EnsembleSampler, LatentKernels, MCMCSampler,
+                                  NestedSampler, Sampler)
+from nnest_torch.utils import (SampleBuffer, create_logger,
+                               effective_sample_size, get_or_create_run_dir)
+from nnest_torch.ops import fused_inverse_fn, is_fusable_spline
+from nnest_torch.distributions import BaseDistribution
+from nnest_torch.priors import Prior
+from nnest_torch.parallel import params_sharding_tree, unshard
+from nnest_torch import runtime
+assert runtime.available() and runtime.fallbacks == 0
+chains = torch.randn(2, 20, 3, generator=g).double().numpy()
+assert effective_sample_size(chains, chains.mean(axis=(0, 1)),
+                             chains.var(axis=(0, 1))).shape == (3,)
+assert runtime.native_calls > 0
+assert fused_inverse_fn(model)(torch.randn(4, 3))[0].shape == (4, 3)
+assert UniformPrior(2, -1, 1)([0.0, 0.0]) == 0.0
+assert model.sample(5, g).shape == (5, 3)
 loaded = [m for m in sys.modules
           if m.split('.')[0] in ('jax', 'jaxlib', 'nnest_tpu')
           and sys.modules[m] is not None]
@@ -155,3 +175,62 @@ def test_trainer_has_the_transport_api():
             getattr(JaxTrainer, name), property), name
     public = {n for n in vars(JaxTrainer) if n.startswith('get_')}
     assert public <= set(names), public - set(names)
+
+
+# nnest_tpu's public names with no counterpart: JAX's profiling helpers
+# (torch.profiler takes their place)
+JAX_ONLY = {'nnest_tpu.utils': {'trace_annotation', 'device_trace',
+                                'StepTimer'}}
+
+
+@pytest.mark.parametrize('module', [
+    'nnest_tpu', 'nnest_tpu.samplers', 'nnest_tpu.utils', 'nnest_tpu.ops',
+    'nnest_tpu.distributions', 'nnest_tpu.parallel'])
+def test_nnest_tpu_names_resolve_in_the_port(module):
+    import importlib
+    ref = importlib.import_module(module)
+    port = importlib.import_module(module.replace('nnest_tpu',
+                                                  'nnest_torch'))
+    names = set(ref.__all__) - JAX_ONLY.get(module, set())
+    assert names, module
+    missing = {n for n in names if not hasattr(port, n)}
+    assert not missing, missing
+    assert names <= set(port.__all__)
+
+
+def test_prior_call_matches_nnest_tpu():
+    from nnest_torch.priors import Prior, UniformPrior
+    from nnest_tpu.priors import UniformPrior as JaxUniformPrior
+    port = UniformPrior(3, -1.0, [1.0, 2.0, 3.0])
+    ref = JaxUniformPrior(3, -1.0, [1.0, 2.0, 3.0])
+    assert isinstance(port, Prior)
+    batch = np.random.RandomState(0).uniform(-2, 4, size=(20, 3))
+    for x in ([0.0, 1.5, 2.5], [0.0, 2.5, 2.5], np.array([0.5, 0.5, -1.0]),
+              np.array([1.5, 0.0, 0.0]), batch, batch.tolist()):
+        got, want = port(x), ref(x)
+        assert type(got) is type(want)
+        if isinstance(want, np.ndarray):
+            assert got.dtype == want.dtype == np.float64
+            assert got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    assert {float(v) for v in port(batch)} == {0.0, -np.inf}
+    with pytest.raises(NotImplementedError):
+        Prior(2)([0.0, 0.0])
+
+
+def test_flow_sample_is_the_inverse_of_base_draws():
+    import jax
+    import jax.numpy as jnp
+    from nnest_torch.flows import build_flow, params_from_jax
+    from nnest_tpu.flows import build_flow as jax_build_flow
+    jm = jax_build_flow(3, flow='spline', hidden_dim=16)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(
+        np.random.RandomState(0).normal(size=(16, 3)), jnp.float32))
+    model = params_from_jax(build_flow(3, hidden_dim=16, device='cpu'),
+                            jax.tree.map(np.asarray, params))
+    got = model.sample(32, torch.Generator().manual_seed(5))
+    z = model.sample_base(32, torch.Generator().manual_seed(5))
+    want, _ = jm.inverse(params, jnp.asarray(z.numpy()))
+    assert got.shape == (32, 3)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)

@@ -26,7 +26,8 @@
 - The host-likelihood farm: each of 2 ranks evaluates its half of a batch.
 - On one process: the one-rank mesh without a process group gives the
   results of ``mesh=None`` (a nested run with Metropolis or slice
-  generations), ``tp > 1`` raises, ranks on cards must give their host's
+  generations), ``tp > 1`` without a process group raises, ranks on cards
+  must give their host's
   layout, the shard helpers pad by repeating row 0,
   and the package exports ``nnest_tpu.parallel``'s names.
 
@@ -318,7 +319,8 @@ def test_one_rank_mesh_and_tensor_parallel_refusal():
                                       params_sharding_tree, shard_params)
     mesh = get_mesh()
     assert (mesh.dp, mesh.tp, mesh.group) == (1, 1, None)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    # tp > 1 needs a process group of dp * tp ranks
+    with pytest.raises(ValueError, match='world size'):
         get_mesh(tp=2)
     tree = _tree()
     assert broadcast_exact(tree) is tree

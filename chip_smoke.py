@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs sixteen phases, printing one JSON line
+from JAX or ``nnest_tpu`` and runs seventeen phases, printing one JSON line
 per phase with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the builds
@@ -184,7 +184,27 @@ per phase with its seconds:
    ESS, acceptance and jump within 1e-12 relative, timed in turns (native,
    numpy, numpy, native), and the ensemble's 64 chain files written
    natively against ``np.savetxt``, byte-equal, timed in turns; the
-   runtime's native calls (> 0) and fallbacks (0) on phases 10 and 13.
+   runtime's native calls (> 0) and fallbacks (0) on phases 10 and 13;
+17. prewarm, traces and the Jacobian oracle: (a) cold starts in turns
+   (prewarm, plain, prewarm, plain), each the script started as a process
+   of its own whose kernel and runtime build directories point at a new
+   empty one: the 2-D Gaussian (100 live points, ``train_iters=50``,
+   ``dlogz=0.5``, seed 42) at the default ladder, after
+   ``NestedSampler.prewarm`` in a prewarm turn; each turn's prewarm walls,
+   which library was built in the prewarm and which in the run, the run's
+   wall and first generation's seconds; no build inside a prewarmed run
+   (the build directory unchanged by it), both kernels launched by each
+   prewarm, the four runs' (logz, h, ncall) equal; (b)
+   ``nnest_torch.utils.device_trace`` around one Metropolis batch of
+   phase 3's model (2 generations of 256 chains x 80 steps, from a
+   synthetic shell) under ``trace_annotation('mcmc_generation')``: the
+   trace file holds the region and both kernels' symbols, and the device
+   kernels a step are printed by name with their counts; phase 3's
+   ``Phase timers`` (``Sampler.timers``), which must sum to no more than
+   its run's wall; (c) the kernel's logdet against
+   ``nnest_torch.flows.testing.brute_force_logdet`` of the plain model
+   (autograd on the card) at d = 2, hidden 16 and d = 16, hidden 32, N =
+   64 rows of N(0, 2^2), within rtol and atol 1e-3.
 
 Depth cut to keep the script inside its time limit (widths and checks
 unchanged; old -> new): phase 2's plain-twin timing, 5 warm-up calls then
@@ -206,7 +226,8 @@ kernel's launches by path (``mcmc``: phase 3, ``rejection_flow`` and
 ``mcmc_sampler`` and ``ensemble``: phase 10, ``dynamic`` and
 ``host_likelihood``: phase 11, ``derived``: phase 12, ``cli``: phase 13,
 ``mesh``: phase 14, every rank's launches in parts a, b and d,
-``prefetch``: phase 15, ``tp``: phase 16, both ranks' launches;
+``prefetch``: phase 15, ``tp``: phase 16, both ranks' launches,
+``prewarm``: the prewarms of phase 17 (a), ``cold_start``: its four runs;
 consume_pool's by the first word of each path);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -1038,6 +1059,7 @@ def phase_main_path(record, log_dir):
     t0 = time.time()
     sampler.run(max_iters=5200, train_iters=100)
     wall = time.time() - t0
+    timers = {k: v['total_s'] for k, v in sampler.timers.summary().items()}
     launches = read_counts('mcmc', pool_launched=True)
     record['launches_by_path']['mcmc'] = launches
     stats = sampler.run_stats
@@ -1049,6 +1071,7 @@ def phase_main_path(record, log_dir):
     return {'wall_s': wall, 'launches': launches, 'iterations': sampler.niter,
             'ncall': sampler.total_calls, 'logz_so_far': sampler.logz,
             'h': sampler.h, 'pool_launches': POOL_LAUNCHES['mcmc'],
+            'phase_timers': timers,
             'prior_shares': prior_shares(stats['rejection_by_trials']),
             'training_epochs': sampler.trainer.total_iters, **stats,
             'generation_profile': profile_generation(mcmc_generation(sampler)),
@@ -2997,6 +3020,246 @@ def phase_tp_runtime(record, log_dir, outputs):
     return out
 
 
+# ------------------------------------------------------------- phase 17
+
+# part (a): the turns, each a fresh process with empty build directories
+COLD_TURNS = ('prewarm', 'plain', 'prewarm', 'plain')
+# part (b): the Metropolis batch traced (phase 3's chains and steps; two
+# generations, one consumption between them, keep the trace ~40 MB)
+TRACE_GENS, TRACE_CHAINS, TRACE_STEPS = 2, 256, 80
+# part (c): (d, hidden) of the kernel's logdet against the Jacobian oracle
+ORACLE_SHAPES, ORACLE_ROWS = ((2, 16), (16, 32)), 64
+
+
+def cold_turn_main(args):
+    """One turn of phase 17 (a), a process of its own: the kernels' and the
+    runtime's build directories pointed at a new empty one before their
+    first use, then the reference test's 2-D Gaussian (100 live points,
+    ``train_iters=50``, ``dlogz=0.5``, seed 42) at the default ladder, with
+    a ``prewarm`` first in a 'prewarm' turn. Prints its ``RESULT``: the
+    prewarm's walls and launches, which module built in the prewarm and
+    which in the run (its ``build_log`` before and after the run), the
+    build directory before and after the run, the run's wall, its first
+    generation's seconds, its launches and (logz, h, ncall)."""
+    import logging
+    from nnest_torch import NestedSampler, runtime
+    from nnest_torch.likelihoods import Gaussian
+    from nnest_torch.ops import consume_pool as cp
+    from nnest_torch.ops import spline_inverse as si
+    build = os.path.join(args.mesh_dir, 'build')
+    # consume_pool binds the spline module's BUILD_DIR by name at import
+    si.BUILD_DIR = cp.BUILD_DIR = runtime.BUILD_DIR = build
+    modules = {'spline_inverse': si, 'consume_pool': cp, 'runtime': runtime}
+    sampler = NestedSampler(2, Gaussian(2, 0.0, lim=3),
+                            transform=lambda x: 3.0 * x,
+                            num_live_points=100,
+                            log_dir=os.path.join(args.mesh_dir, 'run'),
+                            resume=False, seed=42, log_level=logging.WARNING,
+                            device='cuda')
+    out = {'turn': args.cold_turn}
+    reset_counts()
+    if args.cold_turn == 'prewarm':
+        t0 = time.time()
+        out['prewarm_walls'] = sampler.prewarm(train_iters=50, dlogz=0.5)
+        torch.cuda.synchronize()
+        out['prewarm_s'] = time.time() - t0
+    out['prewarm_launches'] = {'spline_inverse': si.launches,
+                               'consume_pool': cp.launches}
+    before = {k: m.build_log is not None for k, m in modules.items()}
+    files = sorted(os.listdir(build)) if os.path.isdir(build) else []
+    reset_counts()
+    calls, _ = time_dispatches(sampler, (
+        '_rejection_prior_generations_batch', '_rejection_prior_sample',
+        '_mcmc_generations_batch', '_mcmc_sample_live'))
+    t0 = time.time()
+    sampler.run(train_iters=50, dlogz=0.5)
+    torch.cuda.synchronize()
+    out['run_s'] = time.time() - t0
+    from nnest_torch.ops import fused_spline
+    out['run_launches'] = {'spline_inverse': si.launches,
+                           'consume_pool': cp.launches,
+                           'twin': fused_spline.calls + cp.twin_calls}
+    out['built_in'] = {
+        k: ('prewarm' if before[k] else
+            'run' if m.build_log is not None else None)
+        for k, m in modules.items()}
+    out['build_files'] = {'before_run': files,
+                          'after_run': sorted(os.listdir(build))}
+    out['first_generation_s'] = calls[0]['ms'] / 1e3 if calls else None
+    out['first_generation_method'] = calls[0]['method'] if calls else None
+    out['final'] = [sampler.logz, sampler.h, sampler.total_calls]
+    out['trainings'] = sampler.run_stats['trainings']
+    print('RESULT ' + json.dumps(out), flush=True)
+    return 0
+
+
+def cold_turns(record, log_dir):
+    """Part (a): :data:`COLD_TURNS`, each this script started as a
+    ``--cold-turn`` process on the card."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    turns = []
+    for i, kind in enumerate(COLD_TURNS):
+        folder = os.path.join(log_dir, 'cold_%d' % i)
+        os.makedirs(folder)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), '--cold-turn', kind,
+             '--mesh-dir', folder], cwd=root, capture_output=True,
+            text=True, timeout=240)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith('RESULT ')]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError('cold turn %d (%s) failed (exit %d):\n%s\n%s'
+                                 % (i, kind, proc.returncode,
+                                    proc.stdout[-3000:], proc.stderr[-3000:]))
+        turn = json.loads(lines[-1][len('RESULT '):])
+        turn['process_s'] = time.time() - t0
+        turns.append(turn)
+        print('phase 17 (a) turn %d %s: prewarm %s, built in %s, run %.2f s '
+              '(first generation %.3f s, %s), process %.1f s, final %s' % (
+                  i, kind, turn.get('prewarm_walls'), turn['built_in'],
+                  turn['run_s'], turn['first_generation_s'] or 0.0,
+                  turn['first_generation_method'], turn['process_s'],
+                  turn['final']), flush=True)
+    for turn in turns:
+        if turn['run_launches']['twin']:
+            raise AssertionError('a cold turn called a plain twin: %s' % turn)
+        if turn['turn'] != 'prewarm':
+            continue
+        if set(turn['built_in'].values()) != {'prewarm'} or \
+                turn['build_files']['before_run'] != \
+                turn['build_files']['after_run']:
+            raise AssertionError('a build ran inside a prewarmed run: %s'
+                                 % turn)
+        if min(turn['prewarm_launches'].values()) <= 0:
+            raise AssertionError('the prewarm did not launch both kernels: %s'
+                                 % turn['prewarm_launches'])
+    finals = [t['final'] for t in turns]
+    if any(f != finals[0] for f in finals):
+        raise AssertionError('the cold turns differ: %s' % finals)
+    prewarms = [t for t in turns if t['turn'] == 'prewarm']
+    record['launches_by_path']['prewarm'] = sum(
+        t['prewarm_launches']['spline_inverse'] for t in prewarms)
+    POOL_LAUNCHES['prewarm'] = sum(t['prewarm_launches']['consume_pool']
+                                   for t in prewarms)
+    record['launches_by_path']['cold_start'] = sum(
+        t['run_launches']['spline_inverse'] for t in turns)
+    POOL_LAUNCHES['cold_start'] = sum(t['run_launches']['consume_pool']
+                                      for t in turns)
+    return {'turns': turns, 'equal': True}
+
+
+def traced_batch(log_dir):
+    """Part (b): one Metropolis batch of phase 3's model (:data:`TRACE_GENS`
+    generations of 256 chains x 80 steps, from a synthetic shell) under
+    ``trace_annotation('mcmc_generation')`` inside ``device_trace``, after
+    one untraced batch: the trace file, its CUDA kernels by name and count,
+    and the kernels a step."""
+    from nnest_torch.utils import device_trace, trace_annotation
+    sampler = main_path_sampler(log_dir, 'traced', tooling='off')
+    u, logl, derived = synthetic_shell(sampler)
+    step = 1.0 / sampler.x_dim ** 0.5
+
+    def batch():
+        gens = sampler._mcmc_generations_batch(
+            TRACE_STEPS, u, logl, derived, TRACE_CHAINS, step, 0, 10 ** 9,
+            TRACE_GENS, dynamic_step_size=True, adapt_cov=True)
+        torch.cuda.synchronize()
+        return len(gens)
+
+    batch()
+    trace_dir = os.path.join(log_dir, 'trace')
+    with device_trace(trace_dir):
+        with trace_annotation('mcmc_generation'):
+            gens = batch()
+    files = [f for f in os.listdir(trace_dir) if f.endswith('.json')]
+    if len(files) != 1:
+        raise AssertionError('device_trace wrote %s' % files)
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)['traceEvents']
+    counts = {}
+    for e in events:
+        if e.get('cat') == 'kernel':
+            counts[e['name']] = counts.get(e['name'], 0) + 1
+    if not any(e.get('name') == 'mcmc_generation' for e in events):
+        raise AssertionError('the trace holds no mcmc_generation region')
+    for symbol in ('spline_inverse_kernel', 'consume_pool_kernel'):
+        if not any(symbol in name for name in counts):
+            raise AssertionError('the trace holds no %s: %s'
+                                 % (symbol, sorted(counts)[:20]))
+    steps = gens * TRACE_STEPS
+    top = sorted(counts.items(), key=lambda kv: -kv[1])[:15]
+    return {'trace_file': files[0],
+            'trace_bytes': os.path.getsize(os.path.join(trace_dir,
+                                                        files[0])),
+            'generations': gens, 'steps': steps,
+            'kernels': sum(counts.values()), 'kernel_names': len(counts),
+            'kernels_a_step': sum(counts.values()) / steps,
+            'top': [{'name': name[:200], 'count': n, 'a_step': n / steps}
+                    for name, n in top]}
+
+
+def oracle_logdets():
+    """Part (c): the CUDA kernel's logdet against ``brute_force_logdet`` of
+    the plain model (its Jacobian by autograd on the card, a row at a time)
+    at :data:`ORACLE_SHAPES`, N = :data:`ORACLE_ROWS`, rtol and atol 1e-3."""
+    from nnest_torch.flows.testing import brute_force_logdet
+    from nnest_torch.ops.fused_spline import pack_inverse_consts
+    from nnest_torch.ops.spline_inverse import spline_inverse
+    out = []
+    for d, hidden in ORACLE_SHAPES:
+        model = random_flow(d, 17, 'cuda', hidden)
+        # N(0, 2^2), rows beyond the tail bound among them; not phase 2's
+        # rows exactly at the bound, where autograd's one-sided Jacobian
+        # is singular (phase 2 holds those against the twin)
+        g = torch.Generator(device='cuda').manual_seed(18)
+        z = 2.0 * torch.randn(ORACLE_ROWS, d, generator=g, device='cuda')
+        with torch.no_grad():
+            _, logdet = spline_inverse(z, pack_inverse_consts(model))
+        t0 = time.perf_counter()
+        oracle = brute_force_logdet(model, z).detach()
+        torch.cuda.synchronize()
+        oracle_s = time.perf_counter() - t0
+        err = (logdet - oracle).abs()
+        excess = float((err - 1e-3 - 1e-3 * oracle.abs()).max())
+        out.append({'d': d, 'hidden': hidden, 'n': ORACLE_ROWS,
+                    'max_abs_err': float(err.max()),
+                    'excess_over_tolerance': excess, 'oracle_s': oracle_s})
+        if not excess <= 0:   # a non-finite logdet or oracle fails too
+            raise AssertionError('kernel logdet off the Jacobian oracle: %s'
+                                 % out[-1])
+    return out
+
+
+def phase_prewarm_trace_oracle(record, log_dir, main):
+    """Phase 17: (a) cold starts in turns, (b) a traced Metropolis batch
+    and phase 3's phase timers, (c) the kernel's logdet against the
+    Jacobian oracle."""
+    out = {}
+    t0 = time.time()
+    out['a'] = cold_turns(record, log_dir)
+    out['a']['seconds'] = time.time() - t0
+    t0 = time.time()
+    out['b'] = traced_batch(log_dir)
+    print('phase 17 (b): %d kernels in %d steps, %.2f a step; top: %s' % (
+        out['b']['kernels'], out['b']['steps'], out['b']['kernels_a_step'],
+        ', '.join('%s x%d' % (k['name'][:48], k['count'])
+                  for k in out['b']['top'])), flush=True)
+    timers = main['phase_timers']
+    print('phase 17 (b): phase 3 Phase timers: %s (run %.2f s)' % (
+        json.dumps({k: round(v, 2) for k, v in timers.items()}),
+        main['wall_s']), flush=True)
+    out['b']['phase3_timers'] = timers
+    out['b']['phase3_timers_sum_s'] = sum(timers.values())
+    if not timers or sum(timers.values()) > main['wall_s']:
+        raise AssertionError('phase 3\'s phase timers %s exceed its run\'s '
+                             'wall %r' % (timers, main['wall_s']))
+    out['b']['seconds'] = time.time() - t0
+    t0 = time.time()
+    out['c'] = {'shapes': oracle_logdets(), 'seconds': time.time() - t0}
+    return out
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3010,12 +3273,17 @@ def main():
     parser.add_argument('--mesh-part', choices=('a', 'b', 'd1', 'd2', 'tp'),
                         help=argparse.SUPPRESS)
     parser.add_argument('--mesh-dir', help=argparse.SUPPRESS)
+    # one turn of phase 17 (a), started by the script itself
+    parser.add_argument('--cold-turn', choices=('prewarm', 'plain'),
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import nnest_torch  # noqa: F401  (fails outside a checkout of the repo)
+    if args.cold_turn:
+        return cold_turn_main(args)
     if args.mesh_part == 'tp':
         return tp_rank_main(args)
     if args.mesh_part:
@@ -3023,7 +3291,8 @@ def main():
 
     paths = ('mcmc', 'rejection_flow', 'density_flow', 'per_block', 'slice',
              'mcmc_sampler', 'ensemble', 'dynamic', 'host_likelihood',
-             'derived', 'cli', 'mesh', 'prefetch', 'tp')
+             'derived', 'cli', 'mesh', 'prefetch', 'tp', 'prewarm',
+             'cold_start')
     records = [
         {'name': 'spline_inverse', 'route': 'cuda',
          'source': 'nnest_torch/csrc/spline_inverse.cu',
@@ -3075,7 +3344,10 @@ def main():
                 (15, 'prefetch', lambda: phase_prefetch(records[0], log_dir,
                                                         outputs[3])),
                 (16, 'tp_runtime', lambda: phase_tp_runtime(
-                    records[0], log_dir, outputs))):
+                    records[0], log_dir, outputs)),
+                (17, 'prewarm_trace_oracle',
+                 lambda: phase_prewarm_trace_oracle(records[0], log_dir,
+                                                    outputs[3]))):
             t0 = time.time()
             out = outputs[num] = fn()
             emit({'phase': num, 'name': name,
@@ -3083,7 +3355,7 @@ def main():
     records[2]['launches_by_path'] = dict(POOL_LAUNCHES)
     for rec in records:
         # launches on the paths that drive the kernel (phases 3, 5, 6, 8,
-        # 10, 11, 12, 13, 14, 15, 16)
+        # 10, 11, 12, 13, 14, 15, 16, 17)
         rec['launches'] = sum(rec['launches_by_path'].values())
     emit({'kernels': records})
     emit({'ok': True, 'device': {'platform': 'gpu',

@@ -7,10 +7,12 @@ Example::
 
 The flags and their defaults are the JAX script's, plus ``--device``
 (``cuda`` unless ``cpu`` is asked for; with no GPU, ``cuda`` raises). The
-JAX script's ``--prewarm`` is not offered: it fills XLA's compilation
-cache, which PyTorch does not have. The run directory is
-``<log_dir>/<likelihood><log_suffix>/runN`` (``--resume`` pins it and
-continues from its newest checkpoint).
+run directory is ``<log_dir>/<likelihood><log_suffix>/runN`` (``--resume``
+pins it and continues from its newest checkpoint). ``--prewarm`` pays the
+run's one-time costs (``NestedSampler.prewarm``: the kernels' builds, the
+card's start-up) with the same flags, prints their walls and exits without
+a run directory; a run with the same flags in the same process, or one
+that finds the kernels already built, then starts warm.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ _LIKELIHOODS = {
 # the options a programmatic caller may leave out of its Namespace
 _OPTIONAL = {'mcmc_gen_batch': 8, 'mcmc_speculate': False,
              'rejection_gen_batch': 8, 'slice_adapt': 'cov',
-             'mcmc_adapt': 'cov', 'show_progress': False, 'device': 'cuda'}
+             'mcmc_adapt': 'cov', 'show_progress': False, 'device': 'cuda',
+             'prewarm': False}
 
 
 def make_likelihood(name, x_dim, corr):
@@ -69,13 +72,29 @@ def main(args):
     log_dir = os.path.join(args.log_dir, args.likelihood) + args.log_suffix
 
     sampler = NestedSampler(
-        like.x_dim, like, transform=transform, log_dir=log_dir,
+        like.x_dim, like, transform=transform,
+        log_dir=None if args.prewarm else log_dir,
         num_live_points=args.num_live_points, hidden_dim=args.hidden_dim,
         num_layers=args.num_layers, num_blocks=args.num_blocks,
         num_slow=args.num_slow, base_dist=base_dist, scale=args.scale,
         flow=args.flow, seed=args.seed, append_run_num=not args.resume,
         resume=args.resume, device=args.device)
     start = time.time()
+    if args.prewarm:
+        walls = sampler.prewarm(
+            strategy=args.strategy.split(',') if args.strategy else None,
+            train_iters=args.train_iters, mcmc_steps=args.mcmc_steps,
+            mcmc_num_chains=args.mcmc_num_chains,
+            mcmc_dynamic_step_size=not args.mcmc_fixed_step_size,
+            mcmc_gen_batch=args.mcmc_gen_batch,
+            mcmc_speculate=args.mcmc_speculate,
+            slice_adapt=args.slice_adapt, mcmc_adapt=args.mcmc_adapt,
+            rejection_batch_size=args.rejection_batch_size,
+            rejection_gen_batch=args.rejection_gen_batch)
+        print('Prewarm walls (s): %s' % walls)
+        print('Run time %s' % datetime.timedelta(
+            seconds=time.time() - start))
+        return sampler
     sampler.run(train_iters=args.train_iters, mcmc_steps=args.mcmc_steps,
                 max_iters=args.max_iters, volume_switch=args.switch,
                 jitter=args.jitter, mcmc_num_chains=args.mcmc_num_chains,
@@ -149,6 +168,11 @@ def build_parser():
     parser.add_argument('--show_progress', action='store_true',
                         help='tqdm progress bar on the nested iteration '
                              'loop')
+    parser.add_argument('--prewarm', action='store_true',
+                        help='compile-and-cache the device programs for '
+                             'this configuration, then exit (run the '
+                             'same flags afterwards to start warm; see '
+                             'NestedSampler.prewarm)')
     parser.add_argument('--max_iters', type=int, default=1000000,
                         help='stop after N iterations (checkpointed; '
                              're-run with --resume to continue exactly)')

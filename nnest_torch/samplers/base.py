@@ -49,6 +49,9 @@ Port of ``nnest_tpu/samplers/base.py``:
   rows ``weight -logl params derived`` under the ``param_names`` header),
   written by the native runtime (``nnest_torch.runtime``), and
   ``params.txt``;
+- ``timers``, a ``StepTimer`` of the host wall seconds of the named
+  phases (``mcmc_init``, ``mcmc_kernel``, ``candidate_kernel`` here; the
+  nested sampler adds its own), as ``nnest_tpu``'s;
 - the run's tooling: the default trainer writes into the run directory
   (``models/``, ``data/``, ``plots/``, TensorBoard), ``_plot_trace`` draws
   the first chain's trace (``plots/trace.png``, matplotlib's Agg canvas,
@@ -108,6 +111,7 @@ from nnest_torch.utils.evaluation import (acceptance_rate,
                                           metropolis_mix_null, slice_mix_null)
 from nnest_torch.utils.io_async import SerialWriter
 from nnest_torch.utils.logger import create_logger, get_or_create_run_dir
+from nnest_torch.utils.profiling import StepTimer
 
 
 def _to_numpy(a):
@@ -315,6 +319,8 @@ class Sampler:
         self._max_log_det_j = None
         self._max_r = None
         self._io_writer = None   # the background writer, made when used
+        # host wall seconds of the named phases, over the sampler's runs
+        self.timers = StepTimer()
 
     # ------------------------------------------------------------ wrappers
 
@@ -585,7 +591,8 @@ class Sampler:
             step_size = 2.0 / self.x_dim ** 0.5
         self.trainer.ensure_init()
         au, al, ad = self._live_tensors(active_u, active_logl, active_derived)
-        with torch.no_grad(), self._local_rows():
+        with self.timers.time('mcmc_kernel'), torch.no_grad(), \
+                self._local_rows():
             out = self.kernels.mcmc_from_live(
                 self.generator, au, al, active_derived=ad,
                 num_chains=num_chains, loglstar=loglstar,
@@ -613,7 +620,8 @@ class Sampler:
         Returns (u, logl, derived, moved, scale, mean_jump, ncall)."""
         self.trainer.ensure_init()
         au, al, ad = self._live_tensors(active_u, active_logl, active_derived)
-        with torch.no_grad(), self._local_rows():
+        with self.timers.time('mcmc_kernel'), torch.no_grad(), \
+                self._local_rows():
             out = self.kernels.slice_from_live(
                 self.generator, au, al, active_derived=ad,
                 num_chains=num_chains, loglstar=loglstar, width=width,
@@ -651,7 +659,7 @@ class Sampler:
         if step_size <= 0.0:
             step_size = 2.0 / self.x_dim ** 0.5
         self.trainer.ensure_init()
-        with torch.no_grad():
+        with self.timers.time('mcmc_kernel'), torch.no_grad():
             res = self.kernels.mcmc_pool_generations(
                 self.generator,
                 *self._live_tensors(active_u, active_logl, active_derived),
@@ -659,7 +667,7 @@ class Sampler:
                 mcmc_steps=mcmc_steps, max_gens=max_gens,
                 dynamic_step_size=dynamic_step_size, speculate=speculate,
                 adapt_cov=adapt_cov)
-        return self._gens_to_buffer(*res)
+            return self._gens_to_buffer(*res)
 
     def _slice_generations_batch(self, slice_steps, active_u, active_logl,
                                  active_derived, num_chains, width, it,
@@ -669,7 +677,7 @@ class Sampler:
         """The slice analogue of :meth:`_mcmc_generations_batch`
         (:meth:`LatentKernels.slice_pool_generations`)."""
         self.trainer.ensure_init()
-        with torch.no_grad():
+        with self.timers.time('mcmc_kernel'), torch.no_grad():
             res = self.kernels.slice_pool_generations(
                 self.generator,
                 *self._live_tensors(active_u, active_logl, active_derived),
@@ -677,7 +685,7 @@ class Sampler:
                 slice_steps=slice_steps, max_gens=max_gens,
                 max_expand=max_expand, max_shrink=max_shrink,
                 speculate=speculate, adapt_cov=adapt_cov)
-        return self._gens_to_buffer(*res)
+            return self._gens_to_buffer(*res)
 
     def _rejection_prior_generations_batch(self, active_u, active_logl,
                                            active_derived, it, it_stop, ncs,
@@ -691,7 +699,7 @@ class Sampler:
         go to the batch runner's float32 ring keyed on the absolute index.
         Returns :meth:`_gens_to_buffer`'s list (outputs x, logl, ok and
         derived when num_derived > 0)."""
-        with torch.no_grad():
+        with self.timers.time('candidate_kernel'), torch.no_grad():
             res = self.kernels.rejection_prior_generations(
                 self._user_prior, self.generator,
                 *self._live_tensors(active_u, active_logl, active_derived),
@@ -699,7 +707,7 @@ class Sampler:
                 num_trials=num_trials, max_gens=max_gens,
                 adapt_trials=adapt_trials, can_double=can_double,
                 can_halve=can_halve)
-        return self._gens_to_buffer(*res)
+            return self._gens_to_buffer(*res)
 
     def _rejection_flow_generations_batch(self, active_u, active_logl,
                                           active_derived, it,
@@ -714,7 +722,7 @@ class Sampler:
         (:meth:`LatentKernels.rejection_flow_generations`, the envelope
         carried on the device); the outputs add n_evals, mld and mr."""
         self.trainer.ensure_init()
-        with torch.no_grad():
+        with self.timers.time('candidate_kernel'), torch.no_grad():
             res = self.kernels.rejection_flow_generations(
                 self.generator,
                 *self._live_tensors(active_u, active_logl, active_derived),
@@ -723,7 +731,7 @@ class Sampler:
                 cache_interval, enlargement_factor, num_trials=num_trials,
                 max_gens=max_gens, adapt_trials=adapt_trials,
                 can_double=can_double, can_halve=can_halve)
-        return self._gens_to_buffer(*res)
+            return self._gens_to_buffer(*res)
 
     @staticmethod
     def _gens_to_buffer(bufs, meta, n_gens):
@@ -812,9 +820,10 @@ class Sampler:
         Returns (u, logl, derived, moved, scale, mean_jump, ncall);
         ``ncall`` includes the starts' likelihood calls."""
         num_chains = init_samples.shape[0]
-        z0, logl0, derived0, lp_prior0, ncall_init = self._mcmc_init(
-            num_chains, init_samples, init_loglikes, 1, init_derived)
-        with self._local_rows():
+        with self.timers.time('mcmc_init'):
+            z0, logl0, derived0, lp_prior0, ncall_init = self._mcmc_init(
+                num_chains, init_samples, init_loglikes, 1, init_derived)
+        with self.timers.time('mcmc_kernel'), self._local_rows():
             out = self.kernels.mcmc(
                 self.generator, z0, logl0, lp_prior0, derived0=derived0,
                 loglstar=loglstar,
@@ -840,12 +849,13 @@ class Sampler:
         Returns (u, logl, derived, moved, scale, mean_jump, ncall);
         ``ncall`` includes the starts' likelihood calls."""
         num_chains = init_samples.shape[0]
-        z0, logl0, derived0, _, ncall_init = self._mcmc_init(
-            num_chains, init_samples, init_loglikes, 1, init_derived)
-        draws = self.kernels.slice_draws(self.generator, slice_steps,
-                                         num_chains, self.x_dim, max_expand,
-                                         max_shrink)
-        with self._local_rows():
+        with self.timers.time('mcmc_init'):
+            z0, logl0, derived0, _, ncall_init = self._mcmc_init(
+                num_chains, init_samples, init_loglikes, 1, init_derived)
+        with self.timers.time('mcmc_kernel'), self._local_rows():
+            draws = self.kernels.slice_draws(self.generator, slice_steps,
+                                             num_chains, self.x_dim,
+                                             max_expand, max_shrink)
             out = self.kernels.slice_body(
                 draws, z0, logl0, loglstar=loglstar, width=width,
                 max_expand=max_expand, stat_moments=stat_moments,

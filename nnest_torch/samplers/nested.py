@@ -41,6 +41,11 @@ Every flow of ``build_flow`` runs through it (``flow``, ``num_slow``,
 proposals move the fast dims only with probability ``oversample_rate``,
 and ``run_stats['total_fast_calls']`` counts their likelihood calls.
 
+``prewarm(**run_kwargs)`` pays a run's one-time costs (the libraries'
+builds, the card's start-up) with throwaway runs before ``run()``; the
+sampler's ``timers`` (``nnest_torch.utils.StepTimer``, ``nnest_tpu``'s
+phase names) are logged at the end of every run as ``Phase timers``.
+
 ``run(init_points=, birth_floor=, logl_ceiling=)`` are the hooks of the
 dynamic sampler's batches (``samplers/dynamic.py``), which also reads
 ``saved_u``, the u-space points of the run (in the checkpoints as
@@ -117,6 +122,7 @@ import time
 import numpy as np
 import torch
 
+from nnest_torch import runtime
 from nnest_torch.priors import UniformPrior
 from nnest_torch.samplers.base import Sampler
 from nnest_torch.utils.evaluation import (adjusted_logzerr,
@@ -242,6 +248,102 @@ class NestedSampler(Sampler):
                     ['step', 'acceptance', 'min_ess', 'max_ess',
                      'jump_distance', 'scale', 'loglstar', 'logz',
                      'fraction_remain', 'ncall'])
+
+    def prewarm(self, strategy=None, max_iters_per_method=2, **run_kwargs):
+        """Pay a run's one-time costs before ``run()`` does: one bounded
+        throwaway run per strategy method (``strategy=[method]``,
+        ``max_iters_per_method`` iterations, each in a temporary directory
+        removed afterwards) on fresh samplers built from this sampler's
+        constructor arguments, its likelihood and transform. Pass the
+        ``run_kwargs`` you will pass to ``run()``. On a GPU the libraries a
+        run loads at first use (the two kernels' and the host runtime's)
+        are built first, side by side, one ``nvcc`` or ``g++`` process
+        each, where the throwaway runs would build them one after another
+        (the spline kernel's too when the flow does not use it).
+
+        What carries over to this sampler's ``run()``: the kernel
+        libraries, built by ``nvcc`` (the spline inverse, ``consume_pool``)
+        and ``g++`` (the host runtime) into the build directory and loaded
+        in this process; the CUDA context, the cuBLAS handle and the
+        caching allocator's pool, for the process. What does not: each
+        ``Trainer`` captures its own CUDA graphs of the training step, and
+        each flow packs its own kernel constants.
+
+        This sampler is untouched: its generator and counters are not
+        drawn from or advanced, and no global torch generator is used, so
+        its ``run()`` equals that of a twin that never prewarmed. The user
+        likelihood is called by the throwaway runs, and the kernels' launch
+        counters (``spline_inverse.launches``, ``consume_pool.launches``)
+        and the runtime's ``native_calls`` advance by theirs. ``device``
+        and ``mesh`` pass through: a prewarm on the card warms the card,
+        and under a mesh every rank calls it. A custom ``base_dist`` is
+        not passed on.
+
+        Returns {method: wall_seconds}, each method logged."""
+        import inspect
+        import shutil
+        import tempfile
+
+        strategy = list(strategy or ['rejection_prior', 'mcmc'])
+        unknown = [m for m in strategy if m not in _METHODS]
+        if unknown:
+            raise ValueError('unknown strategy method(s) %s; choose from %s'
+                             % (unknown, list(_METHODS)))
+        kwargs = dict(run_kwargs)
+        kwargs.pop('strategy', None)
+        kwargs.pop('max_iters', None)
+        # The throwaway samplers take every constructor argument of this
+        # one (the constructor's signature, intersected with what was
+        # captured) but its run's identity: directories, seed, resume and
+        # logging.
+        sig_params = set(inspect.signature(type(self).__init__).parameters)
+        override = {'self', 'x_dim', 'loglike', 'transform', 'prior',
+                    'trainer', 'base_dist', 'log_dir', 'append_run_num',
+                    'resume', 'seed', 'log_level', 'mesh',
+                    'num_live_points'}
+        ctor = {k: v for k, v in self._init_args.items()
+                if k in sig_params - override}
+        # A sampler and its trainer set their module's logger to their own
+        # level when built: this sampler's loggers are put back after each
+        # throwaway run.
+        loggers = [logging.getLogger(name) for name in (
+            'nnest_torch.samplers.base', 'nnest_torch.training.trainer')]
+        kept = [(lg, lg.level, lg.handlers[:]) for lg in loggers]
+        if self.device.type == 'cuda':
+            from concurrent.futures import ThreadPoolExecutor
+
+            from nnest_torch.ops import consume_pool, spline_inverse
+            t0 = time.time()
+            with ThreadPoolExecutor(3) as pool:
+                for job in [pool.submit(m.load_library) for m in (
+                        spline_inverse, consume_pool, runtime)]:
+                    job.result()
+            self.logger.info('Kernel and runtime libraries ready in %.1f s'
+                             % (time.time() - t0))
+        walls = {}
+        tmp = tempfile.mkdtemp(prefix='nnest_prewarm_')
+        try:
+            for m in strategy:
+                t0 = time.time()
+                try:
+                    s = type(self)(
+                        self.x_dim, self._user_loglike,
+                        transform=self._transform_fn,
+                        num_live_points=self.num_live_points,
+                        log_dir=os.path.join(tmp, m), append_run_num=False,
+                        resume=False, log_level=logging.WARNING, seed=0,
+                        mesh=self.mesh, **ctor)
+                    s.run(strategy=[m], max_iters=max_iters_per_method,
+                          **kwargs)
+                finally:
+                    for lg, level, handlers in kept:
+                        lg.setLevel(level)
+                        lg.handlers[:] = handlers
+                walls[m] = round(time.time() - t0, 1)
+                self.logger.info('Prewarmed %r in %.1f s' % (m, walls[m]))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return walls
 
     def run(self, *args, **kwargs):
         """Run the sampler; the arguments are :meth:`_run_impl`'s. This
@@ -522,12 +624,13 @@ class NestedSampler(Sampler):
             if self.logs is None:
                 return
             t0 = time.perf_counter()
-            self._write_checkpoint(
-                it, active_u, active_v, active_logl, active_derived,
-                saved_v, saved_logl,
-                saved_logwt, saved_slots, saved_u, logz, h, logvol,
-                fraction_remain, strategy, expired, controller_snapshot(),
-                pool_snapshot(), insertion_ranks)
+            with self.timers.time('checkpoint_io'):
+                self._write_checkpoint(
+                    it, active_u, active_v, active_logl, active_derived,
+                    saved_v, saved_logl,
+                    saved_logwt, saved_slots, saved_u, logz, h, logvol,
+                    fraction_remain, strategy, expired, controller_snapshot(),
+                    pool_snapshot(), insertion_ranks)
             self.run_stats['checkpoint_s'] += time.perf_counter() - t0
             self.run_stats['checkpoints'] += 1
 
@@ -597,8 +700,9 @@ class NestedSampler(Sampler):
                 if (not first_time and retrain_nll_threshold is not None
                         and self.trainer.best_validation_loss is not None
                         and self.trainer.best_validation_loss < 1e29):
-                    nll_now = -float(np.mean(self.trainer.log_probs(
-                        active_u.astype(np.float32), to_numpy=True)))
+                    with self.timers.time('retrain_check'):
+                        nll_now = -float(np.mean(self.trainer.log_probs(
+                            active_u.astype(np.float32), to_numpy=True)))
                     retrain = not (nll_now < self.trainer.best_validation_loss
                                    + retrain_nll_threshold)
                 if retrain:
@@ -621,8 +725,10 @@ class NestedSampler(Sampler):
                         self._spec_losses += len(mcmc_buf)
                         mcmc_buf = []
                     t0 = time.perf_counter()
-                    self.trainer.train(active_u.astype(np.float32),
-                                       max_iters=train_iters, jitter=jitter)
+                    with self.timers.time('flow_train'):
+                        self.trainer.train(active_u.astype(np.float32),
+                                           max_iters=train_iters,
+                                           jitter=jitter)
                     self.run_stats['train_s'] += time.perf_counter() - t0
                     self.run_stats['trainings'] += 1
                     first_time = False
@@ -774,21 +880,24 @@ class NestedSampler(Sampler):
                         served = True
                     elif current_method == 'rejection_prior':
                         self.run_stats[stem + '_dispatches'] += 1
-                        s, ll, ds, nc = self._rejection_prior_sample(
-                            loglstar, num_trials=cur_trials)
+                        with self.timers.time('candidate_kernel'):
+                            s, ll, ds, nc = self._rejection_prior_sample(
+                                loglstar, num_trials=cur_trials)
                     elif current_method == 'rejection_flow':
                         # A fresh envelope after a retrain or every
                         # rejection_cache_interval generations; in between
                         # the live set's values are max-folded into it.
                         self.run_stats[stem + '_dispatches'] += 1
-                        s, ll, ds, nc = self._rejection_flow_sample(
-                            active_u, loglstar,
-                            enlargement_factor=rejection_enlargement_factor,
-                            cache=not recompute, num_trials=cur_trials)
+                        with self.timers.time('candidate_kernel'):
+                            s, ll, ds, nc = self._rejection_flow_sample(
+                                active_u, loglstar, enlargement_factor=(
+                                    rejection_enlargement_factor),
+                                cache=not recompute, num_trials=cur_trials)
                     else:
                         self.run_stats[stem + '_dispatches'] += 1
-                        s, ll, ds, nc = self._density_sample(
-                            loglstar, num_trials=cur_trials)
+                        with self.timers.time('candidate_kernel'):
+                            s, ll, ds, nc = self._density_sample(
+                                loglstar, num_trials=cur_trials)
                     rung = self.run_stats[stem + '_by_trials'].setdefault(
                         cur_trials, [0, 0])
                     rung[0] += 1
@@ -909,10 +1018,11 @@ class NestedSampler(Sampler):
                             self.weights = np.exp(np.asarray(saved_logwt)
                                                   - logz)
                             self.loglikes = np.asarray(saved_logl)
-                            self._submit_io(
-                                lambda v=self.samples, ll=self.loglikes,
-                                w=self.weights:
-                                self._save_samples(v, ll, weights=w))
+                            with self.timers.time('chain_io'):
+                                self._submit_io(
+                                    lambda v=self.samples, ll=self.loglikes,
+                                    w=self.weights:
+                                    self._save_samples(v, ll, weights=w))
 
         if pbar is not None:
             pbar.close()
@@ -942,7 +1052,8 @@ class NestedSampler(Sampler):
         # TensorBoard writer is flushed) before the run's results are
         # declared
         t0 = time.perf_counter()
-        self._close_io()
+        with self.timers.time('checkpoint_io'):
+            self._close_io()
         self.run_stats['checkpoint_s'] += time.perf_counter() - t0
         self._join_plots()
         self.run_stats['total_fast_calls'] = self.total_fast_calls
@@ -1021,9 +1132,10 @@ class NestedSampler(Sampler):
                              else np.asarray(saved_slots, dtype=np.int64))
         self.logzerr_bootstrap = None
         if saved_slots is not None:
-            self.logzerr_bootstrap = bootstrap_logz_error(
-                np.asarray(saved_logl), self.thread_slots,
-                self.num_live_points)
+            with self.timers.time('diagnostics'):
+                self.logzerr_bootstrap = bootstrap_logz_error(
+                    np.asarray(saved_logl), self.thread_slots,
+                    self.num_live_points)
 
         def median(values):
             return float(np.median(values)) if values else None
@@ -1146,6 +1258,13 @@ class NestedSampler(Sampler):
                 else 'SUSPECT [%s] — see the warnings above; prefer '
                      'logzerr_adjusted and validate with a seed sweep'
                      % ', '.join(self.run_quality_flags)))
+        phases = self.timers.summary()
+        if phases:
+            d = {k: round(v['total_s'], 2) for k, v in phases.items()}
+            plot_s = getattr(self.trainer, 'plot_seconds', 0.0)
+            if plot_s:
+                d['train_plot'] = round(plot_s, 2)
+            self.logger.info('Phase timers: %s' % json.dumps(d))
 
     # ----------------------------------------------------------- artifacts
 

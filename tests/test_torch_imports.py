@@ -1,7 +1,8 @@
 """nnest_torch stands alone: it imports neither jax nor nnest_tpu, and its
 entry points run on CUDA unless asked for the CPU. It offers nnest_tpu's
-import surface: every name of nnest_tpu's ``__all__`` lists but the
-JAX-only ones, ``Prior.__call__`` as nnest_tpu's, ``FlowModel.sample``."""
+import surface: every name of nnest_tpu's ``__all__`` lists (the profiling
+helpers of ``nnest_tpu.utils`` included), ``Prior.__call__`` as
+nnest_tpu's, ``FlowModel.sample``."""
 
 import os
 import re
@@ -58,6 +59,9 @@ trainer = Trainer(3, device='cpu', log=False)
 trainer.restore_state(trainer.snapshot_state())
 import nnest_torch.cli.analyse, nnest_torch.cli.ensemble, nnest_torch.cli.nested
 import nnest_torch.cli.multihost
+from nnest_torch.utils.profiling import StepTimer, device_trace
+from nnest_torch.flows.testing import brute_force_logdet
+assert brute_force_logdet(model, torch.randn(2, 3)).shape == (2,)
 from nnest_torch.parallel import get_mesh, make_sharded_mcmc, shard_batch
 mesh = get_mesh()
 assert shard_batch(torch.zeros(3, 2), mesh)[0].shape == (3, 2)
@@ -177,12 +181,6 @@ def test_trainer_has_the_transport_api():
     assert public <= set(names), public - set(names)
 
 
-# nnest_tpu's public names with no counterpart: JAX's profiling helpers
-# (torch.profiler takes their place)
-JAX_ONLY = {'nnest_tpu.utils': {'trace_annotation', 'device_trace',
-                                'StepTimer'}}
-
-
 @pytest.mark.parametrize('module', [
     'nnest_tpu', 'nnest_tpu.samplers', 'nnest_tpu.utils', 'nnest_tpu.ops',
     'nnest_tpu.distributions', 'nnest_tpu.parallel'])
@@ -191,7 +189,7 @@ def test_nnest_tpu_names_resolve_in_the_port(module):
     ref = importlib.import_module(module)
     port = importlib.import_module(module.replace('nnest_tpu',
                                                   'nnest_torch'))
-    names = set(ref.__all__) - JAX_ONLY.get(module, set())
+    names = set(ref.__all__)
     assert names, module
     missing = {n for n in names if not hasattr(port, n)}
     assert not missing, missing

@@ -13,6 +13,11 @@ nnest_tpu.runtime and the port's numpy twins, on the same arrays.
   path, byte-equal; the runtime's native calls and fallbacks counted.
 - Four processes loading the runtime at once from an empty build directory
   all succeed, leaving one library and no temporary file.
+- ``nnest_tpu.runtime`` is built for this module alone, into a private
+  directory (the ``jax_runtime`` fixture): its loader builds straight onto
+  one shared path in the package and gives up for the rest of a process
+  that loads a half-written file, which parallel workers building it at
+  once can do.
 - With ``shutil.which`` patched to find no ``g++`` every entry is a counted
   fallback and the diagnostics are the numpy twins'; with ``g++`` present
   a failed build raises.
@@ -50,8 +55,28 @@ def _counts():
     return runtime.native_calls, runtime.fallbacks
 
 
-def test_diagnostics_match_nnest_tpu_and_numpy():
-    from nnest_tpu import runtime as jax_runtime
+@pytest.fixture(scope='module')
+def jax_runtime(tmp_path_factory):
+    """``nnest_tpu.runtime`` with its library built by its own loader, from
+    its own source and command, into a directory of this module's: the
+    module's ``_SO`` and ``_STAMP`` point there and its load state is reset
+    for this process, then all four are restored."""
+    from nnest_tpu import runtime as ref
+    saved = {k: getattr(ref, k) for k in ('_SO', '_STAMP', '_TRIED', '_LIB')}
+    so = str(tmp_path_factory.mktemp('nnest_tpu_runtime')
+             / 'libnnest_runtime.so')
+    ref._SO, ref._STAMP, ref._TRIED, ref._LIB = so, so + '.sha256', False, None
+    try:
+        assert ref.available(), (
+            'nnest_tpu.runtime did not build: g++ -O3 -shared -fPIC -o %s %s'
+            % (so, ref._SRC))
+        yield ref
+    finally:
+        for k, v in saved.items():
+            setattr(ref, k, v)
+
+
+def test_diagnostics_match_nnest_tpu_and_numpy(jax_runtime):
     x = _chains()
     mu = np.mean(x.reshape(-1, 3), axis=0)
     var = np.var(x.reshape(-1, 3), axis=0)
@@ -99,8 +124,7 @@ def _savetxt(path, w, logl, s, derived, header, min_weight=1e-30):
 @pytest.mark.parametrize('derived,header', [
     (True, 'weight minusloglike a b c d1 d2'), (True, ''),
     (False, 'weight minusloglike a b c'), (False, '')])
-def test_write_chain_bytes(tmp_path, derived, header):
-    from nnest_tpu import runtime as jax_runtime
+def test_write_chain_bytes(tmp_path, jax_runtime, derived, header):
     w, logl, s, der = _rows()
     der = der if derived else None
     paths = {k: str(tmp_path / (k + '.txt'))

@@ -111,7 +111,7 @@ from nnest_torch.utils.evaluation import (acceptance_rate,
                                           metropolis_mix_null, slice_mix_null)
 from nnest_torch.utils.io_async import SerialWriter
 from nnest_torch.utils.logger import create_logger, get_or_create_run_dir
-from nnest_torch.utils.profiling import StepTimer
+from nnest_torch.utils.profiling import StepTimer, span
 
 
 def _to_numpy(a):
@@ -528,37 +528,38 @@ class Sampler:
         ratio is recorded, the kinetic term of ``adjusted_logzerr``; with
         ``cond_null`` the relative condition number, which also feeds the
         structural term when ``cond_inflates`` (Metropolis generations)."""
-        out = {k: _to_numpy(v) for k, v in out.items()}
-        self.total_calls += int(out['ncall'])
-        self.total_fast_calls += int(out['fast_calls'])
-        self.total_accepted += int(out['accepted'])
-        self.total_rejected += int(out['rejected'])
-        mix = float(out['mix_ratio'])
-        self._mix_ratios.append(mix)
-        mix_eig, latent_cond = eig_mix_from_moments(out['mix_cov'],
-                                                    out['mix_msd'])
-        self._mix_ratios_eig.append(mix_eig)
-        self._latent_conds.append(latent_cond)
-        if mix_null is not None:
-            self._mix_rels.append(mix_eig / max(mix_null, 1e-6))
-        if cond_null is not None:
-            self._cond_rels.append(latent_cond / max(cond_null, 1e-6))
-            if cond_inflates:
-                self._cond_infl.append(self._cond_rels[-1])
-        self._last_kernel_stats = {
-            'ess': np.asarray(out['ess'], dtype=np.float64),
-            'acceptance': float(out['acceptance']),
-            'mean_jump': float(out['mean_jump']),
-            'mix_ratio': mix,
-            'mix_ratio_eig': mix_eig,
-            'latent_cond': latent_cond,
-        }
-        u = np.asarray(out['final_x'], dtype=np.float64)
-        return (u, np.asarray(out['final_logl'], dtype=np.float64),
-                self._host_derived(out.get('final_derived'), u.shape[0]),
-                np.asarray(out['moved'], dtype=bool),
-                float(out['scale']), float(out['mean_jump']),
-                int(out['ncall']))
+        with span('gen.serve'):
+            out = {k: _to_numpy(v) for k, v in out.items()}
+            self.total_calls += int(out['ncall'])
+            self.total_fast_calls += int(out['fast_calls'])
+            self.total_accepted += int(out['accepted'])
+            self.total_rejected += int(out['rejected'])
+            mix = float(out['mix_ratio'])
+            self._mix_ratios.append(mix)
+            mix_eig, latent_cond = eig_mix_from_moments(out['mix_cov'],
+                                                        out['mix_msd'])
+            self._mix_ratios_eig.append(mix_eig)
+            self._latent_conds.append(latent_cond)
+            if mix_null is not None:
+                self._mix_rels.append(mix_eig / max(mix_null, 1e-6))
+            if cond_null is not None:
+                self._cond_rels.append(latent_cond / max(cond_null, 1e-6))
+                if cond_inflates:
+                    self._cond_infl.append(self._cond_rels[-1])
+            self._last_kernel_stats = {
+                'ess': np.asarray(out['ess'], dtype=np.float64),
+                'acceptance': float(out['acceptance']),
+                'mean_jump': float(out['mean_jump']),
+                'mix_ratio': mix,
+                'mix_ratio_eig': mix_eig,
+                'latent_cond': latent_cond,
+            }
+            u = np.asarray(out['final_x'], dtype=np.float64)
+            return (u, np.asarray(out['final_logl'], dtype=np.float64),
+                    self._host_derived(out.get('final_derived'), u.shape[0]),
+                    np.asarray(out['moved'], dtype=bool),
+                    float(out['scale']), float(out['mean_jump']),
+                    int(out['ncall']))
 
     def _host_derived(self, derived, n):
         """A kernel's derived values (a tensor, or None when num_derived is
@@ -591,7 +592,8 @@ class Sampler:
             step_size = 2.0 / self.x_dim ** 0.5
         self.trainer.ensure_init()
         au, al, ad = self._live_tensors(active_u, active_logl, active_derived)
-        with self.timers.time('mcmc_kernel'), torch.no_grad(), \
+        with self.timers.time('mcmc_kernel', generations=1,
+                              steps=mcmc_steps), torch.no_grad(), \
                 self._local_rows():
             out = self.kernels.mcmc_from_live(
                 self.generator, au, al, active_derived=ad,
@@ -620,7 +622,8 @@ class Sampler:
         Returns (u, logl, derived, moved, scale, mean_jump, ncall)."""
         self.trainer.ensure_init()
         au, al, ad = self._live_tensors(active_u, active_logl, active_derived)
-        with self.timers.time('mcmc_kernel'), torch.no_grad(), \
+        with self.timers.time('mcmc_kernel', generations=1,
+                              steps=slice_steps), torch.no_grad(), \
                 self._local_rows():
             out = self.kernels.slice_from_live(
                 self.generator, au, al, active_derived=ad,
@@ -659,7 +662,8 @@ class Sampler:
         if step_size <= 0.0:
             step_size = 2.0 / self.x_dim ** 0.5
         self.trainer.ensure_init()
-        with self.timers.time('mcmc_kernel'), torch.no_grad():
+        with self.timers.time('mcmc_kernel', steps=mcmc_steps) as phase, \
+                torch.no_grad():
             res = self.kernels.mcmc_pool_generations(
                 self.generator,
                 *self._live_tensors(active_u, active_logl, active_derived),
@@ -667,6 +671,7 @@ class Sampler:
                 mcmc_steps=mcmc_steps, max_gens=max_gens,
                 dynamic_step_size=dynamic_step_size, speculate=speculate,
                 adapt_cov=adapt_cov)
+            phase.attrs['generations'] = res[2]
             return self._gens_to_buffer(*res)
 
     def _slice_generations_batch(self, slice_steps, active_u, active_logl,
@@ -677,7 +682,8 @@ class Sampler:
         """The slice analogue of :meth:`_mcmc_generations_batch`
         (:meth:`LatentKernels.slice_pool_generations`)."""
         self.trainer.ensure_init()
-        with self.timers.time('mcmc_kernel'), torch.no_grad():
+        with self.timers.time('mcmc_kernel', steps=slice_steps) as phase, \
+                torch.no_grad():
             res = self.kernels.slice_pool_generations(
                 self.generator,
                 *self._live_tensors(active_u, active_logl, active_derived),
@@ -685,6 +691,7 @@ class Sampler:
                 slice_steps=slice_steps, max_gens=max_gens,
                 max_expand=max_expand, max_shrink=max_shrink,
                 speculate=speculate, adapt_cov=adapt_cov)
+            phase.attrs['generations'] = res[2]
             return self._gens_to_buffer(*res)
 
     def _rejection_prior_generations_batch(self, active_u, active_logl,
@@ -741,8 +748,9 @@ class Sampler:
         ``gen_state`` the generator's state before it (None unless the
         batch runner speculated)."""
         keys = list(bufs)
-        host = _pull([bufs[k] for k in keys]
-                     + [meta['start_loglstar'], meta['start_it']])
+        with span('gen.pull'):
+            host = _pull([bufs[k] for k in keys]
+                         + [meta['start_loglstar'], meta['start_it']])
         lstars, its = host[-2], host[-1]
         states = meta['gen_state']
         # np.array: a 0-dim array, not a numpy scalar, for a 1-D output
@@ -823,7 +831,8 @@ class Sampler:
         with self.timers.time('mcmc_init'):
             z0, logl0, derived0, lp_prior0, ncall_init = self._mcmc_init(
                 num_chains, init_samples, init_loglikes, 1, init_derived)
-        with self.timers.time('mcmc_kernel'), self._local_rows():
+        with self.timers.time('mcmc_kernel', generations=1,
+                              steps=mcmc_steps), self._local_rows():
             out = self.kernels.mcmc(
                 self.generator, z0, logl0, lp_prior0, derived0=derived0,
                 loglstar=loglstar,
@@ -852,7 +861,8 @@ class Sampler:
         with self.timers.time('mcmc_init'):
             z0, logl0, derived0, _, ncall_init = self._mcmc_init(
                 num_chains, init_samples, init_loglikes, 1, init_derived)
-        with self.timers.time('mcmc_kernel'), self._local_rows():
+        with self.timers.time('mcmc_kernel', generations=1,
+                              steps=slice_steps), self._local_rows():
             draws = self.kernels.slice_draws(self.generator, slice_steps,
                                              num_chains, self.x_dim,
                                              max_expand, max_shrink)
@@ -1137,14 +1147,16 @@ class Sampler:
         """Block until the queued writes are on disk; re-raise the first
         failure."""
         if self._io_writer is not None:
-            self._io_writer.drain()
+            with span('io.drain'):
+                self._io_writer.drain()
 
     def _close_io(self):
         """Drain and stop the background writer (a later ``run()`` makes a
         new one)."""
         if self._io_writer is not None:
             writer, self._io_writer = self._io_writer, None
-            writer.close()
+            with span('io.drain'):
+                writer.close()
 
     def _join_plots(self):
         """Join the trainer's in-flight triptych render (a user's trainer

@@ -57,6 +57,7 @@ from nnest_torch.ops.consume_pool import consume_pool
 from nnest_torch.ops.spline_inverse import fused_inverse_fn
 from nnest_torch.parallel.mesh import (all_reduce_sum, batch_sharding,
                                        gather_columns, pad_rows, real_rows)
+from nnest_torch.utils.profiling import span
 
 # Finite sentinel for impossible log-densities (keeps ±inf/NaN out of the
 # chain arithmetic; < -1e30 so the `> -1e30` validity checks keep working).
@@ -322,69 +323,76 @@ class LatentKernels:
         num_chains, dim = z0.shape
         rows = _Rows(mesh, num_chains, device)
         ll_star = None if not constrained else _f32(loglstar, z0)
-        inverse = self._hot_inverse()
-        cov_chol = self._cov_factor(cov_from, cov_mask)
-        z_start = rows.local(z0)
-        x0, ldj0 = inverse(z_start)
-        derived0 = rows.local(self._derived_start(derived0, num_chains,
-                                                  device))
-        state = (z_start, x0, ldj0, sanitize_log_density(rows.local(logl0)),
-                 sanitize_log_density(rows.local(logl_prior0)), derived0)
-        scale = torch.full((), step_size, dtype=torch.float32, device=device)
-        acc_ctr = torch.zeros((), device=device)
-        rej_ctr = torch.zeros((), device=device)
-        ncall = torch.zeros((), dtype=torch.int64, device=device)
-        fast_calls = torch.zeros((), dtype=torch.int64, device=device)
-        total_acc = torch.zeros((), dtype=torch.int64, device=device)
-        moved = torch.zeros(z_start.shape[0], dtype=torch.bool, device=device)
-        jump = torch.zeros((), device=device)
-        xs, zs, logls, ds = [x0], [z_start], [state[3]], [derived0]
-        n_draws = prior_volume_steps if constrained else 1
-        for s in range(mcmc_steps):
-            step_draws = draws[s] if draws is not None else [
-                (torch.randn(num_chains, dim, generator=generator,
-                             device=device),
-                 torch.rand(num_chains, generator=generator, device=device),
-                 torch.rand((), generator=generator, device=device)
-                 if self.num_slow > 0 else None)
-                for _ in range(n_draws)]
-            step_draws = [(rows.local(dz), rows.local(u), u_fast)
-                          for dz, u, u_fast in step_draws]
-            x_old = state[1]
-            state, accept, x_new, n_evals = self.step(
-                state, inverse, step_draws, loglstar=ll_star, scale=scale,
-                cov_chol=cov_chol, real=rows.real)
-            ncall = ncall + n_evals
-            if self.num_slow > 0:
-                # the calls of a step whose (last) proposal moved the fast
-                # dims only
-                fast_calls = fast_calls + torch.where(
-                    step_draws[-1][2] < self.oversample_rate, n_evals, 0)
-            n_acc = _count(accept, rows.real)
-            total_acc = total_acc + n_acc
-            xs.append(state[1])
-            if collect_chains:
-                zs.append(state[0])
-                logls.append(state[3])
-                if self.num_derived:
-                    ds.append(state[5])
-            else:
-                moved = moved | accept
-                jump = jump + torch.sum(torch.where(
-                    _real(accept, rows.real),
-                    torch.linalg.norm(x_new - x_old, dim=-1),
-                    torch.zeros_like(jump)))
-            if dynamic_step_size:
-                # adapt toward 50% acceptance of all chains
-                win = 2 * rows.total(n_acc) > num_chains
-                acc_ctr = acc_ctr + win.to(acc_ctr.dtype)
-                rej_ctr = rej_ctr + (~win).to(rej_ctr.dtype)
-                scale = torch.where(acc_ctr > rej_ctr,
-                                    scale * torch.exp(1.0 / (1.0 + acc_ctr)),
-                                    scale)
-                scale = torch.where(acc_ctr < rej_ctr,
-                                    scale / torch.exp(1.0 / (1.0 + rej_ctr)),
-                                    scale)
+        # the generation's eager work before its step loop
+        with span('gen.prep'):
+            inverse = self._hot_inverse()
+            cov_chol = self._cov_factor(cov_from, cov_mask)
+            z_start = rows.local(z0)
+            x0, ldj0 = inverse(z_start)
+            derived0 = rows.local(self._derived_start(derived0, num_chains,
+                                                      device))
+            state = (z_start, x0, ldj0,
+                     sanitize_log_density(rows.local(logl0)),
+                     sanitize_log_density(rows.local(logl_prior0)), derived0)
+            scale = torch.full((), step_size, dtype=torch.float32,
+                               device=device)
+            acc_ctr = torch.zeros((), device=device)
+            rej_ctr = torch.zeros((), device=device)
+            ncall = torch.zeros((), dtype=torch.int64, device=device)
+            fast_calls = torch.zeros((), dtype=torch.int64, device=device)
+            total_acc = torch.zeros((), dtype=torch.int64, device=device)
+            moved = torch.zeros(z_start.shape[0], dtype=torch.bool,
+                                device=device)
+            jump = torch.zeros((), device=device)
+            xs, zs, logls, ds = [x0], [z_start], [state[3]], [derived0]
+            n_draws = prior_volume_steps if constrained else 1
+        with span('gen.steps'):
+            for s in range(mcmc_steps):
+                step_draws = draws[s] if draws is not None else [
+                    (torch.randn(num_chains, dim, generator=generator,
+                                 device=device),
+                     torch.rand(num_chains, generator=generator,
+                                device=device),
+                     torch.rand((), generator=generator, device=device)
+                     if self.num_slow > 0 else None)
+                    for _ in range(n_draws)]
+                step_draws = [(rows.local(dz), rows.local(u), u_fast)
+                              for dz, u, u_fast in step_draws]
+                x_old = state[1]
+                state, accept, x_new, n_evals = self.step(
+                    state, inverse, step_draws, loglstar=ll_star,
+                    scale=scale, cov_chol=cov_chol, real=rows.real)
+                ncall = ncall + n_evals
+                if self.num_slow > 0:
+                    # the calls of a step whose (last) proposal moved the
+                    # fast dims only
+                    fast_calls = fast_calls + torch.where(
+                        step_draws[-1][2] < self.oversample_rate, n_evals, 0)
+                n_acc = _count(accept, rows.real)
+                total_acc = total_acc + n_acc
+                xs.append(state[1])
+                if collect_chains:
+                    zs.append(state[0])
+                    logls.append(state[3])
+                    if self.num_derived:
+                        ds.append(state[5])
+                else:
+                    moved = moved | accept
+                    jump = jump + torch.sum(torch.where(
+                        _real(accept, rows.real),
+                        torch.linalg.norm(x_new - x_old, dim=-1),
+                        torch.zeros_like(jump)))
+                if dynamic_step_size:
+                    # adapt toward 50% acceptance of all chains
+                    win = 2 * rows.total(n_acc) > num_chains
+                    acc_ctr = acc_ctr + win.to(acc_ctr.dtype)
+                    rej_ctr = rej_ctr + (~win).to(rej_ctr.dtype)
+                    scale = torch.where(
+                        acc_ctr > rej_ctr,
+                        scale * torch.exp(1.0 / (1.0 + acc_ctr)), scale)
+                    scale = torch.where(
+                        acc_ctr < rej_ctr,
+                        scale / torch.exp(1.0 / (1.0 + rej_ctr)), scale)
 
         ncall, fast_calls, total_acc, jump = rows.totals(
             ncall, fast_calls, total_acc, jump)
@@ -490,9 +498,10 @@ class LatentKernels:
         ``active_derived`` (n_live, num_derived) is needed when
         ``num_derived`` > 0. With ``mesh`` every rank draws and re-projects
         the whole batch of starts, then :meth:`mcmc` steps its share."""
-        z0, logl0, derived0, lp_prior0, mu, var, cov_mask = \
-            self._chain_starts(generator, active_u, active_logl, num_chains,
-                               adapt_cov, active_derived)
+        with span('gen.prep'):
+            z0, logl0, derived0, lp_prior0, mu, var, cov_mask = \
+                self._chain_starts(generator, active_u, active_logl,
+                                   num_chains, adapt_cov, active_derived)
         return self.mcmc(
             generator, z0, logl0, lp_prior0, derived0=derived0,
             loglstar=loglstar,
@@ -721,8 +730,9 @@ class LatentKernels:
         Returns (au, al, ad, it, crossed), ``crossed`` whether an accept
         landed on ``it % update_interval == 0``. One launch of
         ``csrc/consume_pool.cu`` on the card (``ops/consume_pool.py``)."""
-        return consume_pool(au, al, ad, it, accept_flags, cand_logl, cand_x,
-                            cand_derived, update_interval)
+        with span('gen.consume'):
+            return consume_pool(au, al, ad, it, accept_flags, cand_logl,
+                                cand_x, cand_derived, update_interval)
 
     @staticmethod
     def _ladder_window_update(n_ok, nc, wvals, wcount, expiry_thr,
@@ -765,8 +775,9 @@ class LatentKernels:
     def _host_ints(*tensors):
         """0-dim device tensors as Python ints, in one device-to-host copy
         (the one read a generation that a stop rule needs)."""
-        return torch.stack([t.reshape(()).to(torch.int64)
-                            for t in tensors]).tolist()
+        with span('gen.pull'):
+            return torch.stack([t.reshape(()).to(torch.int64)
+                                for t in tensors]).tolist()
 
     def _pool_generations(self, core, generator, active_u, active_logl,
                           active_derived, it0, update_interval, max_gens,

@@ -45,6 +45,14 @@ and ``run_stats['total_fast_calls']`` counts their likelihood calls.
 builds, the card's start-up) with throwaway runs before ``run()``; the
 sampler's ``timers`` (``nnest_torch.utils.StepTimer``, ``nnest_tpu``'s
 phase names) are logged at the end of every run as ``Phase timers``.
+``run_stats`` takes ``train_s`` and ``checkpoint_s`` from the phases'
+own clocks, ``<stem>_s`` from the ``pool`` region (one pool refill), and
+``train_epochs`` from the trainer's ``total_iters``. While the program
+records (``utils/profiling.py``; a run under a ``torch.profiler`` records
+itself), its spans are ``run``, ``loop`` (the evidence loop), ``pool``,
+the phases, and inside them ``gen.prep``, ``gen.steps``, ``gen.consume``,
+``gen.pull`` (``samplers/kernels.py``), ``gen.serve`` and ``io.drain``
+(``samplers/base.py``).
 
 ``run(init_points=, birth_floor=, logl_ceiling=)`` are the hooks of the
 dynamic sampler's batches (``samplers/dynamic.py``), which also reads
@@ -112,6 +120,7 @@ trainer's flow, Adam moments and scalars) in one collective
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import logging
@@ -131,6 +140,8 @@ from nnest_torch.utils.evaluation import (adjusted_logzerr,
                                           metropolis_mix_null,
                                           rolling_insertion_ks,
                                           slice_mix_null)
+from nnest_torch.utils.profiling import (profiler_collecting, recording,
+                                         span, timed)
 
 # the strategy ladder's methods, in nnest_tpu's order
 _METHODS = ('rejection_prior', 'rejection_flow', 'density_flow', 'mcmc',
@@ -349,10 +360,13 @@ class NestedSampler(Sampler):
         """Run the sampler; the arguments are :meth:`_run_impl`'s. This
         wrapper closes the progress bar when the run raises (a likelihood's
         exception, a keyboard interrupt), which would otherwise garble the
-        log lines that follow."""
+        log lines that follow. Under a collecting ``torch.profiler`` the run
+        records its spans and counters (``utils/profiling.py``)."""
         self._run_pbar = None
         try:
-            return self._run_impl(*args, **kwargs)
+            with (recording() if profiler_collecting()
+                  else contextlib.nullcontext()), span('run'):
+                return self._run_impl(*args, **kwargs)
         finally:
             if self._run_pbar is not None:
                 self._run_pbar.close()
@@ -610,8 +624,8 @@ class NestedSampler(Sampler):
         # counts, and host wall seconds of the phases (each ends in a device
         # to host copy, so the clock covers the device work)
         self.run_stats = {'trainings': 0, 'retrains_skipped': 0,
-                          'train_s': 0.0, 'checkpoints': 0,
-                          'checkpoint_s': 0.0}
+                          'train_s': 0.0, 'train_epochs': 0,
+                          'checkpoints': 0, 'checkpoint_s': 0.0}
         for method, stem in _STAT_KEY.items():
             self.run_stats[stem + '_generations'] = 0
             self.run_stats[stem + '_dispatches'] = 0
@@ -623,15 +637,14 @@ class NestedSampler(Sampler):
         def checkpoint():
             if self.logs is None:
                 return
-            t0 = time.perf_counter()
-            with self.timers.time('checkpoint_io'):
+            with self.timers.time('checkpoint_io') as phase:
                 self._write_checkpoint(
                     it, active_u, active_v, active_logl, active_derived,
                     saved_v, saved_logl,
                     saved_logwt, saved_slots, saved_u, logz, h, logvol,
                     fraction_remain, strategy, expired, controller_snapshot(),
                     pool_snapshot(), insertion_ranks)
-            self.run_stats['checkpoint_s'] += time.perf_counter() - t0
+            self.run_stats['checkpoint_s'] += phase.seconds
             self.run_stats['checkpoints'] += 1
 
         if state is None:
@@ -648,6 +661,9 @@ class NestedSampler(Sampler):
                                              desc='nested',
                                              dynamic_ncols=True)
 
+        # closed after the loop; on an exception the run span closes it
+        loop = span('loop')
+        loop.__enter__()
         while fraction_remain > dlogz and it <= max_iters and (
                 logl_ceiling is None
                 or float(np.min(active_logl)) <= logl_ceiling):
@@ -724,13 +740,15 @@ class NestedSampler(Sampler):
                         self._rewind_generator(state0)
                         self._spec_losses += len(mcmc_buf)
                         mcmc_buf = []
-                    t0 = time.perf_counter()
-                    with self.timers.time('flow_train'):
+                    epochs0 = getattr(self.trainer, 'total_iters', 0)
+                    with self.timers.time('flow_train') as phase:
                         self.trainer.train(active_u.astype(np.float32),
                                            max_iters=train_iters,
                                            jitter=jitter)
-                    self.run_stats['train_s'] += time.perf_counter() - t0
+                    self.run_stats['train_s'] += phase.seconds
                     self.run_stats['trainings'] += 1
+                    self.run_stats['train_epochs'] += getattr(
+                        self.trainer, 'total_iters', 0) - epochs0
                     first_time = False
                     # The envelope is a function of the flow: a retrain
                     # invalidates it.
@@ -740,7 +758,9 @@ class NestedSampler(Sampler):
 
             if need_pool:
                 stem = _STAT_KEY[current_method]
-                t0 = time.perf_counter()
+                # closed after the refill, as the loop span is
+                refill = timed('pool', method=current_method)
+                refill.__enter__()
                 if current_method in ('mcmc', 'slice'):
                     is_slice = current_method == 'slice'
                     adapt_cov = (slice_adapt if is_slice
@@ -942,7 +962,8 @@ class NestedSampler(Sampler):
                             'or expiry decision (switch=%s, trials %d -> %d)'
                             % (switch, buf[0]['trials'], cur_trials))
                     pool = {'u': s, 'logl': ll, 'derived': ds}
-                self.run_stats[stem + '_s'] += time.perf_counter() - t0
+                refill.__exit__(None, None, None)
+                self.run_stats[stem + '_s'] += refill.seconds
                 self.run_stats[stem + '_generations'] += 1
                 pool_pos = 0
                 need_pool = False
@@ -1024,6 +1045,7 @@ class NestedSampler(Sampler):
                                     w=self.weights:
                                     self._save_samples(v, ll, weights=w))
 
+        loop.__exit__(None, None, None)
         if pbar is not None:
             pbar.close()
             self._run_pbar = None
@@ -1051,10 +1073,9 @@ class NestedSampler(Sampler):
         # the queued writes and the trainer's plots land (and the
         # TensorBoard writer is flushed) before the run's results are
         # declared
-        t0 = time.perf_counter()
-        with self.timers.time('checkpoint_io'):
+        with self.timers.time('checkpoint_io') as phase:
             self._close_io()
-        self.run_stats['checkpoint_s'] += time.perf_counter() - t0
+        self.run_stats['checkpoint_s'] += phase.seconds
         self._join_plots()
         self.run_stats['total_fast_calls'] = self.total_fast_calls
         self.logz = logz

@@ -93,6 +93,7 @@ from nnest_torch.parallel.sharded import (dp_backward, dp_rows, l2_term,
                                           make_sharded_train_step)
 from nnest_torch.utils.device import resolve_device
 from nnest_torch.utils.logger import create_logger
+from nnest_torch.utils.profiling import count
 
 
 def mean_nn_distance(x):
@@ -314,11 +315,9 @@ class Trainer:
             if self.path:
                 self.save(os.path.join(self.path, 'models', 'netG.pkl'))
                 if self.x_dim >= 2:
-                    t0 = time.time()
                     self.plot_samples(samples, outfile=os.path.join(
                         self.path, 'plots',
                         'plot_%s.png' % self.total_iters), asynchronous=True)
-                    self.plot_seconds += time.time() - t0
         if self.log:
             self.logger.info(
                 'Best epoch [%i] validation loss [%5.4f] train time (s) '
@@ -645,10 +644,19 @@ class Trainer:
             self._render_triptych(data, outfile)
 
     def _render_worker(self, data, outfile):
+        """The asynchronous render; its seconds add to ``plot_seconds``
+        and, while the program records, to the ``plot`` background
+        counters."""
+        t0 = time.time_ns()
         try:
             self._render_triptych(data, outfile)
         except BaseException as e:  # raised again by finish_plots()
             self._plot_error = e
+        finally:
+            ns = time.time_ns() - t0
+            self.plot_seconds += ns * 1e-9
+            count('background_ns', ns, 'plot')
+            count('background_jobs', 1, 'plot')
 
     def finish_plots(self):
         """Join an asynchronous render, re-raise its failure, and flush the

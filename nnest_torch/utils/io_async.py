@@ -9,13 +9,16 @@ One thread, FIFO order: a checkpoint's files keep their order (data files
 first, the ``checkpoint_<it>.txt`` marker last) and successive checkpoints
 never interleave. ``drain()`` blocks until everything queued so far is on
 disk; callers drain before reading checkpoints back and before declaring a
-run complete.
+run complete. While the program records (``utils/profiling.py``) each job's
+time counts under ``background_ns['io_writer']``.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+
+from nnest_torch.utils.profiling import background
 
 
 class SerialWriter:
@@ -36,7 +39,8 @@ class SerialWriter:
                 if job is self._STOP:
                     return
                 if job is not None:
-                    job()
+                    with background('io_writer'):
+                        job()
             except BaseException as e:  # surfaced by the next drain()
                 # keep the first failure: later jobs often fail as side
                 # effects of it (a full disk, a removed directory)

@@ -99,6 +99,7 @@ import torch.distributed as dist
 from nnest_torch import runtime as _runtime
 from nnest_torch.parallel.mesh import (broadcast_exact, gather_columns,
                                        shard_batch)
+from nnest_torch.priors import UniformPrior
 from nnest_torch.samplers.kernels import LatentKernels
 from nnest_torch.training.trainer import Trainer
 from nnest_torch.utils.device import resolve_device
@@ -507,10 +508,18 @@ class Sampler:
     @property
     def kernels(self) -> LatentKernels:
         if self._kernels is None:
+            # the flat prior (none given) and the library's box prior of
+            # the points themselves go to the kernels as such: their
+            # captured step loop (samplers/kernels.py) runs them
+            prior = self._user_prior
+            if prior is not None and (self._transform_prior
+                                      or type(prior) is not UniformPrior):
+                prior = self._device_prior
             self._kernels = LatentKernels(
-                self.trainer.model, self._device_loglike, self._device_prior,
+                self.trainer.model, self._device_loglike, prior,
                 num_slow=self.num_slow, oversample_rate=self.oversample_rate,
-                num_derived=self.num_derived)
+                num_derived=self.num_derived,
+                graphs=self.trainer.mcmc_graphs)
         return self._kernels
 
     # -------------------------------------------------------------- MCMC

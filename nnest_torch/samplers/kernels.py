@@ -28,6 +28,15 @@ an ensemble's trajectory, goes through :meth:`LatentKernels._hot_inverse`,
 which for a single-speed spline flow on the GPU is the hand-written CUDA
 kernel (``ops/spline_inverse.py``).
 
+On a card, without a mesh, and with the flat prior or the library's box
+prior, the Metropolis step loop replays CUDA graphs of the step's own
+tensor work (:class:`_StepGraphs`: the proposal, the prior and Jacobian
+screen, the accept, the state update and the step's counters) around the
+calls that stay Python calls: the draws from the caller's generator, the
+hot inverse and the likelihood. Its draws, their stream and its results
+are the eager loop's, bit for bit; a step makes about a dozen host
+launches in place of 120 to 140.
+
 The multi-generation batch runners
 (:meth:`LatentKernels.mcmc_pool_generations`, ``slice_pool_generations``,
 ``rejection_prior_generations`` and ``rejection_flow_generations``) run
@@ -47,7 +56,10 @@ as without them.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -57,7 +69,8 @@ from nnest_torch.ops.consume_pool import consume_pool
 from nnest_torch.ops.spline_inverse import fused_inverse_fn
 from nnest_torch.parallel.mesh import (all_reduce_sum, batch_sharding,
                                        gather_columns, pad_rows, real_rows)
-from nnest_torch.utils.profiling import span
+from nnest_torch.priors import UniformPrior
+from nnest_torch.utils.profiling import count, span
 
 # Finite sentinel for impossible log-densities (keeps ±inf/NaN out of the
 # chain arithmetic; < -1e30 so the `> -1e30` validity checks keep working).
@@ -125,7 +138,11 @@ class LatentKernels:
 
     ``like_fn`` maps a (batch, dim) float32 tensor to a (batch,) log
     likelihood, or to ``(logl, derived)`` with derived (batch,
-    num_derived), on the same device; ``prior_fn`` to a (batch,) log prior.
+    num_derived), on the same device; ``prior_fn`` to a (batch,) log prior,
+    or it is None (the flat prior) or a ``priors.UniformPrior`` (the box,
+    by its ``logpdf``): those two the captured step loop runs
+    (:meth:`mcmc`), whose graphs live in the dict ``graphs`` (a new one
+    when None).
     :attr:`like_fn` returns ``(logl, derived)`` with logl sanitized and
     derived None when ``num_derived`` is 0 (zeros when ``like_fn`` returns
     logl alone); :attr:`prior_fn` is sanitized. ``num_slow`` and
@@ -135,7 +152,7 @@ class LatentKernels:
     """
 
     def __init__(self, model, like_fn, prior_fn, num_slow=0,
-                 oversample_rate=1.0, num_derived=0):
+                 oversample_rate=1.0, num_derived=0, graphs=None):
         if not callable(getattr(model, 'inverse', None)):
             raise ValueError('LatentKernels needs a flow model with an '
                              'inverse (build_flow); got %s'
@@ -143,14 +160,25 @@ class LatentKernels:
         self.model = model
         self.num_derived = int(num_derived)
 
-        def safe_like(u):
+        def raw_like(u):
             res = like_fn(u)
             logl, derived = res if isinstance(res, tuple) else (res, None)
-            return sanitize_log_density(logl), self._derived_start(
-                derived, u.shape[0], u.device)
+            return logl, self._derived_start(derived, u.shape[0], u.device)
 
+        def safe_like(u):
+            logl, derived = raw_like(u)
+            return sanitize_log_density(logl), derived
+
+        self._raw_like = raw_like
         self.like_fn = safe_like
-        self.prior_fn = lambda u: sanitize_log_density(prior_fn(u))
+        self.prior_fn = _log_prior(prior_fn)
+        # the prior's key among the step graphs' (None: code of the
+        # caller's, which the graphs do not capture)
+        self._prior_key = (
+            ('flat',) if prior_fn is None
+            else ('box', tuple(prior_fn.minimum.tolist()),
+                  tuple(prior_fn.maximum.tolist()))
+            if type(prior_fn) is UniformPrior else None)
         self.num_slow = int(num_slow)
         self.oversample_rate = float(oversample_rate)
         self._fusable = fused_spline.is_fusable_spline(model)
@@ -159,6 +187,7 @@ class LatentKernels:
         self._fast_mask = torch.ones(
             model.dim, device=next(model.parameters()).device)
         self._fast_mask[:self.num_slow] = 0.0
+        self._graphs = {} if graphs is None else graphs
 
     def _derived_start(self, derived0, n, device):
         """The starts' derived values: ``derived0``, zeros when it is None,
@@ -217,62 +246,64 @@ class LatentKernels:
             None if cov_mask is None
             else cov_from.shape[0] - cov_from.shape[0] // 2)
 
-    def step(self, state, inverse, draws, *, loglstar, scale, cov_chol,
-             real=None):
-        """One Metropolis step (constrained when ``loglstar`` is not None).
+    # The Metropolis step in three pure pieces around the two calls that
+    # stay Python calls (the flow's inverse and the likelihood): the eager
+    # loop (:meth:`step`) and the captured graphs (:class:`_StepGraphs`)
+    # both run these, so the maths has one definition.
 
-        ``state`` is (z, x, ldj, logl, logl_prior, derived), derived None
-        when ``num_derived`` is 0; ``draws`` yields one
-        (dz, u, u_fast) triple per proposal (``prior_volume_steps`` of
-        them in constrained mode): standard normals, accept uniforms and
-        the 0-dim fast-move uniform (None for a single-speed flow).
-        ``real`` (chains,) bool marks the chains that count (a dp shard's
-        pad rows do not), None all of them.
-        Returns the new state, the accept mask, the proposal's x and the
-        likelihood-call count (a tensor in constrained mode, the chain
-        count as an int in full MH: a step makes no host tensor)."""
+    def _propose(self, z, dz, u_fast, scale, cov_chol, fast_mask):
+        """A proposal from ``z``: dz (times ``cov_chol``' transpose when
+        given) times ``scale``, the slow dims frozen by ``fast_mask`` when
+        the fast-move uniform ``u_fast`` (None: a single-speed move) is
+        below ``oversample_rate``."""
+        if cov_chol is not None:
+            dz = dz @ cov_chol.T
+        dz = dz * scale
+        if u_fast is not None:
+            dz = torch.where(u_fast < self.oversample_rate, dz * fast_mask,
+                             dz)
+        return z + dz
+
+    @staticmethod
+    def _screen(state, carry, z_prop, x_prop, ldj_prop, u, prior_fn):
+        """Constrained mode's prior+Jacobian test of one proposal, folded
+        into ``carry`` = (z, x, ldj, passed) of the proposals tested so far
+        this step (None: the state's point, none passed): a proposal that
+        passes takes the carry's place."""
+        z, x, ldj = state[:3]
+        if carry is None:
+            carry = (z, x, ldj, torch.zeros(z.shape[0], dtype=torch.bool,
+                                            device=z.device))
+        z_pr, x_pr, ldj_pr, mask1 = carry
+        m = (_accept_mask(u, ldj_prop - ldj)
+             & (prior_fn(x_prop) > -1e30))
+        mcol = m[:, None]
+        return (torch.where(mcol, z_prop, z_pr),
+                torch.where(mcol, x_prop, x_pr),
+                torch.where(m, ldj_prop, ldj_pr), mask1 | m)
+
+    @staticmethod
+    def _settle(state, prop, logl_prop, derived_prop, u, loglstar, real,
+                prior_fn):
+        """The accept and the new state, given the likelihood (sanitized)
+        at ``prop`` = (z, x, ldj, passed): constrained mode's carry
+        (:meth:`_screen`), accepted where it passed and logl > loglstar;
+        in full MH the proposal with passed None, accepted on the ratio of
+        logl + log prior (``prior_fn``) + log|dx/dz| with the uniforms
+        ``u``. Returns (new state, accept, the proposal's x, the
+        likelihood-call count)."""
         z, x, ldj, logl, logl_prior, derived = state
-
-        def propose(dz, u_fast):
-            if cov_chol is not None:
-                dz = dz @ cov_chol.T
-            dz = dz * scale
-            if u_fast is not None:
-                dz = torch.where(u_fast < self.oversample_rate,
-                                 dz * self._fast_mask, dz)
-            return z + dz
-
+        z_new, x_new, ldj_new, mask1 = prop
+        lp_prior_new = prior_fn(x_new)
         if loglstar is not None:
-            # Find a move passing prior+Jacobian among the proposals, then
-            # one likelihood check against the hard constraint.
-            z_pr, x_pr, ldj_pr = z, x, ldj
-            mask1 = torch.zeros(z.shape[0], dtype=torch.bool, device=z.device)
-            for dz, u, u_fast in draws:
-                z_prop = propose(dz, u_fast)
-                x_prop, ldj_prop = inverse(z_prop)
-                m = (_accept_mask(u, ldj_prop - ldj)
-                     & (self.prior_fn(x_prop) > -1e30))
-                mcol = m[:, None]
-                z_pr = torch.where(mcol, z_prop, z_pr)
-                x_pr = torch.where(mcol, x_prop, x_pr)
-                ldj_pr = torch.where(m, ldj_prop, ldj_pr)
-                mask1 = mask1 | m
-            logl_prop, derived_prop = self.like_fn(x_pr)
-            lp_prior_new = self.prior_fn(x_pr)
             n_evals = _count(mask1, real)
-            accept = mask1 & torch.isfinite(logl_prop) & (logl_prop > loglstar)
-            z_new, x_new, ldj_new = z_pr, x_pr, ldj_pr
+            accept = (mask1 & torch.isfinite(logl_prop)
+                      & (logl_prop > loglstar))
         else:
-            (dz, u, u_fast), = draws
-            z_new = propose(dz, u_fast)
-            x_new, ldj_new = inverse(z_new)
-            logl_prop, derived_prop = self.like_fn(x_new)
-            lp_prior_new = self.prior_fn(x_new)
             log_ratio = ((ldj_new - ldj) + (logl_prop - logl)
                          + (lp_prior_new - logl_prior))
             accept = _accept_mask(u, log_ratio)
             n_evals = z.shape[0] if real is None else _count(real, None)
-
         acol = accept[:, None]
         new_state = (torch.where(acol, z_new, z), torch.where(acol, x_new, x),
                      torch.where(accept, ldj_new, ldj),
@@ -281,6 +312,108 @@ class LatentKernels:
                      None if derived is None
                      else torch.where(acol, derived_prop, derived))
         return new_state, accept, x_new, n_evals
+
+    def _tally(self, tally, accept, n_evals, u_fast, x_new, x_old, rows, *,
+               collect_chains, dynamic_step_size):
+        """A step's counters: ``tally`` (ncall, fast_calls, total_acc,
+        moved, jump, acc_ctr, rej_ctr, scale) after the step; endpoint mode
+        keeps ``moved`` and ``jump``, and ``dynamic_step_size`` adapts the
+        scale toward 50% acceptance of all chains (``rows.total``)."""
+        ncall, fast_calls, total_acc, moved, jump, acc_ctr, rej_ctr, scale = \
+            tally
+        ncall = ncall + n_evals
+        if self.num_slow > 0:
+            # the calls of a step whose (last) proposal moved the fast
+            # dims only
+            fast_calls = fast_calls + torch.where(
+                u_fast < self.oversample_rate, n_evals, 0)
+        n_acc = _count(accept, rows.real)
+        total_acc = total_acc + n_acc
+        if not collect_chains:
+            moved = moved | accept
+            jump = jump + torch.sum(torch.where(
+                _real(accept, rows.real),
+                torch.linalg.norm(x_new - x_old, dim=-1),
+                torch.zeros_like(jump)))
+        if dynamic_step_size:
+            win = 2 * rows.total(n_acc) > rows.n
+            acc_ctr = acc_ctr + win.to(acc_ctr.dtype)
+            rej_ctr = rej_ctr + (~win).to(rej_ctr.dtype)
+            scale = torch.where(
+                acc_ctr > rej_ctr,
+                scale * torch.exp(1.0 / (1.0 + acc_ctr)), scale)
+            scale = torch.where(
+                acc_ctr < rej_ctr,
+                scale / torch.exp(1.0 / (1.0 + rej_ctr)), scale)
+        return ncall, fast_calls, total_acc, moved, jump, acc_ctr, rej_ctr, \
+            scale
+
+    def step(self, state, inverse, draws, *, loglstar, scale, cov_chol,
+             real=None):
+        """One Metropolis step (constrained when ``loglstar`` is not None).
+
+        ``state`` is (z, x, ldj, logl, logl_prior, derived), derived None
+        when ``num_derived`` is 0; ``draws`` yields one
+        (dz, u, u_fast) triple per proposal (``prior_volume_steps`` of
+        them in constrained mode, one in full MH): standard normals,
+        accept uniforms and the 0-dim fast-move uniform (None for a
+        single-speed flow).
+        ``real`` (chains,) bool marks the chains that count (a dp shard's
+        pad rows do not), None all of them.
+        Returns the new state, the accept mask, the proposal's x and the
+        likelihood-call count (a tensor in constrained mode, the chain
+        count as an int in full MH: a step makes no host tensor)."""
+        if loglstar is None and len(draws) != 1:
+            raise ValueError('a full Metropolis-Hastings step takes one '
+                             'proposal, got %d' % len(draws))
+        prop = None
+        for dz, u, u_fast in draws:
+            z_prop = self._propose(state[0], dz, u_fast, scale, cov_chol,
+                                   self._fast_mask)
+            x_prop, ldj_prop = inverse(z_prop)
+            prop = ((z_prop, x_prop, ldj_prop, None) if loglstar is None
+                    else self._screen(state, prop, z_prop, x_prop, ldj_prop,
+                                      u, self.prior_fn))
+        logl_prop, derived_prop = self.like_fn(prop[1])
+        return self._settle(state, prop, logl_prop, derived_prop, u,
+                            loglstar, real, self.prior_fn)
+
+    @contextlib.contextmanager
+    def _step_graphs(self, device, mesh, **shape):
+        """The captured step loop (:class:`_StepGraphs`) for a generation
+        of this shape (:meth:`_held_graphs`), held for the block; None
+        where the loop runs eagerly: off a CUDA device, under a ``mesh``
+        (the dynamic step size's all-reduce is eager), with a prior other
+        than the flat one or the library's box (code of the caller's), or
+        with no step."""
+        if (device.type != 'cuda' or mesh is not None
+                or self._prior_key is None or shape['mcmc_steps'] < 1):
+            yield None
+            return
+        with self._held_graphs(device, **shape) as graphs:
+            yield graphs
+
+    @contextlib.contextmanager
+    def _held_graphs(self, device, *, num_chains, dim, dtype, n_draws,
+                     constrained, collect_chains, mcmc_steps,
+                     dynamic_step_size, cov):
+        """The step graphs of this shape from the ``graphs`` dict the
+        kernels were given (samplers pass their trainer's, so the jobs
+        sharing a trainer capture once), captured on first use and held
+        for the block; None while another thread holds them."""
+        key = (device, num_chains, dim, dtype, n_draws, self.num_derived,
+               constrained, collect_chains, mcmc_steps, dynamic_step_size,
+               cov, self.num_slow, self.oversample_rate, self._prior_key)
+        graphs = self._graphs.get(key)
+        if graphs is None:
+            graphs = self._graphs[key] = _StepGraphs(self, key)
+        if not graphs.lock.acquire(blocking=False):
+            yield None
+            return
+        try:
+            yield graphs
+        finally:
+            graphs.lock.release()
 
     @torch.no_grad()
     def mcmc(self, generator, z0, logl0, logl_prior0, *, derived0=None,
@@ -310,6 +443,12 @@ class LatentKernels:
         (dz, u, u_fast) triples from ``generator`` (one triple per
         proposal, see :meth:`step`); ``draws``, a list of one such list a
         step, replaces them (the tests feed the JAX package's numbers).
+        On a card without a mesh, with the flat or the box prior, the loop
+        replays captured CUDA graphs of the step's own tensor work around
+        the eager draws, inverse and likelihood calls (:meth:`_step_graphs`),
+        with the eager loop's draws, stream and results bit for bit; the
+        counter ``mcmc_graph`` (``graph_steps``, ``eager_steps``,
+        ``captures``) records which loop ran.
 
         With ``mesh`` (:mod:`nnest_torch.parallel.mesh`) the chain axis is
         dp-sharded: every rank passes the whole batch of starts and draws
@@ -323,88 +462,55 @@ class LatentKernels:
         num_chains, dim = z0.shape
         rows = _Rows(mesh, num_chains, device)
         ll_star = None if not constrained else _f32(loglstar, z0)
-        # the generation's eager work before its step loop
-        with span('gen.prep'):
-            inverse = self._hot_inverse()
-            cov_chol = self._cov_factor(cov_from, cov_mask)
-            z_start = rows.local(z0)
-            x0, ldj0 = inverse(z_start)
-            derived0 = rows.local(self._derived_start(derived0, num_chains,
-                                                      device))
-            state = (z_start, x0, ldj0,
-                     sanitize_log_density(rows.local(logl0)),
-                     sanitize_log_density(rows.local(logl_prior0)), derived0)
-            scale = torch.full((), step_size, dtype=torch.float32,
-                               device=device)
-            acc_ctr = torch.zeros((), device=device)
-            rej_ctr = torch.zeros((), device=device)
-            ncall = torch.zeros((), dtype=torch.int64, device=device)
-            fast_calls = torch.zeros((), dtype=torch.int64, device=device)
-            total_acc = torch.zeros((), dtype=torch.int64, device=device)
-            moved = torch.zeros(z_start.shape[0], dtype=torch.bool,
-                                device=device)
-            jump = torch.zeros((), device=device)
-            xs, zs, logls, ds = [x0], [z_start], [state[3]], [derived0]
-            n_draws = prior_volume_steps if constrained else 1
-        with span('gen.steps'):
-            for s in range(mcmc_steps):
-                step_draws = draws[s] if draws is not None else [
-                    (torch.randn(num_chains, dim, generator=generator,
-                                 device=device),
-                     torch.rand(num_chains, generator=generator,
-                                device=device),
-                     torch.rand((), generator=generator, device=device)
-                     if self.num_slow > 0 else None)
-                    for _ in range(n_draws)]
-                step_draws = [(rows.local(dz), rows.local(u), u_fast)
-                              for dz, u, u_fast in step_draws]
-                x_old = state[1]
-                state, accept, x_new, n_evals = self.step(
-                    state, inverse, step_draws, loglstar=ll_star,
-                    scale=scale, cov_chol=cov_chol, real=rows.real)
-                ncall = ncall + n_evals
-                if self.num_slow > 0:
-                    # the calls of a step whose (last) proposal moved the
-                    # fast dims only
-                    fast_calls = fast_calls + torch.where(
-                        step_draws[-1][2] < self.oversample_rate, n_evals, 0)
-                n_acc = _count(accept, rows.real)
-                total_acc = total_acc + n_acc
-                xs.append(state[1])
-                if collect_chains:
-                    zs.append(state[0])
-                    logls.append(state[3])
-                    if self.num_derived:
-                        ds.append(state[5])
+        with self._step_graphs(
+                device, mesh, num_chains=num_chains, dim=dim,
+                dtype=z0.dtype,
+                n_draws=prior_volume_steps if constrained else 1,
+                constrained=constrained, collect_chains=collect_chains,
+                mcmc_steps=mcmc_steps, dynamic_step_size=dynamic_step_size,
+                cov=cov_from is not None) as graphs:
+            count('mcmc_graph', mcmc_steps,
+                  key='eager_steps' if graphs is None else 'graph_steps')
+            # the generation's eager work before its step loop
+            with span('gen.prep'):
+                inverse = self._hot_inverse()
+                cov_chol = self._cov_factor(cov_from, cov_mask)
+                z_start = rows.local(z0)
+                x0, ldj0 = inverse(z_start)
+                derived0 = rows.local(self._derived_start(
+                    derived0, num_chains, device))
+                state = (z_start, x0, ldj0,
+                         sanitize_log_density(rows.local(logl0)),
+                         sanitize_log_density(rows.local(logl_prior0)),
+                         derived0)
+                if graphs is not None:
+                    graphs.start(state, step_size, cov_chol, ll_star)
                 else:
-                    moved = moved | accept
-                    jump = jump + torch.sum(torch.where(
-                        _real(accept, rows.real),
-                        torch.linalg.norm(x_new - x_old, dim=-1),
-                        torch.zeros_like(jump)))
-                if dynamic_step_size:
-                    # adapt toward 50% acceptance of all chains
-                    win = 2 * rows.total(n_acc) > num_chains
-                    acc_ctr = acc_ctr + win.to(acc_ctr.dtype)
-                    rej_ctr = rej_ctr + (~win).to(rej_ctr.dtype)
-                    scale = torch.where(
-                        acc_ctr > rej_ctr,
-                        scale * torch.exp(1.0 / (1.0 + acc_ctr)), scale)
-                    scale = torch.where(
-                        acc_ctr < rej_ctr,
-                        scale / torch.exp(1.0 / (1.0 + rej_ctr)), scale)
+                    tally = _tally_start(z_start.shape[0], step_size, device)
+            with span('gen.steps'):
+                if graphs is not None:
+                    for s in range(mcmc_steps):
+                        graphs.step(generator,
+                                    None if draws is None else draws[s],
+                                    inverse, self._raw_like)
+                else:
+                    state, tally, trajectories = self._eager_steps(
+                        generator, state, tally, inverse, draws, rows,
+                        cov_chol=cov_chol, loglstar=ll_star,
+                        n_draws=prior_volume_steps if constrained else 1,
+                        mcmc_steps=mcmc_steps, collect_chains=collect_chains,
+                        dynamic_step_size=dynamic_step_size)
+            if graphs is not None:
+                state, tally, trajectories = graphs.result()
 
+        ncall, fast_calls, total_acc, moved, jump, _, _, scale = tally
         ncall, fast_calls, total_acc, jump = rows.totals(
             ncall, fast_calls, total_acc, jump)
         common = {'scale': scale, 'ncall': ncall, 'fast_calls': fast_calls,
                   'accepted': total_acc,
                   'rejected': mcmc_steps * num_chains - total_acc}
-        chains = torch.stack(xs, dim=1)
+        chains = trajectories[0]
         if collect_chains:
-            trajectories = [chains, torch.stack(zs, dim=1),
-                            torch.stack(logls, dim=1)]
-            if self.num_derived:
-                trajectories.append(torch.stack(ds, dim=1))
             samples, latent, loglikes, *derived = rows.gather(trajectories)
             if derived:
                 common['derived'] = derived[0]
@@ -431,6 +537,47 @@ class LatentKernels:
             'ess': ess_device(chains, mu, var),
             'acceptance': total_acc / float(mcmc_steps * num_chains),
         })
+
+    def _eager_steps(self, generator, state, tally, inverse, draws, rows,
+                     *, cov_chol, loglstar, n_draws, mcmc_steps,
+                     collect_chains, dynamic_step_size):
+        """The step loop of :meth:`mcmc`, one launch at a time, from
+        ``state`` and ``tally`` (:meth:`_tally`): (the final state, the
+        final tally, the trajectories (x, then z, logl and derived in
+        collect-chains mode) stacked (chains, steps + 1, .), the start
+        first)."""
+        device = state[0].device
+        num_chains, dim = rows.n, state[0].shape[1]
+        xs, zs, logls, ds = [state[1]], [state[0]], [state[3]], [state[5]]
+        for s in range(mcmc_steps):
+            step_draws = draws[s] if draws is not None else [
+                (torch.randn(num_chains, dim, generator=generator,
+                             device=device),
+                 torch.rand(num_chains, generator=generator, device=device),
+                 torch.rand((), generator=generator, device=device)
+                 if self.num_slow > 0 else None)
+                for _ in range(n_draws)]
+            step_draws = [(rows.local(dz), rows.local(u), u_fast)
+                          for dz, u, u_fast in step_draws]
+            x_old = state[1]
+            state, accept, x_new, n_evals = self.step(
+                state, inverse, step_draws, loglstar=loglstar,
+                scale=tally[7], cov_chol=cov_chol, real=rows.real)
+            tally = self._tally(
+                tally, accept, n_evals, step_draws[-1][2], x_new, x_old, rows,
+                collect_chains=collect_chains,
+                dynamic_step_size=dynamic_step_size)
+            xs.append(state[1])
+            if collect_chains:
+                zs.append(state[0])
+                logls.append(state[3])
+                ds.append(state[5])
+        trajectories = [torch.stack(xs, dim=1)]
+        if collect_chains:
+            trajectories += [torch.stack(zs, dim=1), torch.stack(logls, dim=1)]
+            if self.num_derived:
+                trajectories.append(torch.stack(ds, dim=1))
+        return state, tally, trajectories
 
     @staticmethod
     def _red_black_split(generator, n_live):
@@ -1228,6 +1375,230 @@ def _stacked(outs, lstars, its, states):
     meta = {'start_loglstar': torch.stack(lstars),
             'start_it': torch.stack(its), 'gen_state': states}
     return bufs, meta, len(outs)
+
+
+def _flat_prior(u):
+    """The flat log prior of the kernels made without one: zeros."""
+    return torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
+
+
+def _log_prior(prior):
+    """The sanitized log prior of a batch: zeros for ``prior`` None, the
+    library's box prior's ``logpdf`` for a ``priors.UniformPrior``, else
+    the function ``prior`` itself."""
+    if prior is None:
+        return _flat_prior
+    logpdf = prior.logpdf if type(prior) is UniformPrior else prior
+    return lambda u: sanitize_log_density(logpdf(u))
+
+
+def _tally_start(n, step_size, device):
+    """A generation's counters before its first step
+    (:meth:`LatentKernels._tally` for n chains): ncall, fast_calls and
+    total_acc (int64), moved (n,) bool, jump, acc_ctr and rej_ctr
+    (float32) at zero, and the scale at ``step_size``."""
+    def zero(dtype=torch.float32):
+        return torch.zeros((), dtype=dtype, device=device)
+    return (zero(torch.int64), zero(torch.int64), zero(torch.int64),
+            torch.zeros(n, dtype=torch.bool, device=device), zero(), zero(),
+            zero(), torch.full((), step_size, dtype=torch.float32,
+                               device=device))
+
+
+def _fill(dst, src):
+    """Copy each tensor of ``src`` into its place in ``dst`` (None, where
+    there is no tensor, on both sides)."""
+    for d, s in zip(dst, src):
+        if d is not None:
+            d.copy_(s)
+
+
+class _StepGraphs:
+    """The step loop of :meth:`LatentKernels.mcmc` for one shape as CUDA
+    graphs of the kernels' own tensor work, between the calls that stay
+    Python calls: a step draws its numbers eagerly from the generator into
+    static buffers (the eager loop's calls, in its order: the same stream),
+    then for each proposal replays P (:meth:`LatentKernels._propose`),
+    calls the inverse on P's output and, in constrained mode, replays M
+    (:meth:`LatentKernels._screen`), then calls the likelihood and
+    replays U (:meth:`LatentKernels._settle`, ``_tally`` and the write of
+    the step's x, and in collect-chains mode z, logl and derived, at a
+    step index held on the device). The inverse and likelihood outputs
+    are copied into static buffers; the state, counters, scale and
+    trajectories are static buffers updated in place. Nothing in a graph
+    reads the host, the flow or the likelihood, so one set of graphs
+    serves every kernels object of the same key.
+
+    ``key`` is :meth:`LatentKernels._held_graphs`'; the graphs are
+    captured now (:meth:`_capture`), with a lock that one generation at a
+    time holds."""
+
+    def __init__(self, kern, key):
+        (device, num_chains, dim, dtype, n_draws, num_derived, constrained,
+         collect_chains, mcmc_steps, dynamic_step_size, cov, num_slow, _,
+         prior_key) = key
+        self.lock = threading.Lock()
+        self.constrained = constrained
+        self.collect_chains = collect_chains
+
+        def buf(*shape, dtype=dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        nd = num_derived
+        self.state = [buf(num_chains, dim), buf(num_chains, dim),
+                      buf(num_chains), buf(num_chains), buf(num_chains),
+                      buf(num_chains, nd) if nd else None]
+        self.tally = list(_tally_start(num_chains, 0.0, device))
+        self.cov = buf(dim, dim) if cov else None
+        self.loglstar = buf() if constrained else None
+        self.fast_mask = kern._fast_mask.to(device=device, copy=True)
+        # the graphs' own prior (the box's bounds are tensors the graphs
+        # read): the kernels' by value
+        self.prior_fn = _log_prior(
+            None if prior_key[0] == 'flat'
+            else UniformPrior(dim, list(prior_key[1]), list(prior_key[2])))
+        self.draws = [(buf(num_chains, dim), buf(num_chains),
+                       buf() if num_slow > 0 else None)
+                      for _ in range(n_draws)]
+        self.prop = [buf(num_chains, dim), buf(num_chains, dim),
+                     buf(num_chains)]
+        self.carry = ([buf(num_chains, dim), buf(num_chains, dim),
+                       buf(num_chains), buf(num_chains, dtype=torch.bool)]
+                      if constrained else None)
+        self.logl_prop = buf(num_chains)
+        self.derived_prop = buf(num_chains, nd) if nd else None
+        self.index = buf(1, dtype=torch.int64)
+        steps = mcmc_steps + 1
+        self.trajectories = [buf(num_chains, steps, dim)]
+        if collect_chains:
+            self.trajectories += [buf(num_chains, steps, dim),
+                                  buf(num_chains, steps)]
+            if nd:
+                self.trajectories.append(buf(num_chains, steps, nd))
+
+        # the graphs' bodies: the kernels' pieces on these buffers (``kern``
+        # is read while capturing only; the graphs read none of its
+        # tensors)
+        def propose(k):
+            dz, _, u_fast = self.draws[k]
+            self.prop[0].copy_(kern._propose(
+                self.state[0], dz, u_fast, self.tally[7], self.cov,
+                self.fast_mask))
+
+        def screen(k):
+            _fill(self.carry, kern._screen(
+                self.state, self.carry if k else None, *self.prop,
+                self.draws[k][1], self.prior_fn))
+
+        def update():
+            prop = self.carry if constrained else self.prop + [None]
+            x_old = self.state[1]
+            state, accept, x_new, n_evals = kern._settle(
+                self.state, prop, sanitize_log_density(self.logl_prop),
+                self.derived_prop, self.draws[-1][1], self.loglstar, None,
+                self.prior_fn)
+            tally = kern._tally(
+                self.tally, accept, n_evals, self.draws[-1][2], x_new, x_old,
+                _Rows(None, num_chains, device),
+                collect_chains=collect_chains,
+                dynamic_step_size=dynamic_step_size)
+            self._write_step(state)
+            _fill(self.state, state)
+            _fill(self.tally, tally)
+            self.index.add_(1)
+
+        bodies = [functools.partial(propose, k) for k in range(n_draws)]
+        if constrained:
+            bodies += [functools.partial(screen, k) for k in range(n_draws)]
+        graphs = self._capture(bodies + [update])
+        self.graph_p = graphs[:n_draws]
+        self.graph_m = graphs[n_draws:-1]
+        self.graph_u = graphs[-1]
+
+    def _write_step(self, state):
+        """The state's entries of the trajectories at the step index."""
+        parts = [state[1]]
+        if self.collect_chains:
+            parts += [state[0], state[3], state[5]]
+        for traj, part in zip(self.trajectories, parts):
+            traj.index_copy_(1, self.index, part.unsqueeze(1))
+
+    def _capture(self, bodies):
+        """One CUDA graph of each of ``bodies``, in one memory pool, after
+        three warm-up rounds on a side stream (the warm-up a capture
+        needs; it writes only these buffers, which every generation
+        fills before its first step)."""
+        with torch.cuda.device(self.index.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    self.index.zero_()
+                    for body in bodies:
+                        body()
+            torch.cuda.current_stream().wait_stream(side)
+            pool = torch.cuda.graph_pool_handle()
+            graphs = []
+            for body in bodies:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool,
+                                      capture_error_mode='thread_local'):
+                    body()
+                graphs.append(graph)
+                count('mcmc_graph', 1, key='captures')
+        return graphs
+
+    # a generation
+
+    def start(self, state, step_size, cov_chol, loglstar):
+        """Fill the buffers for a generation from ``state`` (the starts),
+        the step size, the covariance factor (None without one) and the
+        likelihood bound (None in full MH)."""
+        _fill(self.state, state)
+        for t in self.tally[:7]:
+            t.zero_()
+        self.tally[7].fill_(step_size)
+        if cov_chol is not None:
+            self.cov.copy_(cov_chol)
+        if loglstar is not None:
+            self.loglstar.copy_(loglstar)
+        self.index.zero_()
+        self._write_step(self.state)
+        self.index.fill_(1)
+
+    def step(self, generator, draws, inverse, like):
+        """One step: its numbers drawn from ``generator`` (or copied from
+        ``draws``, one (dz, u, u_fast) triple a proposal), the replays and
+        the eager calls of ``inverse`` and ``like`` (the kernels'
+        likelihood before sanitizing, which the update graph does)."""
+        if draws is None:
+            for dz, u, u_fast in self.draws:
+                torch.randn(dz.shape, generator=generator, out=dz)
+                torch.rand(u.shape, generator=generator, out=u)
+                if u_fast is not None:
+                    torch.rand((), generator=generator, out=u_fast)
+        else:
+            for bufs, given in zip(self.draws, draws):
+                _fill(bufs, given)
+        for k, graph in enumerate(self.graph_p):
+            graph.replay()
+            _fill(self.prop[1:], inverse(self.prop[0]))
+            if self.constrained:
+                self.graph_m[k].replay()
+        logl, derived = like(
+            (self.carry if self.constrained else self.prop)[1])
+        self.logl_prop.copy_(logl)
+        if derived is not None:
+            self.derived_prop.copy_(derived)
+        self.graph_u.replay()
+
+    def result(self):
+        """The generation's final state, tally and trajectories, as copies
+        (the buffers are the next generation's)."""
+        def copy(ts):
+            return [None if t is None else t.clone() for t in ts]
+        return (tuple(copy(self.state)), tuple(copy(self.tally)),
+                copy(self.trajectories))
 
 
 def _real(mask, real):

@@ -163,6 +163,9 @@ class Trainer:
         self._use_graphs = self.device.type == 'cuda' and (
             mesh is None or mesh.tp == 1)
         self._graphs, self._graphs_for = {}, None
+        # the Metropolis step loop's CUDA graphs (samplers/kernels.py),
+        # kept here so that the samplers sharing this trainer capture once
+        self.mcmc_graphs = {}
         self.last_training_jitter = None
         self.plot_seconds = 0.0
         self.logger = create_logger(__name__, level=log_level)

@@ -32,6 +32,12 @@ The recorder::
     rec.spans      # Span objects in the order they opened
     rec.counters   # {'host_syncs': {innermost span: n}, ...}
 
+The program's counters: ``host_syncs`` (below); ``background_ns`` and
+``background_jobs`` {key: n} (:func:`background`); ``mcmc_graph``
+{``graph_steps``, ``eager_steps``, ``captures``: n}, the Metropolis steps
+that replayed the step loop's CUDA graphs, the steps run eagerly, and the
+graphs captured (``samplers/kernels.py``).
+
 Recording is off by default. Off, :func:`span` returns one shared no-op
 context and :func:`count` returns at once: no clock is read and nothing is
 allocated, and no draw, order or result depends on it. On, a span records

@@ -9,10 +9,13 @@ sampler). A run's work is fixed: ``seconds // job_seconds`` jobs (at least
 one), ``job_seconds`` from the band, and the window runs from the first
 job's start to the last job's end. The garbage collector runs between jobs
 and at no other time in the window, so every run does the same work. A deep band starts each job
-from a live set drawn within the band's contour (``init_points``) and
-shares one ``Trainer`` across its jobs, as the dynamic sampler's batches
-do; a prior band starts each job from the prior with a fresh sampler and
-trainer, as a user's run does. Set-up is the imports, the three libraries
+from a live set that the configuration's likelihood kind draws within the
+band's contour (``init_points``); a prior band (``start`` ``prior``) starts
+each job from the prior. A band's ``trainer`` is ``shared`` (one
+``Trainer`` across its jobs, as the dynamic sampler's batches do) or
+``per_job`` (a fresh sampler and trainer a job, as a user's run does). The
+configuration's ``flow_args`` go alike to the shared ``Trainer`` and to
+every job's ``NestedSampler``. Set-up is the imports, the three libraries
 (built into ``nnest_torch/csrc/build/`` on a checkout's first run), the
 bands' live sets and one short warm-up job on the cell's own shapes.
 
@@ -36,7 +39,7 @@ import numpy as np
 
 from harness import cells, check, costs, guard, likelihood, trace as tracing
 from harness.hooks import Hooks
-from harness.traffic import init_set, job_seed
+from harness.traffic import job_seed
 from reference.consume import consumption_counts
 
 
@@ -127,25 +130,28 @@ def _run_cell(workload, config, traffic, limits, seed, seconds, trace,
     lk = config['likelihood']
     dim, n_live, hidden = lk['x_dim'], config['num_live_points'], \
         config['hidden_dim']
-    deep = traffic['start'] == 'ellipsoid'
+    deep = traffic['start'] != 'prior'
     run_kw = dict(config['run'], strategy=traffic['strategy'])
-    hooks = Hooks(traffic['inverse_sample_stride'], control)
+    flow_kw = cells.flow_args(config)
+    hooks = Hooks(traffic['inverse_sample_stride'], control,
+                  cells.flow_reference(config).inverse)
     root = tempfile.mkdtemp(prefix='portbench_')
     trainer = None
     if traffic['trainer'] == 'shared':
         # the arguments a NestedSampler gives the Trainer it makes
         trainer = Trainer(dim, hidden_dim=hidden, batch_size=100,
-                          flow='spline', num_blocks=3, num_layers=1,
                           learning_rate=0.001,
                           log_dir=os.path.join(root, 'trainer'),
-                          seed=job_seed(seed, 'trainer'), device=dev)
+                          seed=job_seed(seed, 'trainer'), device=dev,
+                          **flow_kw)
     n_jobs = max(1, int(seconds // traffic['job_seconds']))
     inits = {}
     if deep:
+        kind = cells.kind(lk['kind'])
         for index in ['warmup'] + list(range(n_jobs)):
-            inits[index] = init_set(like, config, traffic['radius'], n_live,
-                                    job_seed(seed, 'init %s' % index),
-                                    dev)
+            inits[index] = kind.init_set(like, config, traffic, n_live,
+                                         job_seed(seed, 'init %s' % index),
+                                         dev)
 
     def job(index, max_iters, traced=False):
         rec = {'index': index}
@@ -159,7 +165,8 @@ def _run_cell(workload, config, traffic, limits, seed, seconds, trace,
                 sampler = NestedSampler(
                     dim, like, transform=transform, num_live_points=n_live,
                     hidden_dim=hidden, log_dir=job_dir, append_run_num=False,
-                    resume=False, seed=seed_j, trainer=trainer, device=dev)
+                    resume=False, seed=seed_j, trainer=trainer, device=dev,
+                    **flow_kw)
                 hooks.begin_job(index, seed_j, sampler.trainer.model)
                 kw = dict(run_kw, max_iters=max_iters)
                 if deep:

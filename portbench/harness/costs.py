@@ -5,7 +5,8 @@ change to the program moves them.
 ``chip_smoke.py``'s (the kernel tables' bounds), ``flow_forward_ops`` and
 ``likelihood_ops`` count the other model FLOPs of a run the same way: each
 exp, log, log1p, sqrt, division, comparison and select one operation, a
-multiply-add two."""
+multiply-add two. A flow reference (``reference/flows/``) and a likelihood
+kind (``harness/likelihoods/``) count their own on these terms."""
 
 from __future__ import annotations
 
@@ -78,13 +79,17 @@ def flow_forward_ops(d, hidden, num_bins=NUM_BINS, num_blocks=NUM_BLOCKS):
     return num_blocks * per_block + 2 + 3 * d + 1
 
 
-def training_epoch_ops(n_rows, d, hidden):
-    """One training epoch on ``n_rows`` live points: forward and backward
-    (three forwards) over the training rows, one forward over the 10%
-    validation rows."""
+def epoch_ops(n_rows, fwd):
+    """One training epoch on ``n_rows`` live points of a flow whose forward
+    costs ``fwd`` a row: forward and backward (three forwards) over the
+    training rows, one forward over the 10% validation rows."""
     n_valid = max(1, int(round(n_rows * 0.1)))
-    fwd = flow_forward_ops(d, hidden)
     return 3 * fwd * (n_rows - n_valid) + fwd * n_valid
+
+
+def training_epoch_ops(n_rows, d, hidden):
+    """``epoch_ops`` of the spline flow at d and ``hidden``."""
+    return epoch_ops(n_rows, flow_forward_ops(d, hidden))
 
 
 def likelihood_ops(d):

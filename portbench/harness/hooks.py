@@ -2,9 +2,14 @@
 program's own Python entries, which it wraps without editing them:
 
 - ``nnest_torch.ops.spline_inverse.spline_inverse`` (every hot inverse a
-  Metropolis step runs): calls and rows counted; a sample of the calls,
-  drawn from the job's seed, kept with the flow's parameters at that call
-  for the reference; in the traced job each call's rows;
+  Metropolis step runs through a single-speed spline flow): calls and rows
+  counted; a sample of the calls, drawn from the job's seed, kept with the
+  flow's parameters at that call for the reference; in the traced job each
+  call's rows;
+- ``nnest_torch.samplers.kernels.LatentKernels._hot_inverse``: for a flow
+  that ``fused_spline.is_fusable_spline`` refuses, whose steps take the
+  flow's own ``inverse``, the callable it returns, counted and sampled the
+  same way;
 - ``nnest_torch.samplers.kernels.consume_pool`` (the device's replay of a
   pool's consumption), traced runs only: each call's live logl, flags and
   candidates' logl in the traced job, for the consumption's counts;
@@ -13,9 +18,9 @@ program's own Python entries, which it wraps without editing them:
   checkpoints and end-of-run work, in the traced job only, with the
   Metropolis steps each dispatch ran.
 
-With ``control='tf32'`` the spline kernel's place is taken by the plain
-reference inverse in float32 with TF32 matmuls (the control, which has to
-come out not correct)."""
+With ``control='tf32'`` the hot inverse's place is taken by the plain
+reference inverse of the configuration's flow (``reference``) in float32
+with TF32 matmuls: the control, which has to come out not correct."""
 
 from __future__ import annotations
 
@@ -37,9 +42,10 @@ SPANNED = {
 
 
 class Hooks:
-    def __init__(self, stride, control=None):
+    def __init__(self, stride, control, reference):
         self.stride = int(stride)
         self.control = control
+        self.reference = reference  # the flow reference's inverse
         self.model = None       # the flow of the job running now
         self.traced = False     # inside the traced job
         self.inverse_calls = 0
@@ -73,25 +79,47 @@ class Hooks:
     def _inverse(self, real):
         def spline_inverse(z, packed):
             if self.control == 'tf32':
-                from reference.flow import inverse
                 with torch.no_grad():
-                    x, logdet = inverse(self.model.state_dict(), z)
+                    x, logdet = self.reference(self.model.state_dict(), z)
             else:
                 x, logdet = real(z, packed)
-            self.inverse_calls += 1
-            self.inverse_rows += z.shape[0]
-            if self.traced:
-                self.traced_inverse_rows.append(int(z.shape[0]))
-            if (self._job_calls + self._offset) % self.stride == 0:
-                with torch.no_grad():
-                    state = {k: v.detach().clone()
-                             for k, v in self.model.state_dict().items()}
-                self.samples.append((self._job, z.detach().clone(),
-                                     x.detach().clone(),
-                                     logdet.detach().clone(), state))
-            self._job_calls += 1
+            self._count(self.model, z, x, logdet)
             return x, logdet
         return spline_inverse
+
+    def _hot(self, real, fusable):
+        def _hot_inverse(kernels):
+            inverse = real(kernels)
+            if fusable(kernels.model):
+                return inverse      # through the sampled spline kernel
+            model = kernels.model
+
+            def hot_inverse(z):
+                if self.control == 'tf32':
+                    with torch.no_grad():
+                        x, logdet = self.reference(model.state_dict(), z)
+                else:
+                    x, logdet = inverse(z)
+                self._count(model, z, x, logdet)
+                return x, logdet
+            return hot_inverse
+        return _hot_inverse
+
+    def _count(self, model, z, x, logdet):
+        """One hot-inverse call counted, and kept with ``model``'s
+        parameters where the job's stride samples it."""
+        self.inverse_calls += 1
+        self.inverse_rows += z.shape[0]
+        if self.traced:
+            self.traced_inverse_rows.append(int(z.shape[0]))
+        if (self._job_calls + self._offset) % self.stride == 0:
+            with torch.no_grad():
+                state = {k: v.detach().clone()
+                         for k, v in model.state_dict().items()}
+            self.samples.append((self._job, z.detach().clone(),
+                                 x.detach().clone(),
+                                 logdet.detach().clone(), state))
+        self._job_calls += 1
 
     # ------------------------------------------------------------ pools
 
@@ -191,10 +219,14 @@ class Hooks:
 
     def install(self, trace):
         from nnest_torch.ops import spline_inverse as si
+        from nnest_torch.ops.fused_spline import is_fusable_spline
         from nnest_torch.samplers import kernels
         from nnest_torch.samplers.nested import NestedSampler
         from nnest_torch.training.trainer import Trainer
         self._patch(si, 'spline_inverse', self._inverse(si.spline_inverse))
+        self._patch(kernels.LatentKernels, '_hot_inverse',
+                    self._hot(kernels.LatentKernels._hot_inverse,
+                              is_fusable_spline))
         if not trace:
             return
         self._patch(kernels, 'consume_pool', self._consume(

@@ -1,29 +1,6 @@
-"""The Gaussian log likelihood in float64 (NumPy), from the configuration's
-covariance: every pairwise correlation ``corr``, unit variances."""
+"""The ``gaussian`` kind's float64 reference (``reference/likelihoods/``),
+under the name it had before kinds were found by name."""
 
-from __future__ import annotations
+from reference.likelihoods.gaussian import Gaussian
 
-import numpy as np
-
-
-def covariance(dim, corr):
-    return np.eye(dim) + corr * (1.0 - np.eye(dim))
-
-
-class Gaussian:
-    def __init__(self, dim, corr):
-        cov = covariance(dim, corr)
-        self.precision = np.linalg.inv(cov)
-        self.log_norm = -0.5 * (dim * np.log(2.0 * np.pi)
-                                + np.linalg.slogdet(cov)[1])
-
-    def radius2(self, x):
-        """The squared Mahalanobis radius of each row of ``x``."""
-        x = np.asarray(x, dtype=np.float64)
-        return np.einsum('ij,jk,ik->i', x, self.precision, x)
-
-    def __call__(self, x):
-        return self.log_norm - 0.5 * self.radius2(x)
-
-    def logl_at_radius(self, r):
-        return self.log_norm - 0.5 * r * r
+__all__ = ['Gaussian']

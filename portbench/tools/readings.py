@@ -1,8 +1,8 @@
 """The numbers a cell compares, on many seeds in one process: each seed
 one run of the cell at its own sizes with a one-job window, its readings
 printed as one JSON line. ``--control tf32`` runs the control instead
-(TF32 matmuls, the plain inverse in float32 in the spline kernel's
-place), which has to read above the limits.
+(TF32 matmuls, the flow's plain inverse in float32 in the hot
+inverse's place), which has to read above the limits.
 
     python3 portbench/tools/readings.py --workload gauss16.deep \
         --seeds 101 102 103 [--control tf32]

@@ -23,7 +23,13 @@ per phase with its seconds:
    4097}, with inputs beyond ±3, exactly at
    ±3 and on spline knots; max |dx| <= 3e-5 and max |dlogdet| <= 3e-4.
    The per-block entry against the twin (the same limits) and against the
-   whole-chain kernel (1e-6, 1e-5) at d in {5, 16}. Then the kernel is
+   whole-chain kernel (1e-6, 1e-5) at d in {5, 16}. The fast-slow entry
+   ``fast_slow_inverse`` at the benchmark's ``mog30fs`` widths (d = 30,
+   2 slow dims, both chains at hidden 16; N in {1, 256, 4097}): each
+   chain's launch against its twin at d = 2 and d = 28, hidden 16, the
+   entry against ``model.inverse`` and against the chains' twins composed
+   (the same limits), two launches a call and no twin call, and x's slow
+   dims bit for bit under a fast-only move. Then the kernel is
    timed by CUDA-graph replay (and eagerly, back to back) and the twin
    eagerly, at the main path's shapes (N = 512, a slice expansion's
    2 x 256 stacked rows, N = 65536, phase 10's N = 16, 32 and 32064,
@@ -79,9 +85,10 @@ per phase with its seconds:
 9. other flows: one run each of ``flow='nvp'`` (2-D), ``flow='cholesky'``
    (2-D) and ``flow='spline', num_slow=2`` (4-D) on the Gaussian
    (transform 3x, 200 live points, MCMC after a volume switch) to its
-   analytic logz within the same bound; their inverse is ``model.inverse``
-   in plain PyTorch, so the kernel's launches and the twin's calls must
-   both be 0;
+   analytic logz within the same bound; the NVP and Cholesky inverses are
+   ``model.inverse`` in plain PyTorch, so their kernel launches must be 0,
+   and the fast-slow spline flow's chains run through the kernel, so its
+   launches must be > 0; the twin's calls must be 0 in all three;
 10. posterior samplers: ``MCMCSampler.run`` (2000 full-MH steps, 16 chains)
    and ``EnsembleSampler.bootstrap`` (200 steps, 64 walkers, one phase)
    then ``run`` (500 steps) on the 16-D Gaussian with correlation 0.9 in
@@ -654,6 +661,99 @@ TIMED_SHAPES = ((16, 256), (16, 4096), (2, 128), (50, 256), (50, 4096),
     + POSTERIOR_SHAPES + ((16, DYN_BATCH_LIVE),) + CLI_SHAPES + MESH_SHAPES
 
 
+# the fast-slow flow of the benchmark's mog30fs configuration (upstream
+# run_mog4_fast.sh at its largest x_dim): 2 slow dims and 28 fast ones,
+# both chains at hidden 16, and the row counts its entry is held at
+FAST_SLOW_DIM, FAST_SLOW_SLOW, FAST_SLOW_HIDDEN = 30, 2, 16
+FAST_SLOW_ROWS = (1, 256, 4097)
+
+
+def random_fast_slow_flow(d, num_slow, seed, device,
+                          hidden=FAST_SLOW_HIDDEN):
+    """A random fast-slow spline flow, ActNorm initialised as in
+    ``random_flow``, then every parameter moved by N(0, 0.05^2), so the
+    combine coupling is off the identity too."""
+    from nnest_torch.flows import build_flow
+    model = build_flow(d, num_slow=num_slow, hidden_dim=hidden, seed=seed,
+                       device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    model.data_init(0.7 * torch.randn(512, d, generator=g, device=device)
+                    + 0.3)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g, device=device))
+    return model
+
+
+def fast_slow_checks(check):
+    """``fast_slow_inverse`` on card tensors at ``FAST_SLOW_ROWS``: each
+    chain's launch against its twin on the combine coupling's output (the
+    held cases, returned first), the entry against ``model.inverse`` and
+    against the chains' twins composed, two launches a call and no twin
+    call, and x's slow dims bit for bit under a fast-only latent move
+    (the fast dims moved). ``check`` is ``phase_kernel``'s."""
+    from nnest_torch.ops import fused_spline
+    from nnest_torch.ops import spline_inverse as si
+    from nnest_torch.ops.fused_spline import (_inverse_body,
+                                              pack_fast_slow_consts)
+    device = torch.device('cuda')
+    d, k = FAST_SLOW_DIM, FAST_SLOW_SLOW
+    model = random_fast_slow_flow(d, k, seed=500 + d, device=device)
+    packed = pack_fast_slow_consts(model)
+    fast_only = torch.ones(d, device=device)
+    fast_only[:k] = 0.0
+    held, entry = [], []
+    for n in FAST_SLOW_ROWS:
+        g = torch.Generator(device=device).manual_seed(13 * n + d)
+        z = 2.0 * torch.randn(n, d, generator=g, device=device)
+        if n >= 4:
+            z[0], z[1], z[2] = 3.0, -3.0, 4.5
+        launches, twin = si.launches, fused_spline.calls
+        got = si.fast_slow_inverse(z, packed)
+        torch.cuda.synchronize()
+        if si.launches - launches != 2 or fused_spline.calls != twin:
+            raise AssertionError(
+                'fast-slow entry at n=%d: %d launches (want 2), %d twin '
+                'calls (want 0)' % (n, si.launches - launches,
+                                    fused_spline.calls - twin))
+        with torch.no_grad():
+            want = model.inverse(z)
+            h, ld_c = packed['combine'].inverse(z)
+        twins = []
+        for name, v in (('slow', h[:, :k]), ('fast', h[:, k:])):
+            v = v.contiguous()
+            chain = packed[name]
+            kx = si._launch(v, chain, 0, len(chain['blocks']), True)
+            ref = _inverse_body(v, chain)
+            torch.cuda.synchronize()
+            ex, eld = check('kernel on the %s chain' % name, kx, ref, TOL_X,
+                            TOL_LOGDET, v.shape[1], n)
+            held.append({'d': v.shape[1], 'hidden': FAST_SLOW_HIDDEN,
+                         'n': n, 'chain': name, 'max_abs_dx': ex,
+                         'max_abs_dlogdet': eld})
+            twins.append(ref)
+        (xs, lds), (xf, ldf) = twins
+        ex, eld = check('fast-slow entry against model.inverse', got, want,
+                        TOL_X, TOL_LOGDET, d, n)
+        tx, tld = check('fast-slow entry against its chains\' twins', got,
+                        (torch.cat([xs, xf], dim=1), lds + ldf + ld_c),
+                        TOL_X, TOL_LOGDET, d, n)
+        dz = 0.3 * torch.randn(n, d, generator=g, device=device) * fast_only
+        moved = si.fast_slow_inverse(z + dz, packed)
+        torch.cuda.synchronize()
+        if not torch.equal(moved[0][:, :k], got[0][:, :k]):
+            raise AssertionError('fast-slow entry at n=%d: a fast-only move '
+                                 'changed x\'s slow dims' % n)
+        if torch.equal(moved[0][:, k:], got[0][:, k:]):
+            raise AssertionError('fast-slow entry at n=%d: a fast-only move '
+                                 'left x\'s fast dims as they were' % n)
+        entry.append({'d': d, 'num_slow': k, 'hidden': FAST_SLOW_HIDDEN,
+                      'n': n, 'launches': 2, 'vs_model_dx': ex,
+                      'vs_model_dlogdet': eld, 'vs_twins_dx': tx,
+                      'vs_twins_dlogdet': tld, 'slow_dims_bit_exact': True})
+    return held, entry
+
+
 def phase_kernel(records, earlier, earlier_pool):
     from nnest_torch.ops import spline_inverse as si
     from nnest_torch.ops.fused_spline import _inverse_body, pack_inverse_consts
@@ -724,6 +824,13 @@ def phase_kernel(records, earlier, earlier_pool):
             worst['x'], worst['ld'] = max(worst['x'], ex), max(worst['ld'],
                                                                eld)
 
+    # the fast-slow entry and its chains at the benchmark's mog30fs widths
+    held, fast_slow = fast_slow_checks(check)
+    cases += held
+    for case in held:
+        worst['x'] = max(worst['x'], case['max_abs_dx'])
+        worst['ld'] = max(worst['ld'], case['max_abs_dlogdet'])
+
     def shape_timing(d, n, per_block=False, hidden=None):
         hidden = hidden or hidden_for(d)
         model = random_flow(d, seed=200 + d, device=device, hidden=hidden)
@@ -793,7 +900,8 @@ def phase_kernel(records, earlier, earlier_pool):
         'bound_ms': pb['bound_ms'], 'bound_by': pb['bound_by'],
         'shape': 'd=16 hidden=32 K=8 blocks=3 N=256', 'shapes': per_block})
     return {'cases': cases, 'max_abs_dx': worst['x'],
-            'max_abs_dlogdet': worst['ld'], 'timings': timings,
+            'max_abs_dlogdet': worst['ld'], 'fast_slow': fast_slow,
+            'timings': timings,
             'per_block_timings': per_block, 'rows_sweep': sweep,
             'consume_pool': pool}
 
@@ -1474,8 +1582,11 @@ def evidence_run(name, log_dir, d, flow_kw, strategy):
 
 def phase_other_flows(log_dir):
     """NVP, Cholesky and fast-slow spline runs to their analytic evidence,
-    each with the counts reset just before and read just after: their
-    inverse is plain PyTorch, so neither the kernel nor its twin runs."""
+    each with the counts reset just before and read just after: the NVP
+    and Cholesky inverses are plain PyTorch, so neither the kernel nor its
+    twin runs; the fast-slow spline flow's chains run through the kernel
+    (``ops.spline_inverse.fast_slow_inverse``), so it launches, and its
+    twin never runs."""
     from nnest_torch.ops import fused_spline
     from nnest_torch.ops import spline_inverse as si
     runs = []
@@ -1487,9 +1598,12 @@ def phase_other_flows(log_dir):
         torch.cuda.synchronize()
         out.update({'launches': si.launches,
                     'twin_calls': fused_spline.calls})
-        if si.launches != 0 or fused_spline.calls != 0:
-            raise AssertionError('flow %r ran the spline kernel or its twin: '
-                                 '%s' % (flow, out))
+        if (si.launches > 0) != bool(kw) or fused_spline.calls != 0:
+            raise AssertionError('flow %r: spline kernel launches %d (want '
+                                 '%s), twin calls %d (want 0): %s' % (
+                                     flow, si.launches,
+                                     '> 0' if kw else '0',
+                                     fused_spline.calls, out))
         if out['mcmc_generations'] < 1 or out['trainings'] < 1:
             raise AssertionError('flow %r never trained or reached mcmc: %s'
                                  % (flow, out))

@@ -7,6 +7,11 @@ data-independent logdet ``-Σs - Σlog|S|``), so a chain step never solves a
 linear system. ``_inverse_body`` is the inverse on a batch with those
 constants: the CPU path of ``ops.spline_inverse`` and the plain twin the
 CUDA kernel is checked against.
+
+A fast-slow flow whose slow and fast chains both have the spline layout
+(:func:`is_fusable_fast_slow`) packs each chain the same way
+(:func:`pack_fast_slow_consts`), beside its combine coupling, which stays
+a module.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from nnest_torch.bijectors import ActNorm, Invertible1x1Conv, SplineCoupling
+from nnest_torch.flows.model import FastSlowFlowModel
 from nnest_torch.parallel.mesh import unshard
 
 # Calls of the plain twin since import (or since a caller reset it):
@@ -22,10 +28,9 @@ from nnest_torch.parallel.mesh import unshard
 calls = 0
 
 
-def is_fusable_spline(model) -> bool:
-    """True for single-speed spline chains: [ActNorm, Inv1x1Conv,
-    SplineCoupling] × blocks (the factory's 'spline' layout)."""
-    chain = getattr(model, 'chain', None)
+def _is_spline_chain(chain) -> bool:
+    """[ActNorm, Inv1x1Conv, SplineCoupling] × blocks (the factory's
+    'spline' layout)."""
     if chain is None:
         return False
     bijs = list(chain.bijectors)
@@ -37,14 +42,27 @@ def is_fusable_spline(model) -> bool:
                for i in range(0, len(bijs), 3))
 
 
+def is_fusable_spline(model) -> bool:
+    """True for single-speed spline chains: [ActNorm, Inv1x1Conv,
+    SplineCoupling] × blocks (the factory's 'spline' layout)."""
+    return _is_spline_chain(getattr(model, 'chain', None))
+
+
+def is_fusable_fast_slow(model) -> bool:
+    """True for a fast-slow flow whose slow and fast chains each have the
+    single-speed spline layout over two dims or more (a one-dim chain's
+    conditioner reads no input, a shape the kernel has never run)."""
+    return (isinstance(model, FastSlowFlowModel)
+            and all(_is_spline_chain(c) and c.bijectors[0].dim >= 2
+                    for c in (model.slow, model.fast)))
+
+
 @torch.no_grad()
-def pack_inverse_consts(model):
-    """Per block {s, t, winv, sc}, plus the constant logdet. ``sc`` is the
-    block's SplineCoupling module (its MLP weights are used as they are).
-    Under tensor parallelism the constants come from the whole weights,
-    gathered over the tp group once a packing (``parallel.unshard``), so
-    the inverse needs no collective."""
-    bijs = list(unshard(model).chain.bijectors)
+def pack_chain_consts(chain):
+    """Per block {s, t, winv, sc} of a spline-layout ``chain``, plus the
+    constant logdet. ``sc`` is the block's SplineCoupling module (its MLP
+    weights are used as they are)."""
+    bijs = list(chain.bijectors)
     blocks = []
     const_logdet = bijs[0].s.new_zeros(())
     for i in range(0, len(bijs), 3):
@@ -56,6 +74,24 @@ def pack_inverse_consts(model):
         blocks.append({'s': act.s.detach(), 't': act.t.detach(),
                        'winv': winv, 'sc': sc})
     return {'blocks': blocks, 'const_logdet': const_logdet}
+
+
+def pack_inverse_consts(model):
+    """:func:`pack_chain_consts` of a single-speed spline flow's chain.
+    Under tensor parallelism the constants come from the whole weights,
+    gathered over the tp group once a packing (``parallel.unshard``), so
+    the inverse needs no collective."""
+    return pack_chain_consts(unshard(model).chain)
+
+
+def pack_fast_slow_consts(model):
+    """A fast-slow spline flow's packing: ``slow`` and ``fast``, each
+    chain's :func:`pack_chain_consts`, the ``combine`` coupling module and
+    ``num_slow``."""
+    model = unshard(model)
+    return {'num_slow': model.num_slow, 'combine': model.combine,
+            'slow': pack_chain_consts(model.slow),
+            'fast': pack_chain_consts(model.fast)}
 
 
 @torch.no_grad()

@@ -10,6 +10,18 @@ which replaces the JAX package's Pallas TPU kernels
 twin ``ops.fused_spline._inverse_body``. There is no fallback between the
 two: a CUDA tensor launches the kernel or raises.
 
+``fast_slow_inverse(z, packed)`` is the hot inverse of a fast-slow flow
+whose two chains have the spline layout: the combine coupling's inverse in
+plain PyTorch, then the slow chain and the fast chain, each one launch of
+the same kernel (each chain's twin on a CPU tensor). ``nnest_tpu`` has no
+Pallas kernel for it: it stands for the JAX package's
+``FastSlowFlowModel.inverse`` (``nnest_tpu/flows/model.py``), which that
+package runs as plain XLA inside the chain steps. What bounds it is the
+kernel's latency twice (two launches of a 3-block chain, d 2 and d 28 at
+the upstream fast-slow example's widths) plus about thirty small plain
+launches of the combine coupling's two MLPs, its masks and the
+concatenation; not the operations, which are ~1e5 a row.
+
 The kernel source is compiled at first use with ``nvcc`` for ``sm_90a``
 into ``csrc/build/`` (one shared library per source hash, with the
 ``-Xptxas -v`` register/spill/shared-memory report kept beside it in a
@@ -31,7 +43,9 @@ import threading
 
 import torch
 
-from nnest_torch.ops.fused_spline import _inverse_body, pack_inverse_consts
+from nnest_torch.ops.fused_spline import (_inverse_body,
+                                          pack_fast_slow_consts,
+                                          pack_inverse_consts)
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc', 'spline_inverse.cu')
@@ -385,6 +399,39 @@ def fused_inverse_fn(model):
     call)."""
     packed = pack_inverse_consts(model)
     return lambda z: spline_inverse(z, packed)
+
+
+@torch.no_grad()
+def fast_slow_inverse(z, packed):
+    """A fast-slow spline flow's inverse ``z -> (x, logdet)`` with the
+    packing of ``ops.fused_spline.pack_fast_slow_consts``: the combine
+    coupling's inverse, then each chain's whole-chain inverse (one kernel
+    launch each for a CUDA tensor, each chain's twin for a CPU tensor),
+    concatenated, the three logdets summed as ``FastSlowFlowModel.inverse``
+    sums them (the chains' constant logdets inside theirs). The combine
+    coupling passes z's slow dims through unchanged and the kernel
+    computes each row on its own, so a latent move of the fast dims only
+    leaves x's slow dims bit for bit."""
+    global launches
+    k = packed['num_slow']
+    h, ld_c = packed['combine'].inverse(z)
+    out = []
+    for chain, v in ((packed['slow'], h[:, :k]), (packed['fast'], h[:, k:])):
+        if z.device.type == 'cpu':
+            out.append(_inverse_body(v, chain))
+        else:
+            out.append(_launch(v.contiguous(), chain, 0,
+                               len(chain['blocks']), True))
+            launches += 1
+    (x_s, ld_s), (x_f, ld_f) = out
+    return torch.cat([x_s, x_f], dim=1), ld_s + ld_f + ld_c
+
+
+def fast_slow_inverse_fn(model):
+    """The fast-slow spline flow's inverse through
+    :func:`fast_slow_inverse`, its chains' constants packed once, now."""
+    packed = pack_fast_slow_consts(model)
+    return lambda z: fast_slow_inverse(z, packed)
 
 
 def spline_inverse_per_block(z, packed):

@@ -26,7 +26,8 @@ in a deterministic body. Every flow inverse inside a step, and the one
 inverse of all trials of a flow-rejection or flow-density generation or of
 an ensemble's trajectory, goes through :meth:`LatentKernels._hot_inverse`,
 which for a single-speed spline flow on the GPU is the hand-written CUDA
-kernel (``ops/spline_inverse.py``).
+kernel (``ops/spline_inverse.py``), and for a fast-slow flow of two spline
+chains that kernel once a chain.
 
 On a card, without a mesh, and with the flat prior or the library's box
 prior, the Metropolis step loop replays CUDA graphs of the step's own
@@ -66,7 +67,8 @@ import torch
 
 from nnest_torch.ops import fused_spline
 from nnest_torch.ops.consume_pool import consume_pool
-from nnest_torch.ops.spline_inverse import fused_inverse_fn
+from nnest_torch.ops.spline_inverse import (fast_slow_inverse_fn,
+                                             fused_inverse_fn)
 from nnest_torch.parallel.mesh import (all_reduce_sum, batch_sharding,
                                        gather_columns, pad_rows, real_rows)
 from nnest_torch.priors import UniformPrior
@@ -182,6 +184,7 @@ class LatentKernels:
         self.num_slow = int(num_slow)
         self.oversample_rate = float(oversample_rate)
         self._fusable = fused_spline.is_fusable_spline(model)
+        self._fast_slow = fused_spline.is_fusable_fast_slow(model)
         # 1 on the fast dims, 0 on the slow ones: dz times this freezes
         # the slow block for a fast-only move.
         self._fast_mask = torch.ones(
@@ -199,15 +202,36 @@ class LatentKernels:
         return derived0
 
     def _hot_inverse(self):
-        """Flow inverse for use inside chain steps. For a single-speed
-        spline flow the parameter-only work (1x1-conv inverses, constant
-        logdet) is packed once per kernel invocation, and each call runs
-        the whole-chain inverse kernel; every other flow (NVP, Cholesky,
-        fast-slow) takes its own ``inverse`` in plain PyTorch, as in the
-        JAX package, where no Pallas kernel covers them."""
-        if not self._fusable:
-            return self.model.inverse
-        return fused_inverse_fn(self.model)
+        """Flow inverse for use inside chain steps, on one of three paths:
+
+        - ``spline``, a single-speed spline flow: the parameter-only work
+          (1x1-conv inverses, constant logdet) is packed once per kernel
+          invocation, and each call runs the whole-chain inverse kernel
+          (the JAX package's Pallas kernel ``pallas_inverse_from_consts``);
+        - ``fast_slow``, a fast-slow flow of two spline chains: both chains
+          packed once the same way, and each call runs the combine
+          coupling's inverse in plain PyTorch, then the kernel on the slow
+          chain and on the fast chain (``ops.spline_inverse.
+          fast_slow_inverse``). It stands for the JAX package's plain
+          ``FastSlowFlowModel.inverse``, which no Pallas kernel covers; two
+          launches and the coupling's ~30 small launches bound it;
+        - ``plain``, every other flow (NVP, Cholesky, a fast-slow NVP
+          flow): its own ``inverse`` in plain PyTorch, as in the JAX
+          package.
+
+        Each call of the returned callable counts once under the recorder's
+        ``hot_inverse`` counter, by path."""
+        if self._fusable:
+            path, inverse = 'spline', fused_inverse_fn(self.model)
+        elif self._fast_slow:
+            path, inverse = 'fast_slow', fast_slow_inverse_fn(self.model)
+        else:
+            path, inverse = 'plain', self.model.inverse
+
+        def hot_inverse(z):
+            count('hot_inverse', key=path)
+            return inverse(z)
+        return hot_inverse
 
     # ------------------------------------------------------------- MCMC
 

@@ -36,7 +36,11 @@ The program's counters: ``host_syncs`` (below); ``background_ns`` and
 ``background_jobs`` {key: n} (:func:`background`); ``mcmc_graph``
 {``graph_steps``, ``eager_steps``, ``captures``: n}, the Metropolis steps
 that replayed the step loop's CUDA graphs, the steps run eagerly, and the
-graphs captured (``samplers/kernels.py``).
+graphs captured (``samplers/kernels.py``); ``hot_inverse`` {``spline``,
+``fast_slow``, ``plain``: n}, the calls of the flow inverse that chain
+steps run (``LatentKernels._hot_inverse``) by the path each took: the
+spline kernel, the kernel once per chain of a fast-slow flow, or the
+flow's own plain ``inverse``.
 
 Recording is off by default. Off, :func:`span` returns one shared no-op
 context and :func:`count` returns at once: no clock is read and nothing is

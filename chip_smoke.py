@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs seventeen phases, printing one JSON line
+from JAX or ``nnest_tpu`` and runs eighteen phases, printing one JSON line
 per phase with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the builds
@@ -211,7 +211,22 @@ per phase with its seconds:
    its run's wall; (c) the kernel's logdet against
    ``nnest_torch.flows.testing.brute_force_logdet`` of the plain model
    (autograd on the card) at d = 2, hidden 16 and d = 16, hidden 32, N =
-   64 rows of N(0, 2^2), within rtol and atol 1e-3.
+   64 rows of N(0, 2^2), within rtol and atol 1e-3;
+18. training kernels: (a) the spline coupling's kernel pair
+   (``ops/spline_coupling.py``, ``csrc/spline_coupling.cu``) at the
+   benchmark cells' coupling halves (1, 8, 14 and 25 dims, K = 8) at 100
+   and 256 rows: y and the row logdet within the inverse kernel's 3e-5
+   and 3e-4 of the plain version, both gradients within 1e-4 of the
+   largest magnitude of float64 autograd's, two launches bit-equal;
+   each kernel timed by CUDA-graph replay and eagerly beside its bound,
+   the pair's forward and backward against the plain forward and the
+   plain forward and backward, by graph replay; (b) for the cells' three flows (d 16 and 50 at hidden 16, the
+   d 30 fast-slow flow with 2 slow dims), a captured training step at
+   batch 100 with the coupling's transform plain and fused, in turns: a
+   short training's ``train_step`` counter (all ``fused``, or all
+   ``plain``) and kernel launches (> 0 fused, 0 plain), the kernels one
+   replay runs by name, a replay's device time and an epoch's wall (1000
+   rows). Phase 3's training must launch the pair too.
 
 Depth cut to keep the script inside its time limit (widths and checks
 unchanged; old -> new): phase 2's plain-twin timing, 5 warm-up calls then
@@ -487,6 +502,7 @@ def phase_device(earlier):
     what each returns), one nvcc for each, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from nnest_torch.ops import consume_pool as cp
+    from nnest_torch.ops import spline_coupling as sc
     from nnest_torch.ops import spline_inverse as si
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -494,15 +510,17 @@ def phase_device(earlier):
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.time()
-    with ThreadPoolExecutor(2 + len(earlier)) as pool:
-        port = [pool.submit(m.load_library) for m in (si, cp)]
+    with ThreadPoolExecutor(3 + len(earlier)) as pool:
+        port = [pool.submit(m.load_library) for m in (si, cp, sc)]
         more = {name: pool.submit(make) for name, make in earlier.items()}
         for f in port:
             f.result()
         earlier.update({name: f.result() for name, f in more.items()})
     build_s = time.time() - t0
     ptxas = ptxas_report(si.build_log) + [
-        'consume_pool: ' + line.strip() for line in cp.build_log.splitlines()
+        '%s: %s' % (name, line.strip())
+        for name, m in (('consume_pool', cp), ('spline_coupling', sc))
+        for line in m.build_log.splitlines()
         if 'spill' in line or 'Used' in line]
     for line in ptxas:
         print(line, flush=True)
@@ -1170,6 +1188,11 @@ def phase_main_path(record, log_dir):
     timers = {k: v['total_s'] for k, v in sampler.timers.summary().items()}
     launches = read_counts('mcmc', pool_launched=True)
     record['launches_by_path']['mcmc'] = launches
+    from nnest_torch.ops import spline_coupling as sc
+    if sc.launches <= 0:
+        raise AssertionError('the main path\'s training never launched the '
+                             'spline coupling kernels')
+    COUPLING_LAUNCHES['mcmc'] = sc.launches
     stats = sampler.run_stats
     if stats['mcmc_generations'] < 3 or stats['trainings'] < 1:
         raise AssertionError('main path did not reach 3 MCMC generations '
@@ -1288,13 +1311,17 @@ def phase_correctness(log_dir):
 # consume_pool's launches by path (the first word of read_counts' path),
 # added up over the phases
 POOL_LAUNCHES = {}
+# the spline coupling pair's launches in phase 3's run (its trainings)
+COUPLING_LAUNCHES = {}
 
 
 def reset_counts():
     from nnest_torch.ops import consume_pool as cp
     from nnest_torch.ops import fused_spline
+    from nnest_torch.ops import spline_coupling as sc
     from nnest_torch.ops import spline_inverse as si
     si.launches = si.launches_per_block = 0
+    sc.launches = 0
     fused_spline.calls = 0
     cp.launches = cp.twin_calls = 0
 
@@ -3159,11 +3186,13 @@ def cold_turn_main(args):
     from nnest_torch import NestedSampler, runtime
     from nnest_torch.likelihoods import Gaussian
     from nnest_torch.ops import consume_pool as cp
+    from nnest_torch.ops import spline_coupling as sc
     from nnest_torch.ops import spline_inverse as si
     build = os.path.join(args.mesh_dir, 'build')
-    # consume_pool binds the spline module's BUILD_DIR by name at import
-    si.BUILD_DIR = cp.BUILD_DIR = runtime.BUILD_DIR = build
-    modules = {'spline_inverse': si, 'consume_pool': cp, 'runtime': runtime}
+    # the kernels build into the spline module's BUILD_DIR (its build())
+    si.BUILD_DIR = runtime.BUILD_DIR = build
+    modules = {'spline_inverse': si, 'consume_pool': cp,
+               'spline_coupling': sc, 'runtime': runtime}
     sampler = NestedSampler(2, Gaussian(2, 0.0, lim=3),
                             transform=lambda x: 3.0 * x,
                             num_live_points=100,
@@ -3374,6 +3403,248 @@ def phase_prewarm_trace_oracle(record, log_dir, main):
     return out
 
 
+# phase 18's shapes: the benchmark cells' flows (portbench/configs: spline
+# chains at hidden 16, K = 8, a fast-slow flow with 2 slow dims at d = 30)
+# and their training batch; a coupling half has 1, 8, 14 or 25 dims (100
+# rows a training step and a validation, 256 the Metropolis starts)
+TRAIN_FLOWS = (('gauss16', 16, 0), ('gauss50', 50, 0), ('mog30fs', 30, 2))
+TRAIN_BATCH, TRAIN_ROWS, TRAIN_EPOCHS = 100, 1000, 20
+COUPLING_HALVES = (1, 8, 14, 25)
+COUPLING_ROWS = (100, 256)
+COUPLING_BINS, COUPLING_BOUND = 8, 3.0
+
+
+def coupling_cost(rows, n, k, backward=False):
+    """(operations, bytes) of the spline coupling's transform of one half
+    (rows x n values, K = k bins), forward or backward, as the function is
+    defined (each exp, log, log1p, division, comparison and select one):
+
+    - forward, a value: the knots' two normalisations as the inverse's
+      (``rqs_inverse_ops``: 32K - 18), the K + 2 comparisons and clamp, the
+      bin's width, height and slope (3), the two derivatives (26), theta
+      and its clamp (4), the value and the log-derivative (31); then the
+      row sum, one add a value: 33K + 45;
+    - backward, a value: the forward again, then the RQS body's gradient
+      (~60), the two sides' reverse cumulative sums and two softmax
+      gradients each (16K) and the interior derivatives' chain (26 (K - 1)):
+      75K + 79.
+
+    Bytes: raw (3K - 1 a value) and x read once, y and the row logdet
+    written once; backward also reads dL/dy and dL/dlogdet and writes
+    d raw and d x."""
+    per = 3 * k - 1
+    if backward:
+        return (rows * n * (75 * k + 79),
+                4 * (rows * n * (2 * per + 3) + rows))
+    return rows * n * (33 * k + 45), 4 * (rows * n * (per + 2) + rows)
+
+
+def coupling_inputs(rows, n, k, seed):
+    """Raw outputs at an MLP's scale and x ~ N(0, 2^2) with rows in both
+    tails and at -B and B; dL/dy and dL/dlogdet ~ N(0, 1)."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    raw = 0.7 * torch.randn(rows, n * (3 * k - 1), generator=g,
+                            device='cuda')
+    x = 2.0 * torch.randn(rows, n, generator=g, device='cuda')
+    x[0], x[1], x[2], x[3] = 3.5, -4.0, COUPLING_BOUND, -COUPLING_BOUND
+    gy = torch.randn(rows, n, generator=g, device='cuda')
+    gl = torch.randn(rows, generator=g, device='cuda')
+    return raw, x, gy, gl
+
+
+def coupling_kernel_turns():
+    """Part (a): the kernel pair at every half-shape the cells train and
+    start chains with, checked (y and the row logdet within ``TOL_X`` and
+    ``TOL_LOGDET`` of the plain version, the inverse kernel's allowances;
+    both gradients within 1e-4 of the largest magnitude of float64
+    autograd's; two launches bit-equal) and timed: each kernel by CUDA-graph replay and eagerly,
+    the plain forward and the plain forward + backward by graph replay,
+    the pair's forward + backward the same way, beside the bound."""
+    from nnest_torch.ops import spline_coupling as sc
+    k, b = COUPLING_BINS, COUPLING_BOUND
+    out = []
+    for n in COUPLING_HALVES:
+        for rows in COUPLING_ROWS:
+            raw, x, gy, gl = coupling_inputs(rows, n, k, 100 * n + rows)
+            y_p, ld_p = sc.coupling_rqs_plain(raw, x, k, b)
+            y_k, ld_k = sc.forward_kernel(raw, x, k, b)
+            graw, gx = sc.backward_kernel(raw, x, gy, gl, k, b)
+            again = sc.forward_kernel(raw, x, k, b) + \
+                sc.backward_kernel(raw, x, gy, gl, k, b)
+            r64 = raw.double().requires_grad_()
+            x64 = x.double().requires_grad_()
+            y64, l64 = sc.coupling_rqs_plain(r64, x64, k, b)
+            w_raw, w_x = torch.autograd.grad(
+                torch.sum(y64 * gy.double()) + torch.sum(l64 * gl.double()),
+                (r64, x64))
+            torch.cuda.synchronize()
+            rec = {'rows': rows, 'n': n, 'bins': k,
+                   'max_dy': float((y_k - y_p).abs().max()),
+                   'max_dlogdet': float((ld_k - ld_p).abs().max()),
+                   'kernel_logdet_off_f64': float(
+                       (ld_k.double() - l64.detach()).abs().max()),
+                   'plain_logdet_off_f64': float(
+                       (ld_p.double() - l64.detach()).abs().max()),
+                   'graw_rel': float((graw.double() - w_raw).abs().max()
+                                     / w_raw.abs().max()),
+                   'gx_rel': float((gx.double() - w_x).abs().max()
+                                   / w_x.abs().max()),
+                   'bit_equal': all(torch.equal(u, v) for u, v in
+                                    zip((y_k, ld_k, graw, gx), again))}
+            if not (rec['max_dy'] <= TOL_X and rec['max_dlogdet'] <= TOL_LOGDET
+                    and rec['graw_rel'] <= 1e-4 and rec['gx_rel'] <= 1e-4
+                    and rec['bit_equal']):
+                raise AssertionError('spline coupling kernel pair off its '
+                                     'plain version: %s' % rec)
+
+            def pair(fn):
+                def run():
+                    r = raw.detach().requires_grad_()
+                    v = x.detach().requires_grad_()
+                    y, ld = fn(r, v, k, b)
+                    return torch.autograd.grad(
+                        torch.sum(y * gy) + torch.sum(ld * gl), (r, v))
+                return run
+
+            for name, fn, cost in (
+                    ('forward', lambda: sc.forward_kernel(raw, x, k, b),
+                     coupling_cost(rows, n, k)),
+                    ('backward',
+                     lambda: sc.backward_kernel(raw, x, gy, gl, k, b),
+                     coupling_cost(rows, n, k, backward=True))):
+                rec[name + '_ms'] = graph_time_ms(fn)
+                rec[name + '_eager_ms'] = cuda_time_ms(fn)
+                rec[name + '_bound_ms'], rec[name + '_bound'] = bound_ms(
+                    *cost)
+            rec['pair_ms'] = graph_time_ms(pair(sc._CouplingRQS.apply),
+                                           calls=5)
+            rec['plain_forward_ms'] = graph_time_ms(
+                lambda: sc.coupling_rqs_plain(raw, x, k, b), calls=5)
+            rec['plain_pair_ms'] = graph_time_ms(
+                pair(sc.coupling_rqs_plain), calls=5)
+            out.append(rec)
+            print('phase 18 (a): %d x %d: forward %.5f ms (bound %.6f), '
+                  'backward %.5f ms (bound %.6f), pair %.4f ms against '
+                  'plain %.4f ms' % (rows, n, rec['forward_ms'],
+                                     rec['forward_bound_ms'],
+                                     rec['backward_ms'],
+                                     rec['backward_bound_ms'],
+                                     rec['pair_ms'], rec['plain_pair_ms']),
+                  flush=True)
+    return out
+
+
+def train_step_turns():
+    """Part (b): for each cell's flow, a captured training step (forward,
+    backward, Adam at batch 100) with the coupling's transform plain and
+    fused, in turns (plain, fused, fused, plain): the kernels one replay
+    runs, by name, from the profiler; a replay's device time by CUDA
+    events; an epoch's wall as the cells' trainer runs it (1000 rows: 9
+    steps and the validation); and a short training's launches and
+    ``train_step`` counter. The plain turns put
+    ``coupling_rqs_plain`` in ``coupling_rqs``'s place, which the card
+    otherwise never runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnest_torch import Trainer
+    from nnest_torch.ops import spline_coupling as sc
+    from nnest_torch.utils.profiling import recording
+    fused_fn = sc.coupling_rqs
+    out = {}
+    try:
+        for name, d, num_slow in TRAIN_FLOWS:
+            g = torch.Generator().manual_seed(d)
+            data = torch.randn(TRAIN_ROWS, d, generator=g).numpy()
+            res = {'plain': [], 'fused': []}
+            for mode in ('plain', 'fused', 'fused', 'plain'):
+                sc.coupling_rqs = (sc.coupling_rqs_plain if mode == 'plain'
+                                   else fused_fn)
+                t = Trainer(d, hidden_dim=16, num_slow=num_slow,
+                            batch_size=TRAIN_BATCH, log=False, seed=d,
+                            device='cuda')
+                launches = sc.launches
+                with recording() as rec:
+                    t.train(data, max_iters=2, patience=50)
+                torch.cuda.synchronize()
+                counted = dict(rec.counters.get('train_step', {}))
+                launched = sc.launches - launches
+                if counted != {mode: 2 * 9} or (launched > 0) != (
+                        mode == 'fused'):
+                    raise AssertionError(
+                        '%s %s training: train_step %s, %d launches'
+                        % (name, mode, counted, launched))
+                step = t._graphed_step(TRAIN_BATCH, 0.0)
+                batch = torch.randn(TRAIN_BATCH, d, device='cuda')
+                w = torch.ones(TRAIN_BATCH, device='cuda')
+                step(batch, w)
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(50):
+                    step(batch, w)
+                end.record()
+                end.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        step(batch, w)
+                    torch.cuda.synchronize()
+                by_name = {}
+                for e in prof.events():
+                    if e.device_type == DeviceType.CUDA:
+                        by_name[e.name] = by_name.get(e.name, 0) + 1
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.train(data, max_iters=TRAIN_EPOCHS, patience=10 ** 6)
+                torch.cuda.synchronize()
+                epoch_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_EPOCHS
+                top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+                res[mode].append({
+                    'launches_in_training': launched,
+                    'train_step_counter': counted,
+                    # a replay's launches: the step's copies in, the graph
+                    # and the loss's clone out
+                    'kernels_a_step': sum(by_name.values()) / 5,
+                    'coupling_kernels_a_step': sum(
+                        v for k_, v in by_name.items()
+                        if 'coupling_' in k_) / 5,
+                    'step_ms': start.elapsed_time(end) / 50,
+                    'epoch_ms': epoch_ms,
+                    'top': [{'name': k_[:80], 'a_step': v / 5}
+                            for k_, v in top]})
+            out[name] = res
+            print('phase 18 (b): %s: kernels a step plain %s, fused %s; '
+                  'step ms plain %s, fused %s; epoch ms plain %s, fused %s'
+                  % (name, [r['kernels_a_step'] for r in res['plain']],
+                     [r['kernels_a_step'] for r in res['fused']],
+                     ['%.4f' % r['step_ms'] for r in res['plain']],
+                     ['%.4f' % r['step_ms'] for r in res['fused']],
+                     ['%.2f' % r['epoch_ms'] for r in res['plain']],
+                     ['%.2f' % r['epoch_ms'] for r in res['fused']]),
+                  flush=True)
+    finally:
+        sc.coupling_rqs = fused_fn
+    return out
+
+
+def phase_train_kernels(record):
+    """Phase 18: (a) the spline coupling's kernel pair checked and timed
+    at the cells' half-shapes, (b) a captured training step's kernels and
+    times, plain against fused, for the cells' three flows."""
+    from nnest_torch.ops import spline_coupling as sc
+    before = sc.launches
+    t0 = time.time()
+    out = {'a': coupling_kernel_turns()}
+    out['a_seconds'] = time.time() - t0
+    t0 = time.time()
+    out['b'] = train_step_turns()
+    out['b_seconds'] = time.time() - t0
+    record['launches_by_path']['training'] = sc.launches - before
+    return out
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3424,6 +3695,11 @@ def main():
          'source': 'nnest_torch/csrc/consume_pool.cu',
          'replaces': 'nnest_tpu/samplers/kernels.py:708',
          'launches': None, 'library_ms': None, 'launches_by_path': {}},
+        # no TPU kernel behind it: the JAX package trains in plain XLA
+        {'name': 'spline_coupling', 'route': 'cuda',
+         'source': 'nnest_torch/csrc/spline_coupling.cu',
+         'replaces': None, 'launches': None, 'library_ms': None,
+         'launches_by_path': {'mcmc': 0, 'training': 0}},
     ]
     outputs = {}
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as log_dir:
@@ -3461,15 +3737,18 @@ def main():
                     records[0], log_dir, outputs)),
                 (17, 'prewarm_trace_oracle',
                  lambda: phase_prewarm_trace_oracle(records[0], log_dir,
-                                                    outputs[3]))):
+                                                    outputs[3])),
+                (18, 'train_kernels',
+                 lambda: phase_train_kernels(records[3]))):
             t0 = time.time()
             out = outputs[num] = fn()
             emit({'phase': num, 'name': name,
                   'seconds': time.time() - t0, **out})
     records[2]['launches_by_path'] = dict(POOL_LAUNCHES)
+    records[3]['launches_by_path'].update(COUPLING_LAUNCHES)
     for rec in records:
         # launches on the paths that drive the kernel (phases 3, 5, 6, 8,
-        # 10, 11, 12, 13, 14, 15, 16, 17)
+        # 10, 11, 12, 13, 14, 15, 16, 17; the coupling pair's: 3 and 18)
         rec['launches'] = sum(rec['launches_by_path'].values())
     emit({'kernels': records})
     emit({'ok': True, 'device': {'platform': 'gpu',

@@ -45,6 +45,18 @@ def _edges(unnormalized, B, min_size):
     return edges, edges[..., 1:] - edges[..., :-1]
 
 
+def conditioner_knots(out, num_bins, tail_bound):
+    """The spline coupling's pre-normalisation of its conditioner's output
+    (..., 3K - 1), the reference's double normalisation: ``2B softmax`` of
+    the K widths and K heights and ``softplus`` of the K - 1 interior
+    derivatives, which :func:`rqs` then normalises again."""
+    K, B = num_bins, tail_bound
+    W, H, D = out[..., :K], out[..., K:2 * K], out[..., 2 * K:]
+    W = 2.0 * B * F.softmax(W, dim=-1)
+    H = 2.0 * B * F.softmax(H, dim=-1)
+    return W, H, softplus(D)
+
+
 def knots(unnormalized_widths, unnormalized_heights, tail_bound,
           min_bin_width=DEFAULT_MIN_BIN_WIDTH,
           min_bin_height=DEFAULT_MIN_BIN_HEIGHT):

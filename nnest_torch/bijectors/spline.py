@@ -12,16 +12,20 @@ half. Kept exactly:
 - the reference's double normalisation: the conditioner output is
   ``2B * softmax`` (widths, heights) and ``softplus`` (derivatives) before
   the RQS normalises again.
+
+The forward's transform of each half is ``ops.spline_coupling.coupling_rqs``:
+this plain code for a CPU tensor, a hand-written CUDA kernel pair (forward
+and backward) for a CUDA tensor. The inverse stays plain here; the hot
+inverse has its own kernel (``ops/spline_inverse.py``).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from nnest_torch.bijectors.base import Bijector
 from nnest_torch.bijectors.mlp import MLP
-from nnest_torch.bijectors.rqs import rqs, softplus
+from nnest_torch.bijectors.rqs import conditioner_knots, rqs
 
 
 class SplineCoupling(Bijector):
@@ -47,23 +51,18 @@ class SplineCoupling(Bijector):
 
     def knots(self, net, cond, n_dims):
         """Conditioner → (W, H, D) with the reference's pre-normalization."""
-        K, B = self.num_bins, self.tail_bound
-        out = net(cond).reshape(cond.shape[0], n_dims, 3 * K - 1)
-        W, H, D = out[..., :K], out[..., K:2 * K], out[..., 2 * K:]
-        W = 2.0 * B * F.softmax(W, dim=-1)
-        H = 2.0 * B * F.softmax(H, dim=-1)
-        return W, H, softplus(D)
+        out = net(cond).reshape(cond.shape[0], n_dims, 3 * self.num_bins - 1)
+        return conditioner_knots(out, self.num_bins, self.tail_bound)
 
     def forward(self, x):
+        # imported here: nnest_torch.ops imports this package
+        from nnest_torch.ops.spline_coupling import coupling_rqs
         lower, upper = self._split(x)
-        W, H, D = self.knots(self.f1, lower, upper.shape[1])
-        upper, ld1 = rqs(upper, W, H, D, inverse=False,
-                         tail_bound=self.tail_bound)
-        W, H, D = self.knots(self.f2, upper, lower.shape[1])
-        lower, ld2 = rqs(lower, W, H, D, inverse=False,
-                         tail_bound=self.tail_bound)
-        logdet = torch.sum(ld1, dim=-1) + torch.sum(ld2, dim=-1)
-        return torch.cat([lower, upper], dim=1), logdet
+        upper, ld1 = coupling_rqs(self.f1(lower), upper, self.num_bins,
+                                  self.tail_bound)
+        lower, ld2 = coupling_rqs(self.f2(upper), lower, self.num_bins,
+                                  self.tail_bound)
+        return torch.cat([lower, upper], dim=1), ld1 + ld2
 
     def inverse(self, z):
         lower, upper = self._split(z)

@@ -24,14 +24,12 @@ as ``ops/spline_inverse.py`` builds its kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 
 import torch
 
-from nnest_torch.ops.spline_inverse import BUILD_DIR, NVCC_FLAGS, _find_nvcc
+from nnest_torch.ops.spline_inverse import BUILD_DIR, build
 
 SOURCE = os.path.join(os.path.dirname(BUILD_DIR), 'consume_pool.cu')
 
@@ -52,24 +50,7 @@ def load_library():
     with _lock:
         if _lib is not None:
             return _lib
-        with open(SOURCE, 'rb') as f:
-            tag = hashlib.sha256(
-                f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, 'libconsume_pool_%s.so' % tag)
-        log_path = so + '.log'
-        if not (os.path.exists(so) and os.path.exists(log_path)):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = '%s.%d.tmp' % (so, os.getpid())
-            proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, '-o', tmp,
-                                   SOURCE], capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError('nvcc failed (exit %d):\n%s%s' % (
-                    proc.returncode, proc.stdout, proc.stderr))
-            with open(log_path, 'w') as f:
-                f.write(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
-        with open(log_path) as f:
-            build_log = f.read()
+        so, build_log = build(SOURCE, 'consume_pool')
         _lib = bind(so)
         return _lib
 

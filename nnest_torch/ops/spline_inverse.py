@@ -227,30 +227,40 @@ def _find_nvcc():
                        'cannot be built')
 
 
+def build(source, stem):
+    """Compile ``source`` with ``nvcc`` into ``BUILD_DIR/lib<stem>_<hash>.so``
+    unless that library (one per hash of the source and the flags) and its
+    log are there; returns the library's path and nvcc's output, the
+    ``-Xptxas -v`` report included. Each process writes a file of its own
+    and renames it into place, so concurrent builds never see half a
+    library."""
+    with open(source, 'rb') as f:
+        tag = hashlib.sha256(
+            f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, 'lib%s_%s.so' % (stem, tag))
+    log_path = so + '.log'
+    if not (os.path.exists(so) and os.path.exists(log_path)):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = '%s.%d.tmp' % (so, os.getpid())
+        proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, '-o', tmp, source],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError('nvcc failed (exit %d):\n%s%s' % (
+                proc.returncode, proc.stdout, proc.stderr))
+        with open(log_path, 'w') as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, so)
+    with open(log_path) as f:
+        return so, f.read()
+
+
 def load_library():
     """Build (once per source hash) and load the kernel library."""
     global _lib, build_log
     with _lock:
         if _lib is not None:
             return _lib
-        with open(SOURCE, 'rb') as f:
-            tag = hashlib.sha256(
-                f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, 'libspline_inverse_%s.so' % tag)
-        log_path = so + '.log'
-        if not (os.path.exists(so) and os.path.exists(log_path)):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = '%s.%d.tmp' % (so, os.getpid())
-            proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, '-o', tmp,
-                                   SOURCE], capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError('nvcc failed (exit %d):\n%s%s' % (
-                    proc.returncode, proc.stdout, proc.stderr))
-            with open(log_path, 'w') as f:
-                f.write(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
-        with open(log_path) as f:
-            build_log = f.read()
+        so, build_log = build(SOURCE, 'spline_inverse')
         lib = ctypes.CDLL(so)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nnest_spline_inverse.argtypes = (

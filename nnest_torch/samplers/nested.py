@@ -267,18 +267,19 @@ class NestedSampler(Sampler):
         removed afterwards) on fresh samplers built from this sampler's
         constructor arguments, its likelihood and transform. Pass the
         ``run_kwargs`` you will pass to ``run()``. On a GPU the libraries a
-        run loads at first use (the two kernels' and the host runtime's)
+        run loads at first use (the three kernels' and the host runtime's)
         are built first, side by side, one ``nvcc`` or ``g++`` process
         each, where the throwaway runs would build them one after another
-        (the spline kernel's too when the flow does not use it).
+        (the spline kernels' too when the flow does not use them).
 
         What carries over to this sampler's ``run()``: the kernel
-        libraries, built by ``nvcc`` (the spline inverse, ``consume_pool``)
-        and ``g++`` (the host runtime) into the build directory and loaded
-        in this process; the CUDA context, the cuBLAS handle and the
-        caching allocator's pool, for the process. What does not: each
-        ``Trainer`` captures its own CUDA graphs of the training step, and
-        each flow packs its own kernel constants.
+        libraries, built by ``nvcc`` (the spline inverse, ``consume_pool``,
+        the spline coupling's training pair) and ``g++`` (the host runtime)
+        into the build directory and loaded in this process; the CUDA
+        context, the cuBLAS handle and the caching allocator's pool, for
+        the process. What does not: each ``Trainer`` captures its own CUDA
+        graphs of the training step, and each flow packs its own kernel
+        constants.
 
         This sampler is untouched: its generator and counters are not
         drawn from or advanced, and no global torch generator is used, so
@@ -323,11 +324,13 @@ class NestedSampler(Sampler):
         if self.device.type == 'cuda':
             from concurrent.futures import ThreadPoolExecutor
 
-            from nnest_torch.ops import consume_pool, spline_inverse
+            from nnest_torch.ops import (consume_pool, spline_coupling,
+                                         spline_inverse)
             t0 = time.time()
-            with ThreadPoolExecutor(3) as pool:
+            with ThreadPoolExecutor(4) as pool:
                 for job in [pool.submit(m.load_library) for m in (
-                        spline_inverse, consume_pool, runtime)]:
+                        spline_inverse, consume_pool, spline_coupling,
+                        runtime)]:
                     job.result()
             self.logger.info('Kernel and runtime libraries ready in %.1f s'
                              % (time.time() - t0))

@@ -62,13 +62,17 @@ makes (spline, NVP, Cholesky, fast-slow):
   transport API; the model file and the plots are made from the whole
   flow, gathered on every rank (``parallel.unshard``), by rank 0.
 
-Training is the flow's forward plus autograd in plain PyTorch, and the
-transport API the flow's plain ``forward`` and ``inverse``; the JAX package
-runs both in plain XLA too, with no hand-written kernel. ``epoch_chunk``
-and ``use_gpu`` are accepted and change nothing, as in ``nnest_tpu``;
-``device`` decides placement. Unlike ``nnest_tpu``, whose default
-``log_dir`` is ``'logs/test'``, a trainer built without a ``log_dir``
-writes nothing.
+Training is the flow's forward plus autograd in PyTorch, and the transport
+API the flow's ``forward`` and plain ``inverse``; the JAX package runs both
+in plain XLA, with no hand-written kernel. On a card each spline coupling's
+transform in the forward, and its backward, is a hand-written CUDA kernel
+pair (``ops/spline_coupling.py``), recorded into the step's graph like the
+rest; the CPU runs the plain code. The recorder's counter ``train_step``
+{``fused``, ``plain``} counts each step by the path its forward took.
+``epoch_chunk`` and ``use_gpu`` are accepted and change nothing, as in
+``nnest_tpu``; ``device`` decides placement. Unlike ``nnest_tpu``, whose
+default ``log_dir`` is ``'logs/test'``, a trainer built without a
+``log_dir`` writes nothing.
 """
 
 from __future__ import annotations
@@ -87,6 +91,7 @@ import torch
 from nnest_torch.flows import build_flow
 from nnest_torch.flows.convert import (param_tensors, params_from_jax,
                                        params_to_jax)
+from nnest_torch.ops import spline_coupling
 from nnest_torch.parallel.mesh import (all_reduce_sum, shard_batch,
                                        shard_params, unshard)
 from nnest_torch.parallel.sharded import (dp_backward, dp_rows, l2_term,
@@ -94,6 +99,13 @@ from nnest_torch.parallel.sharded import (dp_backward, dp_rows, l2_term,
 from nnest_torch.utils.device import resolve_device
 from nnest_torch.utils.logger import create_logger
 from nnest_torch.utils.profiling import count
+
+
+def _path(launches_before):
+    """'fused' where the spline coupling's kernels launched since
+    ``launches_before``, else 'plain'."""
+    return ('fused' if spline_coupling.launches != launches_before
+            else 'plain')
 
 
 def mean_nn_distance(x):
@@ -367,10 +379,15 @@ class Trainer:
         else:
             step = (self._graphed_step(bs, l2_norm) if self._use_graphs
                     else lambda x, w: self._step(x, w, l2_norm))
+        # the path a step's forward took: fixed at capture for a graph,
+        # seen step by step for an eager one
+        path = getattr(step, 'path', None)
         train_loss = 0.0
         for b in range(nb):
+            before = spline_coupling.launches
             train_loss = train_loss + step(epoch[b] + jitter * noise[b],
                                            weights[b])
+            count('train_step', key=path or _path(before))
         return train_loss / nb, float(self._validation_loss(valid,
                                                             shard_valid))
 
@@ -399,7 +416,7 @@ class Trainer:
         key = (int(bs), float(l2_norm))
         if key not in self._graphs:
             self._graphs[key] = self._capture(int(bs), float(l2_norm))
-        static_x, static_w, static_nll, graph = self._graphs[key]
+        static_x, static_w, static_nll, graph, path = self._graphs[key]
 
         def step(batch, w):
             static_x.copy_(batch)
@@ -407,18 +424,23 @@ class Trainer:
             graph.replay()
             return static_nll.clone()
 
+        step.path = path
         return step
 
     def _capture(self, bs, l2_norm):
-        """Warm up and capture one training step (:meth:`_warmed_up`)."""
+        """Warm up and capture one training step (:meth:`_warmed_up`), with
+        the path its forward took: 'fused' where the capture launched the
+        spline coupling's kernels (``ops/spline_coupling.py``), else
+        'plain'."""
         static_x = torch.zeros(bs, self.x_dim, device=self.device)
         static_w = torch.ones(bs, device=self.device)
         graph = torch.cuda.CUDAGraph()
         with self._warmed_up(lambda: self._step(static_x, static_w,
                                                 l2_norm)):
+            before = spline_coupling.launches
             with torch.cuda.graph(graph, capture_error_mode='thread_local'):
                 static_nll = self._step(static_x, static_w, l2_norm)
-        return static_x, static_w, static_nll, graph
+        return static_x, static_w, static_nll, graph, _path(before)
 
     @contextlib.contextmanager
     def _warmed_up(self, step):
@@ -461,8 +483,8 @@ class Trainer:
         key = ('dp', int(bs), float(l2_norm))
         if key not in self._graphs:
             self._graphs[key] = self._capture_dp(int(bs), float(l2_norm))
-        static_x, static_w, static_wt, flat, reduced, graph_a, graph_b = \
-            self._graphs[key]
+        static_x, static_w, static_wt, flat, reduced, graph_a, graph_b, \
+            path = self._graphs[key]
 
         def step(batch, w):
             rows, w_rows = dp_rows(self.mesh, batch, w)
@@ -474,6 +496,7 @@ class Trainer:
             graph_b.replay()
             return reduced[-1].clone()
 
+        step.path = path
         return step
 
     def _capture_dp(self, bs, l2_norm):
@@ -504,12 +527,15 @@ class Trainer:
 
         graph_a, graph_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         with self._warmed_up(lambda: update(backward())):
+            before = spline_coupling.launches
             with torch.cuda.graph(graph_a, capture_error_mode='thread_local'):
                 flat = backward()
+            path = _path(before)
             reduced = torch.zeros_like(flat)
             with torch.cuda.graph(graph_b, capture_error_mode='thread_local'):
                 update(reduced)
-        return static_x, static_w, static_wt, flat, reduced, graph_a, graph_b
+        return (static_x, static_w, static_wt, flat, reduced, graph_a,
+                graph_b, path)
 
     # --------------------------------------------------------- persistence
 

@@ -40,7 +40,10 @@ graphs captured (``samplers/kernels.py``); ``hot_inverse`` {``spline``,
 ``fast_slow``, ``plain``: n}, the calls of the flow inverse that chain
 steps run (``LatentKernels._hot_inverse``) by the path each took: the
 spline kernel, the kernel once per chain of a fast-slow flow, or the
-flow's own plain ``inverse``.
+flow's own plain ``inverse``; ``train_step`` {``fused``, ``plain``: n}, the
+trainer's steps by the path their forward took: the spline coupling's
+kernel pair (``ops/spline_coupling.py``; a graph's path fixed at its
+capture) or the plain code (``training/trainer.py``).
 
 Recording is off by default. Off, :func:`span` returns one shared no-op
 context and :func:`count` returns at once: no clock is read and nothing is

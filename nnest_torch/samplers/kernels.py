@@ -85,6 +85,26 @@ def sanitize_log_density(lp):
     return torch.clamp(lp, min=LOG_NEG)
 
 
+def trial_ladder(n_ok, trials_target, adapt_trials, can_double, can_halve):
+    """The rejection strategies' trial ladder, for the host's loop
+    (``samplers/nested.py``) and the batch runners' replica
+    (:meth:`LatentKernels._ladder_window_update`) alike. A generation that
+    passed ``n_ok`` candidates moves the power-of-two trial count toward
+    ``trials_target`` candidates a generation as the shell shrinks: it
+    doubles below half of it and halves above twice it (with
+    ``adapt_trials``, where ``can_double`` or ``can_halve`` allows), and it
+    pushes its likelihood calls per candidate min(max(n_ok, 1), 5) times
+    onto the efficiency window, so that the expiry averages several
+    generations. Returns (``'double'``, ``'halve'`` or None, pushes)."""
+    move = None
+    if adapt_trials:
+        if n_ok < trials_target // 2 and can_double:
+            move = 'double'
+        elif n_ok > trials_target * 2 and can_halve:
+            move = 'halve'
+    return move, min(max(n_ok, 1), 5)
+
+
 def _accept_mask(u, log_ratio):
     """Metropolis accept on given uniforms ``u``: u < exp(min(lr, 0))."""
     return u < torch.exp(torch.clamp(log_ratio, max=0.0))
@@ -909,12 +929,11 @@ class LatentKernels:
     def _ladder_window_update(n_ok, nc, wvals, wcount, expiry_thr,
                               trials_target, adapt_trials, can_double,
                               can_halve):
-        """The rejection batch runners' replica of the host's integer
-        trial ladder and ``ncs`` efficiency window (``samplers/nested.py``,
-        the block after a rejection generation): a change to one must be
-        mirrored in the other. ``wvals`` is the window's last 20 values as
+        """The rejection batch runners' replica of the host's ``ncs``
+        efficiency window, with the trial ladder's decisions from
+        :func:`trial_ladder`. ``wvals`` is the window's last 20 values as
         float32, a ring keyed on the absolute push index ``wcount``; a
-        generation pushes ``nc`` min(max(n_ok, 1), 5) times. The expiry
+        generation pushes ``nc`` as many times as the ladder says. The expiry
         proxy is the ring's float32 sum, added in index order and times
         float32(0.05), the arithmetic XLA gives ``nnest_tpu``'s ``sum / 20``;
         it must stay below ``expiry_thr`` (0.9 x the host's float64
@@ -925,13 +944,9 @@ class LatentKernels:
         nc = np.float32(nc)
         wvals = np.array(wvals, dtype=np.float32)
         wcount = int(wcount)
-        ladder = False
-        if adapt_trials:
-            if can_double:
-                ladder = ladder or n_ok < trials_target // 2
-            if can_halve:
-                ladder = ladder or n_ok > 2 * trials_target
-        for _ in range(min(max(n_ok, 1), 5)):
+        move, pushes = trial_ladder(n_ok, trials_target, adapt_trials,
+                                    can_double, can_halve)
+        for _ in range(pushes):
             wvals[wcount % 20] = nc
             wcount += 1
         proxy = np.float32(0.0)
@@ -940,7 +955,8 @@ class LatentKernels:
             for v in wvals:
                 total = np.float32(total + v)
             proxy = np.float32(total * np.float32(0.05))
-        return bool(ladder or proxy > np.float32(expiry_thr)), wvals, wcount
+        return (move is not None or bool(proxy > np.float32(expiry_thr)),
+                wvals, wcount)
 
     @staticmethod
     def _host_ints(*tensors):

@@ -127,6 +127,8 @@ import logging
 import os
 import re
 import time
+import types
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -134,6 +136,7 @@ import torch
 from nnest_torch import runtime
 from nnest_torch.priors import UniformPrior
 from nnest_torch.samplers.base import Sampler
+from nnest_torch.samplers.kernels import trial_ladder
 from nnest_torch.utils.evaluation import (adjusted_logzerr,
                                           bootstrap_logz_error, insertion_ks,
                                           latent_cond_null,
@@ -193,6 +196,138 @@ def _check_sync(kind, g_it, g_loglstar, it, loglstar, g_trials=None,
             '%s generation prefetch desync: device (it=%d, loglstar=%r, '
             'trials=%s) vs host (it=%d, loglstar=%r, trials=%s)' % (
                 kind, g_it, g_loglstar, g_trials, it, host, trials))
+
+
+@dataclass
+class _RunState:
+    """What the evidence loop carries from one iteration to the next, made
+    by :meth:`NestedSampler._fresh_state` or, on resume,
+    :meth:`NestedSampler._load_one_checkpoint`. A checkpoint holds its
+    arrays and evidence, and :meth:`controller` and :meth:`pool_state` in
+    its exact state, which :meth:`restore` takes back."""
+
+    # the live set
+    active_u: np.ndarray
+    active_v: np.ndarray
+    active_logl: np.ndarray
+    active_derived: np.ndarray
+    # the dead rows; saved_slots and saved_u are None when a checkpoint's
+    # were short or absent (no bootstrap error, no saved_u)
+    saved_v: list = field(default_factory=list)
+    saved_logl: list = field(default_factory=list)
+    saved_logwt: list = field(default_factory=list)
+    saved_slots: list | None = field(default_factory=list)
+    saved_u: list | None = field(default_factory=list)
+    insertion_ranks: list = field(default_factory=list)
+    # the evidence; accept_point: the worst point was replaced, so the
+    # next iteration records a death
+    it: int = 0
+    logz: float = -1e300
+    h: float = 0.0
+    logvol: float = 0.0
+    fraction_remain: float = 1.0
+    accept_point: bool = True
+    # the strategy ladder's controller: current_method is None until
+    # start() where no checkpoint's controller gave it; envelope is the
+    # flow-rejection envelope (max_log_det_j, max_r) such a controller
+    # carried, which the sampler holds while it runs
+    current_method: str | None = None
+    expired: list = field(default_factory=list)
+    first_time: bool = True
+    last_trained_it: int = -1
+    env_gens: int = 0   # flow-rejection generations since the envelope
+    ncs: list = field(default_factory=list)
+    mean_calls: float = 0.0
+    mcmc_scale: float = 0.0
+    cur_trials: int = 0
+    last_io_it: int = 0   # iteration of the last checkpoint
+    envelope: tuple | None = None
+    # the pool being consumed and the prefetched generations: Metropolis or
+    # slice (entries of Sampler._gens_to_buffer), prior and flow rejection
+    # (dicts of NestedSampler._compact_rejection_gen)
+    need_pool: bool = True
+    pool: dict | None = None
+    pool_pos: int = 0
+    mcmc_buf: list = field(default_factory=list)
+    prior_buf: list = field(default_factory=list)
+    flow_buf: list = field(default_factory=list)
+
+    def start(self, strategy, step_size, trials):
+        """The controller's start where no checkpoint gave one."""
+        if self.current_method is None:
+            self.ladder(strategy, trials)
+            self.mcmc_scale = step_size
+            self.last_io_it = self.it
+
+    def ladder(self, strategy, trials):
+        """The strategy ladder: the first method not expired. A new one
+        takes a fresh pool and the first rung of the trial ladder."""
+        method = next(m for m in strategy if m not in self.expired)
+        if method != self.current_method:
+            self.current_method = method
+            self.need_pool = True
+            self.cur_trials = int(trials)
+
+    def kill(self, i, logvol):
+        """Live point ``i`` dies at log prior volume ``logvol``: the
+        evidence and ``h`` take its weight, and the dead rows its v (then
+        its derived values, if any), logl, weight, slot (the thread lineage
+        the bootstrap error resamples) and u."""
+        v, derived, logl = (self.active_v[i], self.active_derived[i],
+                            self.active_logl[i])
+        logwt = logvol + logl
+        logz_new = np.logaddexp(self.logz, logwt)
+        self.h = (np.exp(logwt - logz_new) * logl
+                  + np.exp(self.logz - logz_new) * (self.h + self.logz)
+                  - logz_new)
+        self.logz = logz_new
+        self.saved_v.append(np.concatenate((v, derived)) if derived.size
+                            else np.array(v, copy=True))
+        self.saved_logwt.append(logwt)
+        self.saved_logl.append(logl)
+        if self.saved_slots is not None:
+            self.saved_slots.append(i)
+        if self.saved_u is not None:
+            self.saved_u.append(np.array(self.active_u[i]))
+
+    def controller(self, max_log_det_j, max_r):
+        """The exact state's ``controller``, with the sampler's envelope."""
+        return {
+            'current_method': self.current_method,
+            'expired': list(self.expired),
+            'first_time': bool(self.first_time),
+            'last_trained_it': int(self.last_trained_it),
+            'env_gens': int(self.env_gens),
+            'max_log_det_j': (None if max_log_det_j is None
+                              else float(max_log_det_j)),
+            'max_r': None if max_r is None else float(max_r),
+            'ncs': [float(x) for x in self.ncs],
+            'mean_calls': float(self.mean_calls),
+            'mcmc_scale': float(self.mcmc_scale),
+            'cur_trials': int(self.cur_trials),
+            'last_io_it': int(self.last_io_it),
+        }
+
+    def pool_state(self):
+        """The exact state's ``pool``."""
+        return {'need_pool': bool(self.need_pool), 'pool': self.pool,
+                'pool_pos': int(self.pool_pos),
+                'mcmc_buf': list(self.mcmc_buf),
+                'prior_buf': list(self.prior_buf),
+                'flow_buf': list(self.flow_buf)}
+
+    def restore(self, controller, pool):
+        """Take a bit-exact checkpoint's ``controller`` and ``pool``: the
+        ladder, envelope and proposal state and the pool as the
+        uninterrupted run had them. Checkpoints written before the prefetch
+        have no buffers."""
+        self.envelope = (controller['max_log_det_j'], controller['max_r'])
+        for name, value in {**controller, **pool}.items():
+            if name not in ('max_log_det_j', 'max_r'):
+                setattr(self, name, value)
+        self.mcmc_buf = [(g[0], g[1], g[2],
+                          None if g[3] is None else torch.as_tensor(g[3]))
+                         for g in self.mcmc_buf]
 
 
 class NestedSampler(Sampler):
@@ -420,210 +555,38 @@ class NestedSampler(Sampler):
         again;
         ``birth_floor`` the batch's birth threshold (recorded in
         ``threads.npz``); ``logl_ceiling`` ends the run once every live
-        point exceeds it."""
-        if birth_floor is not None:
-            self._birth_floor = float(birth_floor)
-        if strategy is None or len(strategy) == 0:
-            strategy = ['rejection_prior', 'mcmc']
-        unknown = [m for m in strategy if m not in _METHODS]
-        if unknown:
-            raise ValueError('unknown strategy method(s) %s; choose from %s'
-                             % (unknown, list(_METHODS)))
-        if mcmc_adapt not in ('cov', 'iso'):
-            raise ValueError("mcmc_adapt must be 'cov' or 'iso'")
-        for name, value in (('mcmc_gen_batch', mcmc_gen_batch),
-                            ('rejection_gen_batch', rejection_gen_batch)):
-            if not isinstance(value, (int, np.integer)) or \
-                    isinstance(value, bool) or value < 1:
-                raise ValueError('%s must be an integer >= 1, got %r'
-                                 % (name, value))
-        if not isinstance(mcmc_speculate, (bool, np.bool_)):
-            raise ValueError('mcmc_speculate must be a bool, got %r'
-                             % (mcmc_speculate,))
+        point exceeds it.
 
-        if update_interval is None:
-            update_interval = max(1, round(0.5 * self.num_live_points))
-        else:
-            update_interval = round(update_interval)
-            if update_interval < 1:
-                raise ValueError('update_interval must be >= 1')
-        if log_interval is None:
-            log_interval = max(1, round(0.2 * self.num_live_points))
-        else:
-            log_interval = round(log_interval)
-            if log_interval < 1:
-                raise ValueError('log_interval must be >= 1')
-        if mcmc_num_chains is None:
-            # 10 chains (the reference default) on the CPU; a GPU batches
-            # wider chain sets for the same wall time.
-            mcmc_num_chains = (10 if self.device.type == 'cpu'
-                               else (256 if self.x_dim >= 8 else 128))
-        if mcmc_steps <= 0:
-            mcmc_steps = 5 * self.x_dim
-            if self.x_dim >= 40:
-                # The JAX package measured a +0.08-nat evidence systematic
-                # on the 50-D Gaussian at 5*d steps that vanishes at 10*d
-                # (BENCHMARKS.md round 5); logzerr_adjusted covers it.
-                self.logger.info(
-                    'mcmc_steps defaulted to 5*x_dim = %d. At x_dim >= '
-                    '~40 this budget leaves a measured ~+0.1-nat '
-                    'evidence systematic (endpoint-start correlation; '
-                    'BENCHMARKS.md round 5) — mcmc_steps=%d removes it '
-                    'at 2x the likelihood cost.'
-                    % (mcmc_steps, 10 * self.x_dim))
-        if step_size <= 0.0:
-            step_size = 1.0 / self.x_dim ** 0.5
-        if slice_steps <= 0:
-            # one slice move decorrelates along one latent direction: ~2
-            # passes over the basis
-            slice_steps = 2 * self.x_dim
-        if slice_adapt not in ('cov', 'iso'):
-            raise ValueError("slice_adapt must be 'cov' or 'iso'")
-        # Likelihood calls per accept of the downstream kernel when it is
-        # 'slice': each step pays ~1 shrink hit and up to max_expand
-        # stepping-out probes. The rejection phases expire past it.
-        slice_calls = slice_steps * (1 + slice_max_expand)
-        # Speculation wins only through the NLL retrain gate: without one
-        # every boundary retrains and voids what was prefetched past it.
-        mcmc_speculate = bool(mcmc_speculate
-                              and retrain_nll_threshold is not None)
-        rejection_max_trials = max(int(rejection_max_trials),
-                                   rejection_batch_size)
-        self.logger.info('MCMC steps [%d]' % mcmc_steps)
-        self.logger.info('Initial scale [%5.4f]' % step_size)
-        self.logger.info('Volume switch [%5.4f]' % volume_switch)
-
+        An iteration of the evidence loop (the ``loop`` span) runs the
+        phases on the :class:`_RunState`: :meth:`_record_dead`, the
+        strategy ladder, :meth:`_maybe_retrain`, :meth:`_refill_pool`,
+        :meth:`_replace_worst` and :meth:`_advance`; then :meth:`_finish`."""
+        # the options as one namespace, which the phases read
+        opts = types.SimpleNamespace(**locals())
+        del opts.self
+        self._resolve_options(opts)
         # a previous run() of this sampler may still be writing
         self._drain_io()
-        state = self._load_checkpoint()
-        if state is not None and init_points is not None:
+        st = self._load_checkpoint()
+        resumed = st is not None
+        if resumed and opts.init_points is not None:
             raise ValueError(
                 'init_points is for fresh dynamic batch runs; this log_dir '
                 'has a resumable checkpoint (use resume=False or a fresh '
                 'log_dir)')
-        if state is not None:
-            it = state['it']
-            active_u, active_v = state['active_u'], state['active_v']
-            active_logl = state['active_logl']
-            active_derived = state['active_derived']
-            saved_v, saved_logl = state['saved_v'], state['saved_logl']
-            saved_logwt, saved_slots = state['saved_logwt'], state['slots']
-            saved_u = state['saved_u']
-            logz, h = state['logz'], state['h']
-            logvol, fraction_remain = state['logvol'], state['fraction_remain']
-            expired = list(state['expired'])
-            controller, pool_state = state['controller'], state['pool']
-            insertion_ranks = list(state['insertion_ranks'])
+        if resumed:
             self.logger.info('Resumed from checkpoint [%d]%s' % (
-                it, ' (bit-exact)' if controller is not None else ''))
+                st.it, '' if st.current_method is None else ' (bit-exact)'))
+            if st.envelope is not None:
+                self._max_log_det_j, self._max_r = st.envelope
         else:
-            if init_points is not None:
-                # A dynamic batch: live points the caller refreshed (and
-                # paid the likelihood calls of) within {logl > birth_floor}.
-                active_u = np.array(init_points['u'], dtype=np.float64)
-                if active_u.shape != (self.num_live_points, self.x_dim):
-                    raise ValueError(
-                        'init_points u must be (num_live_points, x_dim)')
-                active_v = np.array(init_points['v'] if 'v' in init_points
-                                    else self.transform(active_u),
-                                    dtype=np.float64)
-                active_logl = np.array(init_points['logl'], dtype=np.float64)
-                active_derived = np.array(
-                    init_points['derived'] if 'derived' in init_points
-                    else np.zeros((self.num_live_points, self.num_derived)),
-                    dtype=np.float64).reshape(self.num_live_points, -1)
-                if not np.all(active_logl > self._birth_floor):
-                    raise ValueError('init_points logl must all exceed '
-                                     'birth_floor')
-            else:
-                active_u = np.asarray(self._user_prior.sample(
-                    self.num_live_points), dtype=np.float64)
-                active_v = self.transform(active_u)
-                active_logl, active_derived = self.loglike(active_u)
-            self.logger.info('Step [0] max logl [%5.4e] vol [1.0] ncalls '
-                             '[%d]' % (np.max(active_logl), self.total_calls))
-            saved_v, saved_logl, saved_logwt, saved_slots = [], [], [], []
-            saved_u = []
-            h = 0.0
-            logz = -1e300
-            logvol = float(np.log(1.0 - np.exp(-1.0 / self.num_live_points)))
-            fraction_remain = 1.0
-            it = 0
-            expired = []
-            controller = pool_state = None
-            insertion_ranks = []
+            st = self._fresh_state(opts.init_points)
+        st.start(opts.strategy, opts.step_size, opts.rejection_batch_size)
         # fresh mixing history per run() call
         for name in ('_mix_ratios', '_mix_ratios_eig', '_latent_conds',
                      '_mix_rels', '_cond_rels', '_cond_infl'):
             setattr(self, name, [])
-
-        current_method = next(m for m in strategy if m not in expired)
-        first_time = True
-        last_trained_it = -1
-        need_pool = True
-        pool = None
-        pool_pos = 0
-        # prefetched generations: Metropolis or slice (buffer entries of
-        # Sampler._gens_to_buffer), prior and flow rejection (compact dicts
-        # of _compact_rejection_gen)
-        mcmc_buf, prior_buf, flow_buf = [], [], []
         self._spec_losses = 0
-        env_gens = 0   # flow-rejection generations since the envelope
-        ncs = []
-        mean_calls = 0.0
-        mcmc_scale = step_size
-        accept_point = True
-        cur_trials = int(rejection_batch_size)
-        trials_target = max(16, self.num_live_points // 8)
-        last_io_it = it   # iteration of the last checkpoint
-        if controller is not None:
-            # Bit-exact resume: the ladder, envelope and proposal state as
-            # the uninterrupted run had it when the checkpoint was written.
-            current_method = controller['current_method']
-            first_time = controller['first_time']
-            last_trained_it = controller['last_trained_it']
-            env_gens = controller['env_gens']
-            self._max_log_det_j = controller['max_log_det_j']
-            self._max_r = controller['max_r']
-            ncs = list(controller['ncs'])
-            mean_calls = controller['mean_calls']
-            mcmc_scale = controller['mcmc_scale']
-            cur_trials = controller['cur_trials']
-            last_io_it = controller['last_io_it']
-        if pool_state is not None:
-            need_pool = pool_state['need_pool']
-            pool = pool_state['pool']
-            pool_pos = pool_state['pool_pos']
-            # checkpoints written before the prefetch have no buffers
-            mcmc_buf = [(g[0], g[1], g[2],
-                         None if g[3] is None else torch.as_tensor(g[3]))
-                        for g in pool_state.get('mcmc_buf', [])]
-            prior_buf = list(pool_state.get('prior_buf', []))
-            flow_buf = list(pool_state.get('flow_buf', []))
-
-        def controller_snapshot():
-            return {
-                'current_method': current_method,
-                'expired': list(expired),
-                'first_time': bool(first_time),
-                'last_trained_it': int(last_trained_it),
-                'env_gens': int(env_gens),
-                'max_log_det_j': (None if self._max_log_det_j is None
-                                  else float(self._max_log_det_j)),
-                'max_r': None if self._max_r is None else float(self._max_r),
-                'ncs': [float(x) for x in ncs],
-                'mean_calls': float(mean_calls),
-                'mcmc_scale': float(mcmc_scale),
-                'cur_trials': int(cur_trials),
-                'last_io_it': int(last_io_it),
-            }
-
-        def pool_snapshot():
-            return {'need_pool': bool(need_pool), 'pool': pool,
-                    'pool_pos': int(pool_pos), 'mcmc_buf': list(mcmc_buf),
-                    'prior_buf': list(prior_buf),
-                    'flow_buf': list(flow_buf)}
-
         # counts, and host wall seconds of the phases (each ends in a device
         # to host copy, so the clock covers the device work)
         self.run_stats = {'trainings': 0, 'retrains_skipped': 0,
@@ -636,443 +599,500 @@ class NestedSampler(Sampler):
             if method not in ('mcmc', 'slice'):
                 # trial count -> [generations, candidates passed]
                 self.run_stats[stem + '_by_trials'] = {}
-
-        def checkpoint():
-            if self.logs is None:
-                return
-            with self.timers.time('checkpoint_io') as phase:
-                self._write_checkpoint(
-                    it, active_u, active_v, active_logl, active_derived,
-                    saved_v, saved_logl,
-                    saved_logwt, saved_slots, saved_u, logz, h, logvol,
-                    fraction_remain, strategy, expired, controller_snapshot(),
-                    pool_snapshot(), insertion_ranks)
-            self.run_stats['checkpoint_s'] += phase.seconds
-            self.run_stats['checkpoints'] += 1
-
-        if state is None:
-            checkpoint()
-
-        pbar = None
-        if show_progress and self.single_or_primary_process:
-            try:
+        if not resumed:
+            self._checkpoint(st, opts.strategy)
+        if opts.show_progress and self.single_or_primary_process:
+            with contextlib.suppress(ImportError):   # no tqdm, no bar
                 from tqdm import tqdm
-            except ImportError:
-                tqdm = None
-            if tqdm is not None:
-                pbar = self._run_pbar = tqdm(initial=it, unit='it',
-                                             desc='nested',
-                                             dynamic_ncols=True)
+                self._run_pbar = tqdm(initial=st.it, unit='it',
+                                      desc='nested', dynamic_ncols=True)
 
-        # closed after the loop; on an exception the run span closes it
-        loop = span('loop')
-        loop.__enter__()
-        while fraction_remain > dlogz and it <= max_iters and (
-                logl_ceiling is None
-                or float(np.min(active_logl)) <= logl_ceiling):
-            worst = int(np.argmin(active_logl))
-            logwt = logvol + active_logl[worst]
-            loglstar = float(active_logl[worst])
-            expected_vol = np.exp(-it / self.num_live_points)
-
-            if accept_point:
-                # Evidence and information update.
-                logz_new = np.logaddexp(logz, logwt)
-                h = (np.exp(logwt - logz_new) * active_logl[worst]
-                     + np.exp(logz - logz_new) * (h + logz) - logz_new)
-                logz = logz_new
-                saved_v.append(self._saved_row(active_v[worst],
-                                               active_derived[worst]))
-                saved_logwt.append(logwt)
-                saved_logl.append(active_logl[worst])
-                if saved_slots is not None:
-                    # The live-set slot of each death: the thread lineage
-                    # the bootstrap error resamples.
-                    saved_slots.append(worst)
-                if saved_u is not None:
-                    saved_u.append(np.array(active_u[worst], copy=True))
-                accept_point = False
-
-            # Strategy ladder: the first method not expired.
-            old_method = current_method
-            current_method = next(m for m in strategy if m not in expired)
-            if current_method != old_method:
-                need_pool = True
-                cur_trials = int(rejection_batch_size)
-            # The downstream within-shell kernel ('mcmc' or 'slice'; the
-            # first not expired) and its likelihood calls per accept.
-            mcmc_like = next((m for m in strategy if m in ('mcmc', 'slice')
-                              and m not in expired), None)
-            switch_calls = (slice_calls if mcmc_like == 'slice'
-                            else mcmc_steps)
-
-            if current_method != 'rejection_prior' and (
-                    first_time or (it % update_interval == 0
-                                   and it != last_trained_it)):
-                last_trained_it = it
-                # Conditional retrain: the latent kernels are exact for any
-                # fixed flow, so when the flow still fits the live set (mean
-                # NLL within retrain_nll_threshold of the last training's
-                # best validation NLL) the retrain is skipped. The < 1e29
-                # guard excludes the trainer's "never improved" sentinel.
-                retrain = True
-                if (not first_time and retrain_nll_threshold is not None
-                        and self.trainer.best_validation_loss is not None
-                        and self.trainer.best_validation_loss < 1e29):
-                    with self.timers.time('retrain_check'):
-                        nll_now = -float(np.mean(self.trainer.log_probs(
-                            active_u.astype(np.float32), to_numpy=True)))
-                    retrain = not (nll_now < self.trainer.best_validation_loss
-                                   + retrain_nll_threshold)
-                if retrain:
-                    if mcmc_buf:
-                        # A lost speculation: the buffered generations were
-                        # made with the flow this retrain replaces, where
-                        # one generation a dispatch would make them after
-                        # it. Drop them and set the generator back to the
-                        # first one's state, so they are made again from
-                        # the same numbers. The generation being consumed
-                        # stays: that route made it before the retrain too.
-                        state0 = mcmc_buf[0][3]
-                        if state0 is None:
-                            raise RuntimeError(
-                                'prefetched generations span a retrain '
-                                'boundary but carry no generator state (a '
-                                'batch run without speculation; did '
-                                'update_interval change across a resume?)')
-                        self._rewind_generator(state0)
-                        self._spec_losses += len(mcmc_buf)
-                        mcmc_buf = []
-                    epochs0 = getattr(self.trainer, 'total_iters', 0)
-                    with self.timers.time('flow_train') as phase:
-                        self.trainer.train(active_u.astype(np.float32),
-                                           max_iters=train_iters,
-                                           jitter=jitter)
-                    self.run_stats['train_s'] += phase.seconds
-                    self.run_stats['trainings'] += 1
-                    self.run_stats['train_epochs'] += getattr(
-                        self.trainer, 'total_iters', 0) - epochs0
-                    first_time = False
-                    # The envelope is a function of the flow: a retrain
-                    # invalidates it.
-                    self._max_log_det_j = None
-                else:
-                    self.run_stats['retrains_skipped'] += 1
-
-            if need_pool:
-                stem = _STAT_KEY[current_method]
-                # closed after the refill, as the loop span is
-                refill = timed('pool', method=current_method)
-                refill.__enter__()
-                if current_method in ('mcmc', 'slice'):
-                    is_slice = current_method == 'slice'
-                    adapt_cov = (slice_adapt if is_slice
-                                 else mcmc_adapt) == 'cov'
-                    # 'mcmc' and 'slice' share the buffer: neither
-                    # expires, so only the first in the strategy runs.
-                    use_batch = self.mesh is None and mcmc_gen_batch > 1
-                    if use_batch and not mcmc_buf:
-                        use_batch = _f32_exact(active_logl)
-                    if use_batch and not mcmc_buf:
-                        self.run_stats[stem + '_dispatches'] += 1
-                        if is_slice:
-                            mcmc_buf = self._slice_generations_batch(
-                                slice_steps, active_u, active_logl,
-                                active_derived, mcmc_num_chains,
-                                slice_width, it, update_interval,
-                                mcmc_gen_batch, max_expand=slice_max_expand,
-                                max_shrink=slice_max_shrink,
-                                speculate=mcmc_speculate,
-                                adapt_cov=adapt_cov)
-                        else:
-                            mcmc_buf = self._mcmc_generations_batch(
-                                mcmc_steps, active_u, active_logl,
-                                active_derived, mcmc_num_chains, step_size,
-                                it, update_interval, mcmc_gen_batch,
-                                dynamic_step_size=mcmc_dynamic_step_size,
-                                speculate=mcmc_speculate,
-                                adapt_cov=adapt_cov)
-                    if use_batch and mcmc_buf:
-                        out, g_lstar, g_it, _ = mcmc_buf.pop(0)
-                        _check_sync(current_method, g_it, g_lstar, it,
-                                    loglstar)
-                        u_f, logl_f, d_f, moved, mcmc_scale, _, _ = \
-                            self._consume_endpoint_out(
-                                out,
-                                mix_null=(
-                                    slice_mix_null(slice_steps, self.x_dim)
-                                    if is_slice else metropolis_mix_null(
-                                        mcmc_steps, self.x_dim,
-                                        adapt_cov=adapt_cov)),
-                                cond_null=latent_cond_null(
-                                    self.x_dim, mcmc_num_chains),
-                                cond_inflates=not is_slice)
-                    elif is_slice:
-                        self.run_stats[stem + '_dispatches'] += 1
-                        u_f, logl_f, d_f, moved, mcmc_scale, _, _ = \
-                            self._slice_sample_live(
-                                slice_steps, active_u, active_logl,
-                                mcmc_num_chains, loglstar, slice_width,
-                                max_expand=slice_max_expand,
-                                max_shrink=slice_max_shrink,
-                                adapt_cov=adapt_cov,
-                                active_derived=active_derived)
-                    else:
-                        self.run_stats[stem + '_dispatches'] += 1
-                        u_f, logl_f, d_f, moved, mcmc_scale, _, _ = \
-                            self._mcmc_sample_live(
-                                mcmc_steps, active_u, active_logl,
-                                mcmc_num_chains, loglstar, step_size,
-                                dynamic_step_size=mcmc_dynamic_step_size,
-                                adapt_cov=adapt_cov,
-                                active_derived=active_derived)
-                    # Chain endpoints are the candidates: a chain that
-                    # never moved contributes nothing.
-                    pool = {'u': u_f[moved], 'logl': logl_f[moved],
-                            'derived': d_f[moved],
-                            'stats': self._last_kernel_stats}
-                else:
-                    # The rejection batch runners stop before any
-                    # generation the host might not run next (module
-                    # docstring); the gate and the buffers as for 'mcmc'.
-                    served = False
-                    use_batch = (self.mesh is None and rejection_gen_batch > 1
-                                 and current_method != 'density_flow')
-                    buf = (prior_buf if current_method == 'rejection_prior'
-                           else flow_buf)
-                    if use_batch and not buf:
-                        use_batch = _f32_exact(active_logl)
-                    can_double = cur_trials * 2 <= rejection_max_trials
-                    can_halve = cur_trials >= 2 * rejection_batch_size
-                    max_gens = min(rejection_gen_batch,
-                                   max(1, 2 ** 18 // cur_trials))
-                    recompute = (self._max_log_det_j is None
-                                 or env_gens >= rejection_cache_interval)
-                    if use_batch and not buf:
-                        self.run_stats[stem + '_dispatches'] += 1
-                        if current_method == 'rejection_prior':
-                            # two iterations before the volume switch can
-                            # fire; the expiry proxy at 0.9x its threshold
-                            it_stop = (int(np.ceil(-self.num_live_points
-                                                   * np.log(volume_switch)))
-                                       - 2 if volume_switch > 0 else 2 ** 30)
-                            thr = (0.9 * switch_calls
-                                   if volume_switch < 0
-                                   and mcmc_like is not None
-                                   else np.float32(1e30))
-                            gens = self._rejection_prior_generations_batch(
-                                active_u, active_logl, active_derived, it,
-                                it_stop, ncs, thr, trials_target, cur_trials,
-                                max_gens, rejection_adapt_trials, can_double,
-                                can_halve)
-                        else:
-                            thr = (0.9 * switch_calls
-                                   if mcmc_like is not None
-                                   else np.float32(1e30))
-                            env_valid = self._max_log_det_j is not None
-                            gens = self._rejection_flow_generations_batch(
-                                active_u, active_logl, active_derived, it,
-                                update_interval, ncs, thr, trials_target,
-                                env_valid, env_gens,
-                                self._max_log_det_j if env_valid else 0.0,
-                                self._max_r if env_valid else 0.0,
-                                rejection_cache_interval,
-                                rejection_enlargement_factor, cur_trials,
-                                max_gens, rejection_adapt_trials,
-                                can_double, can_halve)
-                        buf.extend(self._compact_rejection_gen(
-                            out['x'], out['logl'],
-                            out.get('derived', np.zeros(
-                                (cur_trials, self.num_derived))),
-                            out['ok'], out.get('n_evals'), out.get('mld'),
-                            out.get('mr'), g_lstar, g_it, cur_trials)
-                            for out, g_lstar, g_it, _ in gens)
-                    if use_batch and buf:
-                        g = buf.pop(0)
-                        _check_sync(current_method, g['it'], g['loglstar'],
-                                    it, loglstar, g['trials'], cur_trials)
-                        nev = (g['trials'] if g['nev'] is None
-                               else g['nev'])
-                        if g['mld'] is not None:
-                            self._max_log_det_j = g['mld']
-                            self._max_r = g['mr']
-                        self.total_calls += nev
-                        nc = (nev / max(g['n_ok'], 1) if g['n_ok'] > 0
-                              else max(nev, 1))
-                        s, ll, ds = g['s'], g['ll'], g['ds']
-                        served = True
-                    elif current_method == 'rejection_prior':
-                        self.run_stats[stem + '_dispatches'] += 1
-                        with self.timers.time('candidate_kernel'):
-                            s, ll, ds, nc = self._rejection_prior_sample(
-                                loglstar, num_trials=cur_trials)
-                    elif current_method == 'rejection_flow':
-                        # A fresh envelope after a retrain or every
-                        # rejection_cache_interval generations; in between
-                        # the live set's values are max-folded into it.
-                        self.run_stats[stem + '_dispatches'] += 1
-                        with self.timers.time('candidate_kernel'):
-                            s, ll, ds, nc = self._rejection_flow_sample(
-                                active_u, loglstar, enlargement_factor=(
-                                    rejection_enlargement_factor),
-                                cache=not recompute, num_trials=cur_trials)
-                    else:
-                        self.run_stats[stem + '_dispatches'] += 1
-                        with self.timers.time('candidate_kernel'):
-                            s, ll, ds, nc = self._density_sample(
-                                loglstar, num_trials=cur_trials)
-                    rung = self.run_stats[stem + '_by_trials'].setdefault(
-                        cur_trials, [0, 0])
-                    rung[0] += 1
-                    rung[1] += int(s.shape[0])
-                    if current_method == 'rejection_flow':
-                        env_gens = 0 if recompute else env_gens + 1
-                    # The trial ladder and the efficiency window, mirrored
-                    # by LatentKernels._ladder_window_update: a change to
-                    # one must be made in the other.
-                    if rejection_adapt_trials:
-                        # Power-of-two trial ladder: keep candidates per
-                        # generation near trials_target as the shell
-                        # shrinks.
-                        n_ok = int(s.shape[0])
-                        if n_ok < trials_target // 2 and can_double:
-                            cur_trials *= 2
-                        elif n_ok > trials_target * 2 and can_halve:
-                            cur_trials //= 2
-                    # Efficiency window; each generation contributes at
-                    # most 5 entries so the switch averages several
-                    # generations.
-                    ncs.extend([nc] * min(max(s.shape[0], 1), 5))
-                    mean_calls = (float(np.mean(ncs[-20:])) if len(ncs) > 20
-                                  else 0.0)
-                    switch = (mean_calls > switch_calls
-                              and mcmc_like is not None)
-                    if current_method == 'rejection_prior':
-                        switch = (0 <= volume_switch > expected_vol) or (
-                            volume_switch < 0 and switch)
-                    if switch:
-                        self.logger.info('%s no longer efficient, switching '
-                                         'sampling method' % current_method)
-                        expired.append(current_method)
-                        ncs = []
-                    # The stop rules keep a batch from outrunning a ladder
-                    # or expiry decision; a leftover here would mean numbers
-                    # drawn for generations this route would not run.
-                    if served and buf and (switch
-                                           or buf[0]['trials'] != cur_trials):
-                        raise RuntimeError(
-                            'rejection generation prefetch outran a ladder '
-                            'or expiry decision (switch=%s, trials %d -> %d)'
-                            % (switch, buf[0]['trials'], cur_trials))
-                    pool = {'u': s, 'logl': ll, 'derived': ds}
-                refill.__exit__(None, None, None)
-                self.run_stats[stem + '_s'] += refill.seconds
-                self.run_stats[stem + '_generations'] += 1
-                pool_pos = 0
-                need_pool = False
-
-            # Consume the candidate pool: candidates in order against the
-            # current worst point; the first above it replaces it.
-            if pool is not None:
-                u = pool['u']
-                n_rows = u.shape[0]
-                while pool_pos < n_rows:
-                    ib = pool_pos
-                    pool_pos += 1
-                    if pool_pos == n_rows:
-                        need_pool = True
-                    if pool['logl'][ib] > loglstar:
-                        # Insertion rank of the replacement among the
-                        # surviving n_live - 1 points (the -1 excludes the
-                        # dead point): Uniform{0..n_live-1} under exact
-                        # constrained sampling.
-                        insertion_ranks.append(int(
-                            np.sum(active_logl < pool['logl'][ib])) - 1)
-                        active_u[worst] = u[ib, :]
-                        active_v[worst] = self.transform(active_u[worst])[0]
-                        active_logl[worst] = pool['logl'][ib]
-                        if self.num_derived:
-                            active_derived[worst] = pool['derived'][ib]
-                        accept_point = True
-                        break
-                if n_rows == 0:
-                    need_pool = True
-
-            if accept_point:
-                # Shrink the prior volume; termination on the remaining
-                # evidence fraction.
-                logvol -= 1.0 / self.num_live_points
-                logz_remain = np.max(active_logl) - it / self.num_live_points
-                fraction_remain = np.logaddexp(logz, logz_remain) - logz
-                it += 1
-                if pbar is not None:
-                    pbar.update(1)
-                    if it % log_interval == 0:
-                        pbar.set_postfix(logz='%.3f' % logz,
-                                         loglstar='%.3g' % loglstar,
-                                         ncall=self.total_calls,
-                                         refresh=False)
-                if getattr(self.trainer, 'writes_events', False):
-                    # the values bound now: the writer may run this later
-                    self._submit_io(lambda v=float(logz), step=it:
-                                    self.trainer.log_scalar('logz', v, step))
-                if it % log_interval == 0:
-                    self.logger.info(
-                        'Step [%d] loglstar [%5.4e] maxlogl [%5.4e] logz '
-                        '[%5.4e] vol [%6.5e] ncalls [%d] scale [%5.4f] mean '
-                        'calls [%5.4f]' % (
-                            it, loglstar, np.max(active_logl), logz,
-                            expected_vol, self.total_calls, mcmc_scale,
-                            mean_calls))
-                    self._append_results_row(it, loglstar, logz,
-                                             fraction_remain, mcmc_scale,
-                                             pool)
-                    # Checkpoints are O(saved rows): spacing keyed to the
-                    # last write (~10% growth) keeps their total cost
-                    # O(n log n).
-                    if it - last_io_it >= max(log_interval,
-                                              last_io_it // 10):
-                        last_io_it = it
-                        checkpoint()
-                        if self.logs is not None:
-                            # fresh host arrays: the writer rewrites
-                            # chain.txt from them; the final write, after
-                            # the writer is closed, comes last
-                            self.samples = np.asarray(saved_v)
-                            self.weights = np.exp(np.asarray(saved_logwt)
-                                                  - logz)
-                            self.loglikes = np.asarray(saved_logl)
-                            with self.timers.time('chain_io'):
-                                self._submit_io(
-                                    lambda v=self.samples, ll=self.loglikes,
-                                    w=self.weights:
-                                    self._save_samples(v, ll, weights=w))
-
-        loop.__exit__(None, None, None)
-        if pbar is not None:
-            pbar.close()
+        with span('loop'):
+            while (st.fraction_remain > opts.dlogz
+                   and st.it <= opts.max_iters
+                   and (opts.logl_ceiling is None
+                        or float(np.min(st.active_logl))
+                        <= opts.logl_ceiling)):
+                worst, loglstar = self._record_dead(st)
+                st.ladder(opts.strategy, opts.rejection_batch_size)
+                self._maybe_retrain(st, opts)
+                if st.need_pool:
+                    self._refill_pool(st, opts, loglstar)
+                self._replace_worst(st, worst, loglstar)
+                if st.accept_point:
+                    self._advance(st, opts, loglstar)
+        if self._run_pbar is not None:
+            self._run_pbar.close()
             self._run_pbar = None
+        return self._finish(st)
+
+    def _resolve_options(self, opts):
+        """Check ``run()``'s options (a namespace), resolve their defaults
+        in place and add the values derived from them: ``slice_calls`` and
+        ``trials_target``."""
+        if opts.birth_floor is not None:
+            self._birth_floor = float(opts.birth_floor)
+        if opts.strategy is None or len(opts.strategy) == 0:
+            opts.strategy = ['rejection_prior', 'mcmc']
+        unknown = [m for m in opts.strategy if m not in _METHODS]
+        if unknown:
+            raise ValueError('unknown strategy method(s) %s; choose from %s'
+                             % (unknown, list(_METHODS)))
+        if opts.mcmc_adapt not in ('cov', 'iso'):
+            raise ValueError("mcmc_adapt must be 'cov' or 'iso'")
+        for name in ('mcmc_gen_batch', 'rejection_gen_batch'):
+            value = getattr(opts, name)
+            if not isinstance(value, (int, np.integer)) or \
+                    isinstance(value, bool) or value < 1:
+                raise ValueError('%s must be an integer >= 1, got %r'
+                                 % (name, value))
+        if not isinstance(opts.mcmc_speculate, (bool, np.bool_)):
+            raise ValueError('mcmc_speculate must be a bool, got %r'
+                             % (opts.mcmc_speculate,))
+        n, d = self.num_live_points, self.x_dim
+        for name, share in (('update_interval', 0.5), ('log_interval', 0.2)):
+            value = getattr(opts, name)
+            if value is None:
+                value = max(1, round(share * n))
+            elif round(value) < 1:
+                raise ValueError('%s must be >= 1' % name)
+            setattr(opts, name, round(value))
+        if opts.mcmc_num_chains is None:
+            # 10 chains (the reference default) on the CPU; a GPU batches
+            # wider chain sets for the same wall time.
+            opts.mcmc_num_chains = (10 if self.device.type == 'cpu'
+                                    else (256 if d >= 8 else 128))
+        if opts.mcmc_steps <= 0:
+            opts.mcmc_steps = 5 * d
+            if d >= 40:
+                # The JAX package measured a +0.08-nat evidence systematic
+                # on the 50-D Gaussian at 5*d steps that vanishes at 10*d
+                # (BENCHMARKS.md round 5); logzerr_adjusted covers it.
+                self.logger.info(
+                    'mcmc_steps defaulted to 5*x_dim = %d. At x_dim >= '
+                    '~40 this budget leaves a measured ~+0.1-nat '
+                    'evidence systematic (endpoint-start correlation; '
+                    'BENCHMARKS.md round 5) — mcmc_steps=%d removes it '
+                    'at 2x the likelihood cost.' % (opts.mcmc_steps, 10 * d))
+        if opts.step_size <= 0.0:
+            opts.step_size = 1.0 / d ** 0.5
+        if opts.slice_steps <= 0:
+            # one slice move decorrelates along one latent direction: ~2
+            # passes over the basis
+            opts.slice_steps = 2 * d
+        if opts.slice_adapt not in ('cov', 'iso'):
+            raise ValueError("slice_adapt must be 'cov' or 'iso'")
+        # Likelihood calls per accept of the downstream kernel when it is
+        # 'slice': each step pays ~1 shrink hit and up to max_expand
+        # stepping-out probes. The rejection phases expire past it.
+        opts.slice_calls = opts.slice_steps * (1 + opts.slice_max_expand)
+        # Speculation wins only through the NLL retrain gate: without one
+        # every boundary retrains and voids what was prefetched past it.
+        opts.mcmc_speculate = bool(opts.mcmc_speculate and
+                                   opts.retrain_nll_threshold is not None)
+        opts.rejection_max_trials = max(int(opts.rejection_max_trials),
+                                        opts.rejection_batch_size)
+        opts.trials_target = max(16, n // 8)
+        self.logger.info('MCMC steps [%d]' % opts.mcmc_steps)
+        self.logger.info('Initial scale [%5.4f]' % opts.step_size)
+        self.logger.info('Volume switch [%5.4f]' % opts.volume_switch)
+
+    def _fresh_state(self, init_points):
+        """The run state of a fresh run: the live points of a dynamic batch
+        (``init_points``, refreshed and paid for by the caller within
+        {logl > birth_floor}) or of the prior, and nothing dead yet."""
+        n = self.num_live_points
+        if init_points is not None:
+            u = np.array(init_points['u'], dtype=np.float64)
+            if u.shape != (n, self.x_dim):
+                raise ValueError(
+                    'init_points u must be (num_live_points, x_dim)')
+            v = np.array(init_points['v'] if 'v' in init_points
+                         else self.transform(u), dtype=np.float64)
+            logl = np.array(init_points['logl'], dtype=np.float64)
+            derived = np.array(
+                init_points['derived'] if 'derived' in init_points
+                else np.zeros((n, self.num_derived)),
+                dtype=np.float64).reshape(n, -1)
+            if not np.all(logl > self._birth_floor):
+                raise ValueError('init_points logl must all exceed '
+                                 'birth_floor')
+        else:
+            u = np.asarray(self._user_prior.sample(n), dtype=np.float64)
+            v = self.transform(u)
+            logl, derived = self.loglike(u)
+        self.logger.info('Step [0] max logl [%5.4e] vol [1.0] ncalls '
+                         '[%d]' % (np.max(logl), self.total_calls))
+        return _RunState(u, v, logl, derived,
+                         logvol=float(np.log(1.0 - np.exp(-1.0 / n))))
+
+    def _record_dead(self, st):
+        """The worst live point's index and logl. After an accept it dies
+        here: the evidence, ``h`` and the dead rows take it."""
+        worst = int(np.argmin(st.active_logl))
+        if st.accept_point:
+            st.kill(worst, st.logvol)
+            st.accept_point = False
+        return worst, float(st.active_logl[worst])
+
+    def _maybe_retrain(self, st, opts):
+        """The flow's retrain, at the first iteration of a flow method and
+        then every ``update_interval``. Conditional: the latent kernels are
+        exact for any fixed flow, so when the flow still fits the live set
+        (mean NLL within ``retrain_nll_threshold`` of the last training's
+        best validation NLL) the retrain is skipped. The < 1e29 guard
+        excludes the trainer's "never improved" sentinel."""
+        if st.current_method == 'rejection_prior' or not (
+                st.first_time or (st.it % opts.update_interval == 0
+                                  and st.it != st.last_trained_it)):
+            return
+        st.last_trained_it = st.it
+        best = self.trainer.best_validation_loss
+        if (not st.first_time and opts.retrain_nll_threshold is not None
+                and best is not None and best < 1e29):
+            with self.timers.time('retrain_check'):
+                nll_now = -float(np.mean(self.trainer.log_probs(
+                    st.active_u.astype(np.float32), to_numpy=True)))
+            if nll_now < best + opts.retrain_nll_threshold:
+                self.run_stats['retrains_skipped'] += 1
+                return
+        if st.mcmc_buf:
+            # A lost speculation: the buffered generations were made with
+            # the flow this retrain replaces, where one generation a
+            # dispatch would make them after it. Drop them and set the
+            # generator back to the first one's state, so they are made
+            # again from the same numbers. The generation being consumed
+            # stays: that route made it before the retrain too.
+            state0 = st.mcmc_buf[0][3]
+            if state0 is None:
+                raise RuntimeError(
+                    'prefetched generations span a retrain boundary but '
+                    'carry no generator state (a batch run without '
+                    'speculation; did update_interval change across a '
+                    'resume?)')
+            self._rewind_generator(state0)
+            self._spec_losses += len(st.mcmc_buf)
+            st.mcmc_buf = []
+        epochs0 = getattr(self.trainer, 'total_iters', 0)
+        with self.timers.time('flow_train') as phase:
+            self.trainer.train(st.active_u.astype(np.float32),
+                               max_iters=opts.train_iters, jitter=opts.jitter)
+        self.run_stats['train_s'] += phase.seconds
+        self.run_stats['trainings'] += 1
+        self.run_stats['train_epochs'] += getattr(
+            self.trainer, 'total_iters', 0) - epochs0
+        st.first_time = False
+        # The envelope is a function of the flow: a retrain invalidates it.
+        self._max_log_det_j = None
+
+    def _refill_pool(self, st, opts, loglstar):
+        """A new candidate pool of the current method, timed as the
+        ``pool`` region."""
+        stem = _STAT_KEY[st.current_method]
+        with timed('pool', method=st.current_method) as refill:
+            if st.current_method in ('mcmc', 'slice'):
+                st.pool = self._chain_pool(st, opts, loglstar)
+            else:
+                st.pool = self._rejection_pool(st, opts, loglstar)
+        self.run_stats[stem + '_s'] += refill.seconds
+        self.run_stats[stem + '_generations'] += 1
+        st.pool_pos = 0
+        st.need_pool = False
+
+    def _chain_pool(self, st, opts, loglstar):
+        """A Metropolis or slice generation's pool: the endpoints of the
+        chains that moved. With the prefetch gate open it is served from
+        ``st.mcmc_buf``, which a batch refills ('mcmc' and 'slice' share
+        the buffer: neither expires, so only the first in the strategy
+        runs); otherwise one generation is dispatched."""
+        is_slice = st.current_method == 'slice'
+        stem = _STAT_KEY[st.current_method]
+        adapt_cov = (opts.slice_adapt if is_slice
+                     else opts.mcmc_adapt) == 'cov'
+        live = (st.active_u, st.active_logl, st.active_derived)
+        use_batch = self.mesh is None and opts.mcmc_gen_batch > 1
+        if use_batch and not st.mcmc_buf:
+            use_batch = _f32_exact(st.active_logl)
+        if use_batch and not st.mcmc_buf:
+            self.run_stats[stem + '_dispatches'] += 1
+            if is_slice:
+                st.mcmc_buf = self._slice_generations_batch(
+                    opts.slice_steps, *live, opts.mcmc_num_chains,
+                    opts.slice_width, st.it, opts.update_interval,
+                    opts.mcmc_gen_batch, max_expand=opts.slice_max_expand,
+                    max_shrink=opts.slice_max_shrink,
+                    speculate=opts.mcmc_speculate, adapt_cov=adapt_cov)
+            else:
+                st.mcmc_buf = self._mcmc_generations_batch(
+                    opts.mcmc_steps, *live, opts.mcmc_num_chains,
+                    opts.step_size, st.it, opts.update_interval,
+                    opts.mcmc_gen_batch,
+                    dynamic_step_size=opts.mcmc_dynamic_step_size,
+                    speculate=opts.mcmc_speculate, adapt_cov=adapt_cov)
+        if use_batch and st.mcmc_buf:
+            out, g_lstar, g_it, _ = st.mcmc_buf.pop(0)
+            _check_sync(st.current_method, g_it, g_lstar, st.it, loglstar)
+            endpoints = self._consume_endpoint_out(
+                out,
+                mix_null=(slice_mix_null(opts.slice_steps, self.x_dim)
+                          if is_slice else metropolis_mix_null(
+                              opts.mcmc_steps, self.x_dim,
+                              adapt_cov=adapt_cov)),
+                cond_null=latent_cond_null(self.x_dim, opts.mcmc_num_chains),
+                cond_inflates=not is_slice)
+        elif is_slice:
+            self.run_stats[stem + '_dispatches'] += 1
+            endpoints = self._slice_sample_live(
+                opts.slice_steps, st.active_u, st.active_logl,
+                opts.mcmc_num_chains, loglstar, opts.slice_width,
+                max_expand=opts.slice_max_expand,
+                max_shrink=opts.slice_max_shrink, adapt_cov=adapt_cov,
+                active_derived=st.active_derived)
+        else:
+            self.run_stats[stem + '_dispatches'] += 1
+            endpoints = self._mcmc_sample_live(
+                opts.mcmc_steps, st.active_u, st.active_logl,
+                opts.mcmc_num_chains, loglstar, opts.step_size,
+                dynamic_step_size=opts.mcmc_dynamic_step_size,
+                adapt_cov=adapt_cov, active_derived=st.active_derived)
+        u_f, logl_f, d_f, moved, st.mcmc_scale, _, _ = endpoints
+        return {'u': u_f[moved], 'logl': logl_f[moved],
+                'derived': d_f[moved], 'stats': self._last_kernel_stats}
+
+    def _rejection_pool(self, st, opts, loglstar):
+        """A prior, flow or density rejection generation's pool: the
+        passing candidates, served from ``st.prior_buf`` or
+        ``st.flow_buf`` under the same gate as :meth:`_chain_pool` (which
+        :meth:`_rejection_batch` refills), otherwise dispatched one at a
+        time. Then the trial ladder, the efficiency window and the
+        expiry."""
+        method = st.current_method
+        stem = _STAT_KEY[method]
+        buf = st.prior_buf if method == 'rejection_prior' else st.flow_buf
+        # The downstream within-shell kernel ('mcmc' or 'slice', the first
+        # not expired): a rejection phase expires past its calls per accept.
+        kernel = next((m for m in opts.strategy if m in ('mcmc', 'slice')
+                       and m not in st.expired), None)
+        switch_calls = (None if kernel is None else opts.slice_calls
+                        if kernel == 'slice' else opts.mcmc_steps)
+        can_double = st.cur_trials * 2 <= opts.rejection_max_trials
+        can_halve = st.cur_trials >= 2 * opts.rejection_batch_size
+        recompute = (self._max_log_det_j is None
+                     or st.env_gens >= opts.rejection_cache_interval)
+        use_batch = (self.mesh is None and opts.rejection_gen_batch > 1
+                     and method != 'density_flow')
+        if use_batch and not buf:
+            use_batch = _f32_exact(st.active_logl)
+        if use_batch and not buf:
+            self.run_stats[stem + '_dispatches'] += 1
+            buf.extend(self._rejection_batch(st, opts, switch_calls,
+                                             can_double, can_halve))
+        served = use_batch and bool(buf)
+        if served:
+            g = buf.pop(0)
+            _check_sync(method, g['it'], g['loglstar'], st.it, loglstar,
+                        g['trials'], st.cur_trials)
+            nev = g['trials'] if g['nev'] is None else g['nev']
+            if g['mld'] is not None:
+                self._max_log_det_j = g['mld']
+                self._max_r = g['mr']
+            self.total_calls += nev
+            nc = nev / max(g['n_ok'], 1) if g['n_ok'] > 0 else max(nev, 1)
+            s, ll, ds = g['s'], g['ll'], g['ds']
+        else:
+            self.run_stats[stem + '_dispatches'] += 1
+            with self.timers.time('candidate_kernel'):
+                if method == 'rejection_prior':
+                    s, ll, ds, nc = self._rejection_prior_sample(
+                        loglstar, num_trials=st.cur_trials)
+                elif method == 'rejection_flow':
+                    # A fresh envelope after a retrain or every
+                    # rejection_cache_interval generations; in between the
+                    # live set's values are max-folded into it.
+                    s, ll, ds, nc = self._rejection_flow_sample(
+                        st.active_u, loglstar, enlargement_factor=(
+                            opts.rejection_enlargement_factor),
+                        cache=not recompute, num_trials=st.cur_trials)
+                else:
+                    s, ll, ds, nc = self._density_sample(
+                        loglstar, num_trials=st.cur_trials)
+        n_ok = int(s.shape[0])
+        rung = self.run_stats[stem + '_by_trials'].setdefault(
+            st.cur_trials, [0, 0])
+        rung[0] += 1
+        rung[1] += n_ok
+        if method == 'rejection_flow':
+            st.env_gens = 0 if recompute else st.env_gens + 1
+        move, pushes = trial_ladder(n_ok, opts.trials_target,
+                                    opts.rejection_adapt_trials, can_double,
+                                    can_halve)
+        if move == 'double':
+            st.cur_trials *= 2
+        elif move == 'halve':
+            st.cur_trials //= 2
+        st.ncs.extend([nc] * pushes)
+        st.mean_calls = (float(np.mean(st.ncs[-20:])) if len(st.ncs) > 20
+                         else 0.0)
+        switch = switch_calls is not None and st.mean_calls > switch_calls
+        if method == 'rejection_prior':
+            expected_vol = np.exp(-st.it / self.num_live_points)
+            switch = (0 <= opts.volume_switch > expected_vol) or (
+                opts.volume_switch < 0 and switch)
+        if switch:
+            self.logger.info('%s no longer efficient, switching sampling '
+                             'method' % method)
+            st.expired.append(method)
+            st.ncs = []
+        # The stop rules keep a batch from outrunning a ladder or expiry
+        # decision; a leftover here would mean numbers drawn for
+        # generations this route would not run.
+        if served and buf and (switch or buf[0]['trials'] != st.cur_trials):
+            raise RuntimeError(
+                'rejection generation prefetch outran a ladder or expiry '
+                'decision (switch=%s, trials %d -> %d)'
+                % (switch, buf[0]['trials'], st.cur_trials))
+        return {'u': s, 'logl': ll, 'derived': ds}
+
+    def _rejection_batch(self, st, opts, switch_calls, can_double,
+                         can_halve):
+        """A prior or flow rejection batch's generations, compacted
+        (:meth:`_compact_rejection_gen`). Beside the trial ladder, a batch
+        stops at the expiry proxy at 0.9x its threshold and two iterations
+        before the volume switch can fire (prior rejection) or at an
+        ``update_interval`` crossing (flow rejection)."""
+        max_gens = min(opts.rejection_gen_batch,
+                       max(1, 2 ** 18 // st.cur_trials))
+        live = (st.active_u, st.active_logl, st.active_derived, st.it)
+        if st.current_method == 'rejection_prior':
+            it_stop = (int(np.ceil(-self.num_live_points
+                                   * np.log(opts.volume_switch))) - 2
+                       if opts.volume_switch > 0 else 2 ** 30)
+            thr = (0.9 * switch_calls
+                   if opts.volume_switch < 0 and switch_calls is not None
+                   else np.float32(1e30))
+            gens = self._rejection_prior_generations_batch(
+                *live, it_stop, st.ncs, thr, opts.trials_target,
+                st.cur_trials, max_gens, opts.rejection_adapt_trials,
+                can_double, can_halve)
+        else:
+            thr = (0.9 * switch_calls if switch_calls is not None
+                   else np.float32(1e30))
+            env_valid = self._max_log_det_j is not None
+            gens = self._rejection_flow_generations_batch(
+                *live, opts.update_interval, st.ncs, thr,
+                opts.trials_target, env_valid, st.env_gens,
+                self._max_log_det_j if env_valid else 0.0,
+                self._max_r if env_valid else 0.0,
+                opts.rejection_cache_interval,
+                opts.rejection_enlargement_factor, st.cur_trials, max_gens,
+                opts.rejection_adapt_trials, can_double, can_halve)
+        return [self._compact_rejection_gen(
+            out['x'], out['logl'],
+            out.get('derived', np.zeros((st.cur_trials, self.num_derived))),
+            out['ok'], out.get('n_evals'), out.get('mld'), out.get('mr'),
+            g_lstar, g_it, st.cur_trials) for out, g_lstar, g_it, _ in gens]
+
+    def _replace_worst(self, st, worst, loglstar):
+        """Consume the pool: candidates in order against the current worst
+        point; the first above it replaces it. A spent pool asks for a new
+        one."""
+        pool = st.pool
+        if pool is None:
+            return
+        u = pool['u']
+        n_rows = u.shape[0]
+        while st.pool_pos < n_rows:
+            ib = st.pool_pos
+            st.pool_pos += 1
+            if st.pool_pos == n_rows:
+                st.need_pool = True
+            if pool['logl'][ib] > loglstar:
+                # Insertion rank of the replacement among the surviving
+                # n_live - 1 points (the -1 excludes the dead point):
+                # Uniform{0..n_live-1} under exact constrained sampling.
+                st.insertion_ranks.append(int(
+                    np.sum(st.active_logl < pool['logl'][ib])) - 1)
+                st.active_u[worst] = u[ib, :]
+                st.active_v[worst] = self.transform(st.active_u[worst])[0]
+                st.active_logl[worst] = pool['logl'][ib]
+                if self.num_derived:
+                    st.active_derived[worst] = pool['derived'][ib]
+                st.accept_point = True
+                break
+        if n_rows == 0:
+            st.need_pool = True
+
+    def _advance(self, st, opts, loglstar):
+        """After an accept: shrink the prior volume, update the remaining
+        evidence fraction (the stop rule) and ``it``; then the progress bar
+        and the ``logz`` scalar, and every ``log_interval`` the log line,
+        the ``results.csv`` row and the checkpoint cadence."""
+        n = self.num_live_points
+        expected_vol = np.exp(-st.it / n)
+        st.logvol -= 1.0 / n
+        logz_remain = np.max(st.active_logl) - st.it / n
+        st.fraction_remain = np.logaddexp(st.logz, logz_remain) - st.logz
+        st.it += 1
+        it, logz = st.it, st.logz
+        pbar = self._run_pbar
+        if pbar is not None:
+            pbar.update(1)
+            if it % opts.log_interval == 0:
+                pbar.set_postfix(logz='%.3f' % logz,
+                                 loglstar='%.3g' % loglstar,
+                                 ncall=self.total_calls, refresh=False)
+        if getattr(self.trainer, 'writes_events', False):
+            # the values bound now: the writer may run this later
+            self._submit_io(lambda v=float(logz), step=it:
+                            self.trainer.log_scalar('logz', v, step))
+        if it % opts.log_interval != 0:
+            return
+        self.logger.info(
+            'Step [%d] loglstar [%5.4e] maxlogl [%5.4e] logz [%5.4e] vol '
+            '[%6.5e] ncalls [%d] scale [%5.4f] mean calls [%5.4f]' % (
+                it, loglstar, np.max(st.active_logl), logz, expected_vol,
+                self.total_calls, st.mcmc_scale, st.mean_calls))
+        self._append_results_row(it, loglstar, logz, st.fraction_remain,
+                                 st.mcmc_scale, st.pool)
+        # Checkpoints are O(saved rows): spacing keyed to the last write
+        # (~10% growth) keeps their total cost O(n log n).
+        if it - st.last_io_it < max(opts.log_interval, st.last_io_it // 10):
+            return
+        st.last_io_it = it
+        self._checkpoint(st, opts.strategy)
+        if self.logs is not None:
+            # fresh host arrays: the writer rewrites chain.txt from them;
+            # the final write, after the writer is closed, comes last
+            self.samples = np.asarray(st.saved_v)
+            self.weights = np.exp(np.asarray(st.saved_logwt) - logz)
+            self.loglikes = np.asarray(st.saved_logl)
+            with self.timers.time('chain_io'):
+                self._submit_io(lambda v=self.samples, ll=self.loglikes,
+                                w=self.weights:
+                                self._save_samples(v, ll, weights=w))
+
+    def _checkpoint(self, st, strategy):
+        """:meth:`_write_checkpoint`, timed as the ``checkpoint_io``
+        phase; nothing without a run directory."""
+        if self.logs is None:
+            return
+        with self.timers.time('checkpoint_io') as phase:
+            self._write_checkpoint(st, strategy)
+        self.run_stats['checkpoint_s'] += phase.seconds
+        self.run_stats['checkpoints'] += 1
+
+    def _finish(self, st):
+        """After the loop: the remaining live points die at the final
+        volume, in slot order (slot i's final point closes thread i); the
+        queued writes land, then the results, the outputs and the
+        diagnostics. Returns logz."""
         self.run_stats['speculation_losses'] = self._spec_losses
         self.run_stats['generations_discarded'] = (
-            len(mcmc_buf) + len(prior_buf) + len(flow_buf))
-
-        # Integrate the remaining live points.
-        logvol = (-len(saved_v) / self.num_live_points
-                  - np.log(self.num_live_points))
-        for i in range(self.num_live_points):
-            logwt = logvol + active_logl[i]
-            logz_new = np.logaddexp(logz, logwt)
-            h = (np.exp(logwt - logz_new) * active_logl[i]
-                 + np.exp(logz - logz_new) * (h + logz) - logz_new)
-            logz = logz_new
-            saved_v.append(self._saved_row(active_v[i], active_derived[i]))
-            saved_logwt.append(logwt)
-            saved_logl.append(active_logl[i])
-            if saved_slots is not None:
-                saved_slots.append(i)   # slot i's final point closes thread i
-            if saved_u is not None:
-                saved_u.append(np.array(active_u[i]))
-
+            len(st.mcmc_buf) + len(st.prior_buf) + len(st.flow_buf))
+        n = self.num_live_points
+        logvol = -len(st.saved_v) / n - np.log(n)
+        for i in range(n):
+            st.kill(i, logvol)
         # the queued writes and the trainer's plots land (and the
         # TensorBoard writer is flushed) before the run's results are
         # declared
@@ -1081,31 +1101,32 @@ class NestedSampler(Sampler):
         self.run_stats['checkpoint_s'] += phase.seconds
         self._join_plots()
         self.run_stats['total_fast_calls'] = self.total_fast_calls
-        self.logz = logz
-        self.h = h
-        self.logzerr = float(np.sqrt(h / self.num_live_points))
-        self.niter = it + 1
-        self.samples = np.asarray(saved_v)
-        self.weights = np.exp(np.asarray(saved_logwt) - logz)
-        self.loglikes = np.asarray(saved_logl)
+        self.logz = logz = st.logz
+        self.h = h = st.h
+        self.logzerr = float(np.sqrt(h / n))
+        self.niter = st.it + 1
+        self.samples = np.asarray(st.saved_v)
+        self.weights = np.exp(np.asarray(st.saved_logwt) - logz)
+        self.loglikes = np.asarray(st.saved_logl)
         # the u-space points aligned with loglikes and thread_slots, final
         # live points included: the dynamic sampler seeds batches from them
-        self.saved_u = (None if saved_u is None
-                        else np.asarray(saved_u).reshape(-1, self.x_dim))
-        self._diagnose(insertion_ranks, saved_logl, saved_slots)
+        self.saved_u = (None if st.saved_u is None
+                        else np.asarray(st.saved_u).reshape(-1, self.x_dim))
+        self._diagnose(st.insertion_ranks, st.saved_logl, st.saved_slots)
         if self.logs is not None:
-            self._write_results(saved_logl, self.saved_u)
+            self._write_results(st.saved_logl, self.saved_u)
             with open(os.path.join(self.logs['results'], 'final.csv'),
                       'w') as f:
                 w = csv.writer(f)
                 w.writerow(['niter', 'ncall', 'logz', 'logzerr', 'h'])
-                w.writerow([it + 1, self.total_calls, logz, self.logzerr, h])
+                w.writerow([self.niter, self.total_calls, logz, self.logzerr,
+                            h])
             self._save_samples(self.samples, self.loglikes,
                                weights=self.weights)
         self.logger.info(
             'niter: %d\n ncall: %d\n nsamples: %d\n logz: %6.3f +/- '
-            '%6.3f\n h: %6.3f' % (it + 1, self.total_calls, len(saved_v),
-                                  logz, self.logzerr, h))
+            '%6.3f\n h: %6.3f' % (self.niter, self.total_calls,
+                                  len(st.saved_v), logz, self.logzerr, h))
         self._log_diagnostics()
         return self.logz
 
@@ -1132,13 +1153,6 @@ class NestedSampler(Sampler):
             'it': int(it),
             'trials': int(trials),
         }
-
-    def _saved_row(self, v, derived):
-        """A saved point: ``v``, then its derived values when
-        ``num_derived`` > 0 (a copy either way)."""
-        if self.num_derived:
-            return np.concatenate((v, derived))
-        return np.array(v, copy=True)
 
     # ----------------------------------------------------------- diagnostics
 
@@ -1315,45 +1329,40 @@ class NestedSampler(Sampler):
 
     # ---------------------------------------------------------- checkpoints
 
-    def _write_checkpoint(self, it, active_u, active_v, active_logl,
-                          active_derived, saved_v, saved_logl, saved_logwt,
-                          saved_slots, saved_u, logz, h, logvol,
-                          fraction_remain, strategy, expired, controller,
-                          pool_state, insertion_ranks):
-        """One checkpoint: a snapshot here (copies of every array, the
-        generator and trainer states, the counters), then the files on the
-        background writer, in the order that makes a crash at any point
-        recoverable: the live and dead arrays, then the exact state
-        (temporary file, then ``os.replace``: always one whole snapshot,
-        stamped with ``it``), then the ``checkpoint_<it>.txt`` marker. The
-        cumulative ``saved_*`` files may run ahead of an older marker; the
-        loader cuts them to its iteration."""
+    def _write_checkpoint(self, st, strategy):
+        """One checkpoint of the run state ``st``: a snapshot here (copies
+        of every array, the generator and trainer states, the counters),
+        then the files on the background writer, in the order that makes a
+        crash at any point recoverable: the live and dead arrays, then the
+        exact state (temporary file, then ``os.replace``: always one whole
+        snapshot, stamped with ``it``), then the ``checkpoint_<it>.txt``
+        marker. The cumulative ``saved_*`` files may run ahead of an older
+        marker; the loader cuts them to its iteration."""
         ck = self.logs['checkpoint']
-        live = {'active_u': np.array(active_u), 'active_v': np.array(active_v),
-                'active_logl': np.array(active_logl),
-                'active_derived': np.array(active_derived)}
-        saved = {'saved_v': np.asarray(saved_v),
-                 'saved_logl': np.asarray(saved_logl),
-                 'saved_logwt': np.asarray(saved_logwt)}
-        if saved_slots is not None:
-            saved['saved_slots'] = np.asarray(saved_slots, dtype=np.uint32)
-        if saved_u is not None:
-            saved['saved_u'] = np.asarray(saved_u, np.float64).reshape(
+        it = st.it
+        live = {name: np.array(getattr(st, name)) for name in (
+            'active_u', 'active_v', 'active_logl', 'active_derived')}
+        saved = {name: np.asarray(getattr(st, name))
+                 for name in ('saved_v', 'saved_logl', 'saved_logwt')}
+        if st.saved_slots is not None:
+            saved['saved_slots'] = np.asarray(st.saved_slots, dtype=np.uint32)
+        if st.saved_u is not None:
+            saved['saved_u'] = np.asarray(st.saved_u, np.float64).reshape(
                 -1, self.x_dim)
         exact = {
             'it': int(it),
             'generator': self.generator.get_state(),
             'trainer': self.trainer.snapshot_state(),
-            'controller': controller,
-            'pool': _tensors(pool_state),
-            'insertion_ranks': torch.as_tensor(insertion_ranks,
+            'controller': st.controller(self._max_log_det_j, self._max_r),
+            'pool': _tensors(st.pool_state()),
+            'insertion_ranks': torch.as_tensor(st.insertion_ranks,
                                                dtype=torch.int64),
         }
-        meta = {'logz': float(logz), 'h': float(h), 'logvol': float(logvol),
-                'ncall': self.total_calls,
-                'fraction_remain': float(fraction_remain),
+        meta = {'logz': float(st.logz), 'h': float(st.h),
+                'logvol': float(st.logvol), 'ncall': self.total_calls,
+                'fraction_remain': float(st.fraction_remain),
                 'strategy': list(strategy),
-                'expired_strategies': list(expired),
+                'expired_strategies': list(st.expired),
                 'total_accepted': self.total_accepted,
                 'total_rejected': self.total_rejected,
                 'total_fast_calls': self.total_fast_calls}
@@ -1402,7 +1411,7 @@ class NestedSampler(Sampler):
     def _load_one_checkpoint(self, ck, it):
         """Checkpoint ``it``'s marker and arrays, validated (raises on a
         missing or corrupt file or a short history), then the exact state
-        (:meth:`_restore_exact_state`)."""
+        (:meth:`_restore_exact_state`), as a :class:`_RunState`."""
         with open(os.path.join(ck, 'checkpoint_%d.txt' % it)) as f:
             meta = json.load(f)
         active_u = np.load(os.path.join(ck, 'active_u_%d.npy' % it))
@@ -1423,66 +1432,51 @@ class NestedSampler(Sampler):
                 raise ValueError('checkpoint %d inconsistent: %d rows in %s'
                                  % (it, len(a), name))
             saved[name] = list(a[:it])
-        # Thread slots: short or absent disables the bootstrap error.
-        slots = None
-        sl_path = os.path.join(ck, 'saved_slots.npy')
-        if os.path.exists(sl_path):
-            sl = np.load(sl_path)
-            if len(sl) >= it:
-                slots = [int(x) for x in sl[:it]]
-        # The u-space dead points: short or absent disables saved_u.
-        saved_u = None
-        su_path = os.path.join(ck, 'saved_u.npy')
-        if os.path.exists(su_path):
-            su = np.load(su_path)
-            if len(su) >= it:
-                saved_u = [np.array(r) for r in su[:it]]
+        # Thread slots and u-space dead points: short or absent disables
+        # the bootstrap error, or saved_u.
+        for name, row in (('saved_slots', int), ('saved_u', np.array)):
+            path = os.path.join(ck, name + '.npy')
+            a = np.load(path) if os.path.exists(path) else None
+            saved[name] = (None if a is None or len(a) < it
+                           else [row(r) for r in a[:it]])
         self.total_calls = int(meta['ncall'])
         self.total_accepted = int(meta['total_accepted'])
         self.total_rejected = int(meta['total_rejected'])
         self.total_fast_calls = int(meta.get('total_fast_calls', 0))
-        exact = self._restore_exact_state(ck, it)
-        return {'it': it, 'active_u': active_u,
-                'active_v': self.transform(active_u),
-                'active_logl': active_logl, 'active_derived': active_derived,
-                'saved_v': [np.asarray(r) for r in saved['saved_v']],
-                'saved_logl': saved['saved_logl'],
-                'saved_logwt': saved['saved_logwt'], 'slots': slots,
-                'saved_u': saved_u,
-                'logz': meta['logz'], 'h': meta['h'],
-                'logvol': meta['logvol'],
-                'fraction_remain': meta['fraction_remain'],
-                'expired': (exact['controller']['expired']
-                            if exact['controller'] is not None
-                            else meta['expired_strategies']),
-                **exact}
+        st = _RunState(
+            active_u, self.transform(active_u), active_logl, active_derived,
+            **saved, it=it, logz=meta['logz'], h=meta['h'],
+            logvol=meta['logvol'], fraction_remain=meta['fraction_remain'],
+            expired=list(meta['expired_strategies']))
+        self._restore_exact_state(ck, st)
+        return st
 
-    def _restore_exact_state(self, ck, it):
+    def _restore_exact_state(self, ck, st):
         """Restore the sampler's generator and the trainer from the exact
-        state and return ``{'controller', 'pool', 'insertion_ranks'}``.
+        state, and the run state ``st``'s insertion ranks, controller and
+        pool (:meth:`_RunState.restore`).
 
-        A stamp equal to ``it`` gives a bit-exact resume. A stamp from
+        A stamp equal to ``st.it`` gives a bit-exact resume. A stamp from
         another iteration (a crash between the state's replace and its
         marker, or a fall back to an older marker) still restores the
-        generator, the trainer and the first ``it`` insertion ranks, all
+        generator, the trainer and the first ``st.it`` insertion ranks, all
         valid states, but drops the controller and the pool: the resume is
         statistically exact. An unreadable state restores nothing."""
-        lost = {'controller': None, 'pool': None, 'insertion_ranks': []}
         try:
             es = torch.load(os.path.join(ck, EXACT_STATE), map_location='cpu',
                             weights_only=True)
             self.trainer.restore_state(es['trainer'])
             self.generator.set_state(es['generator'])
-            ranks = [int(x) for x in es['insertion_ranks'][:it]]
+            ranks = [int(x) for x in es['insertion_ranks'][:st.it]]
         except Exception as e:  # unreadable: keep the marker's arrays only
             self.logger.warning('Could not restore the exact state (%r); '
                                 'resume is statistically (not bit-) exact'
                                 % (e,))
-            return lost
-        if es['it'] != it:
+            return
+        st.insertion_ranks = ranks
+        if es['it'] != st.it:
             self.logger.warning(
                 'Exact state is from iteration %s but the checkpoint is %d; '
-                'resume is statistically (not bit-) exact' % (es['it'], it))
-            return dict(lost, insertion_ranks=ranks)
-        return {'controller': es['controller'], 'pool': _arrays(es['pool']),
-                'insertion_ranks': ranks}
+                'resume is statistically (not bit-) exact' % (es['it'], st.it))
+            return
+        st.restore(es['controller'], _arrays(es['pool']))

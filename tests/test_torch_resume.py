@@ -5,8 +5,11 @@ another seed finishes with the uninterrupted run's (logz, h, total_calls,
 niter), to the bit: every random draw after the live set comes from the
 generators the checkpoint restores. A corrupt exact state, an exact state
 stamped with another iteration and a corrupt newest checkpoint each
-degrade to a statistically exact resume that completes."""
+degrade to a statistically exact resume that completes. A checkpoint
+committed under ``tests/data/`` is read and written back unchanged, so the
+format stays readable."""
 
+import json
 import os
 import shutil
 
@@ -107,8 +110,8 @@ def test_corrupt_exact_state_degrades(killed_dir, tmp_path, capsys):
     with open(os.path.join(ck, EXACT_STATE), 'wb') as f:
         f.write(b'not a torch file')
     state = _sampler(path, 8)._load_checkpoint()
-    assert state['it'] == 120
-    assert state['controller'] is None and state['pool'] is None
+    assert state.it == 120
+    assert state.current_method is None and state.pool is None
     assert 'statistically (not bit-) exact' in capsys.readouterr().out
     _resume_completes(path)
 
@@ -122,11 +125,11 @@ def test_stamp_mismatch_drops_the_pool(killed_dir, tmp_path, capsys):
     torch.save(es, es_path)
     s = _sampler(path, 8)
     state = s._load_checkpoint()
-    assert state['it'] == 120
-    assert state['controller'] is None and state['pool'] is None
+    assert state.it == 120
+    assert state.current_method is None and state.pool is None
     # the generator and trainer states are still valid and restored
     assert torch.equal(s.generator.get_state(), es['generator'])
-    assert state['insertion_ranks'] == es['insertion_ranks'][:120].tolist()
+    assert state.insertion_ranks == es['insertion_ranks'][:120].tolist()
     assert 'Exact state is from iteration 121' in capsys.readouterr().out
     _resume_completes(path)
 
@@ -136,10 +139,72 @@ def test_corrupt_newest_checkpoint_falls_back(killed_dir, tmp_path, capsys):
     with open(os.path.join(ck, 'active_u_120.npy'), 'wb') as f:
         f.write(b'truncated')
     state = _sampler(path, 8)._load_checkpoint()
-    assert state['it'] == 100 and len(state['saved_logl']) == 100
+    assert state.it == 100 and len(state.saved_logl) == 100
     # the exact state is stamped 120: statistically exact from 100
-    assert state['controller'] is None and state['pool'] is None
+    assert state.current_method is None and state.pool is None
     out = capsys.readouterr().out
     assert 'Checkpoint 120 unusable' in out
     s = _resume_completes(path)
     assert s.niter > 100
+
+
+# A checkpoint of the format: a 2-D Gaussian with 50 live points (a flow of
+# one block, 16 hidden units), the default ladder at volume_switch=0.5,
+# RUN's options with log_interval=20, seed 8, killed at max_iters=120:
+# Metropolis by then, its pool part consumed and one generation buffered.
+FORMAT_DIR = os.path.join(os.path.dirname(__file__), 'data', 'checkpoint_2d')
+
+
+def _assert_same(got, want, where='exact state'):
+    assert type(got) is type(want), where
+    if isinstance(want, torch.Tensor):
+        assert got.dtype == want.dtype and torch.equal(got, want), where
+    elif isinstance(want, dict):
+        assert list(got) == list(want), where
+        for k in want:
+            _assert_same(got[k], want[k], '%s[%r]' % (where, k))
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_same(g, w, '%s[%d]' % (where, i))
+    else:
+        assert got == want, where
+
+
+def test_checkpoint_format_round_trips(tmp_path):
+    def sampler():
+        return NestedSampler(2, LIKE, transform=lambda u: 3.0 * u,
+                             num_live_points=50, hidden_dim=16,
+                             num_blocks=1, log_dir=str(tmp_path / 'run'),
+                             append_run_num=False, resume=True, seed=8,
+                             device='cpu')
+
+    sampler()   # makes the run directory
+    for name in os.listdir(FORMAT_DIR):
+        shutil.copy(os.path.join(FORMAT_DIR, name),
+                    tmp_path / 'run' / 'checkpoint')
+    s = sampler()
+    state = s._load_checkpoint()
+    assert state.it == 120 and state.current_method == 'mcmc'
+    assert state.pool is not None and len(state.mcmc_buf) == 1
+    with open(os.path.join(FORMAT_DIR, 'checkpoint_120.txt')) as f:
+        meta = json.load(f)
+    out = tmp_path / 'out'
+    out.mkdir()
+    s.logs['checkpoint'] = str(out)
+    s._write_checkpoint(state, meta['strategy'])
+    s._drain_io()
+    assert sorted(os.listdir(out)) == sorted(os.listdir(FORMAT_DIR))
+    for name in os.listdir(FORMAT_DIR):
+        want_path, got_path = os.path.join(FORMAT_DIR, name), out / name
+        if name.endswith('.npy'):
+            want, got = np.load(want_path), np.load(got_path)
+            assert got.dtype == want.dtype, name
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        elif name.endswith('.txt'):
+            with open(got_path) as f:
+                assert json.load(f) == meta
+        else:
+            want = torch.load(want_path, weights_only=True)
+            got = torch.load(got_path, weights_only=True)
+            _assert_same(got, want)

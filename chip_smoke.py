@@ -1126,19 +1126,30 @@ def main_path_sampler(log_dir, name, tooling='on', mesh=None):
 
 def scalar_cost(log_dir, n=2000):
     """Host microseconds of one TensorBoard ``add_scalar`` on this
-    machine's CPU (the writer's own thread included by the closing flush)
-    and the protobuf implementation behind it; None without TensorBoard."""
+    machine's CPU (the writer's own thread included by the closing flush),
+    the protobuf implementation behind it, and a scalar's share of one
+    batch of ``n`` through the port's writer (``utils/events.py``, the
+    native runtime's one call); None without TensorBoard."""
     try:
         from torch.utils.tensorboard import SummaryWriter
     except ImportError:
         return None
     from google.protobuf.internal import api_implementation
+    from nnest_torch import runtime
+    from nnest_torch.utils.events import ScalarEventFile
+    runtime.load_library()   # a checkout's first call builds it: not timed
     writer = SummaryWriter(os.path.join(log_dir, 'scalar_cost'))
     t0 = time.perf_counter()
     for i in range(n):
         writer.add_scalar('logz', float(i), i)
     writer.close()
-    return {'add_scalar_us': (time.perf_counter() - t0) * 1e6 / n,
+    add_scalar_us = (time.perf_counter() - t0) * 1e6 / n
+    batch = ScalarEventFile(os.path.join(log_dir, 'scalar_cost'))
+    t0 = time.perf_counter()
+    batch.write('logz', range(n), np.arange(n, dtype=np.float64),
+                np.full(n, time.time()))
+    return {'add_scalar_us': add_scalar_us,
+            'batch_us_per_scalar': (time.perf_counter() - t0) * 1e6 / n,
             'protobuf': api_implementation.Type()}
 
 

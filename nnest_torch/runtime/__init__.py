@@ -1,4 +1,5 @@
-"""Native (C++) host runtime: the chain writer and chain diagnostics.
+"""Native (C++) host runtime: the chain writer, chain diagnostics and the
+TensorBoard scalar event writer.
 
 Port of ``nnest_tpu/runtime``, built from the port's own copy of the
 source, ``nnest_torch/csrc/nnest_runtime.cpp``. The source is compiled at
@@ -14,10 +15,13 @@ Surface (``nnest_tpu.runtime``'s):
   min_weight=1e-30, header='') -> bool``: the getdist/CosmoMC text chain,
   byte for byte what ``np.savetxt(fmt='%.5E')`` writes;
 - ``ess(x, mu, var)``, ``acceptance_rate(x)``, ``mean_jump(x)``: the
-  diagnostics of ``utils/evaluation.py`` on chains (chains, steps, dim).
+  diagnostics of ``utils/evaluation.py`` on chains (chains, steps, dim);
+- ``write_scalar_events(path, tag, steps, values, wall_times) -> bool``
+  (the port's own): appends one TensorBoard scalar event a row, the bytes
+  of ``utils/events.encode_scalar_events``, in one call that holds no GIL.
 
 Where the machine has no ``g++`` every entry returns ``None`` (``False``
-for ``write_chain``) and the caller takes its numpy path; that is the only
+for the writers) and the caller takes its Python path; that is the only
 fallback. With ``g++`` present a failed build, load or write raises.
 :data:`native_calls` and :data:`fallbacks` count the entries that ran
 natively and those that returned for the numpy path.
@@ -66,6 +70,9 @@ def _bind(lib):
     lib.acceptance_rate.argtypes = [dptr, i64, i64, i64]
     lib.mean_jump.restype = ctypes.c_double
     lib.mean_jump.argtypes = [dptr, i64, i64, i64]
+    lib.write_scalar_events.restype = ctypes.c_int
+    lib.write_scalar_events.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                                        ctypes.POINTER(i64), dptr, dptr, i64]
     return lib
 
 
@@ -161,6 +168,32 @@ def write_chain(path, weights, logl, samples, derived=None,
                          header.encode())
     if rc != 0:
         raise OSError('native chain writer could not write %s' % path)
+    return True
+
+
+def write_scalar_events(path, tag, steps, values, wall_times) -> bool:
+    """Append one TensorBoard scalar event a row (``steps[i]``,
+    ``values[i]`` as float32, ``wall_times[i]``) under ``tag`` to the event
+    file ``path``, after the file-version event where the file is new.
+    False where there is no ``g++`` (nothing written); an I/O error
+    raises."""
+    lib = _entry()
+    if lib is None:
+        return False
+    steps = np.ascontiguousarray(np.asarray(steps, dtype=np.int64))
+    values, wall_times = _c(values), _c(wall_times)
+    n = steps.size
+    if steps.shape != (n,) or values.shape != (n,) or \
+            wall_times.shape != (n,):
+        raise ValueError('steps, values and wall_times must be one row each, '
+                         'got %s, %s and %s' % (steps.shape, values.shape,
+                                                wall_times.shape))
+    rc = lib.write_scalar_events(
+        os.fsencode(path), tag.encode(),
+        steps.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), _ptr(values),
+        _ptr(wall_times), n)
+    if rc != 0:
+        raise OSError('native event writer could not write %s' % path)
     return True
 
 

@@ -52,7 +52,10 @@ records (``utils/profiling.py``; a run under a ``torch.profiler`` records
 itself), its spans are ``run``, ``loop`` (the evidence loop), ``pool``,
 the phases, and inside them ``gen.prep``, ``gen.steps``, ``gen.consume``,
 ``gen.pull`` (``samplers/kernels.py``), ``gen.serve`` and ``io.drain``
-(``samplers/base.py``).
+(``samplers/base.py``), and the loop counts ``evidence_side``: ``dead``
+(the points that die in it), ``transform_calls`` (its calls of the sampler
+transform, one a pool it takes a point from) and ``scalar_jobs`` (the
+``logz`` batches it hands to the writer).
 
 ``run(init_points=, birth_floor=, logl_ceiling=)`` are the hooks of the
 dynamic sampler's batches (``samplers/dynamic.py``), which also reads
@@ -69,12 +72,13 @@ The run's file writes leave the sampling loop: each checkpoint is
 snapshotted on the calling thread (copies of every array, the generator
 and trainer states) and written by the background writer
 (``utils/io_async.SerialWriter``, FIFO, so a checkpoint's files keep their
-order), which also rewrites ``chain.txt`` at every checkpoint and logs the
-``logz`` TensorBoard scalar of every iteration. ``run`` drains the writer
-before it reads a checkpoint, and joins the trainer's plots and closes the
-writer before the final results are written. ``run(show_progress=True)``
-shows a tqdm bar (imported when asked for; without tqdm, no bar), closed
-when the run raises.
+order), which also rewrites ``chain.txt`` at every checkpoint and writes the
+``logz`` TensorBoard scalar of every iteration: the loop keeps each row
+and hands a pool's rows over as one job (``Trainer.log_scalars``). ``run``
+drains the writer before it reads a checkpoint, and joins the trainer's
+plots and closes the writer before the final results are written.
+``run(show_progress=True)`` shows a tqdm bar (imported when asked for;
+without tqdm, no bar), closed when the run raises.
 
 Multi-generation prefetch (``run(mcmc_gen_batch=, rejection_gen_batch=,
 mcmc_speculate=)``, ``nnest_tpu``'s): with a batch above 1 a dispatch runs
@@ -143,8 +147,8 @@ from nnest_torch.utils.evaluation import (adjusted_logzerr,
                                           metropolis_mix_null,
                                           rolling_insertion_ks,
                                           slice_mix_null)
-from nnest_torch.utils.profiling import (profiler_collecting, recording,
-                                         span, timed)
+from nnest_torch.utils.profiling import (count, profiler_collecting,
+                                         recording, span, timed)
 
 # the strategy ladder's methods, in nnest_tpu's order
 _METHODS = ('rejection_prior', 'rejection_flow', 'density_flow', 'mcmc',
@@ -244,13 +248,17 @@ class _RunState:
     envelope: tuple | None = None
     # the pool being consumed and the prefetched generations: Metropolis or
     # slice (entries of Sampler._gens_to_buffer), prior and flow rejection
-    # (dicts of NestedSampler._compact_rejection_gen)
+    # (dicts of NestedSampler._compact_rejection_gen). A pool's 'v', its
+    # rows in the likelihood's space, is made at its first accept and is
+    # not checkpointed.
     need_pool: bool = True
     pool: dict | None = None
     pool_pos: int = 0
     mcmc_buf: list = field(default_factory=list)
     prior_buf: list = field(default_factory=list)
     flow_buf: list = field(default_factory=list)
+    # the logz scalars not yet handed to the writer: (step, value, wall time)
+    logz_rows: list = field(default_factory=list)
 
     def start(self, strategy, step_size, trials):
         """The controller's start where no checkpoint gave one."""
@@ -310,7 +318,10 @@ class _RunState:
 
     def pool_state(self):
         """The exact state's ``pool``."""
-        return {'need_pool': bool(self.need_pool), 'pool': self.pool,
+        pool = self.pool
+        if pool is not None and 'v' in pool:
+            pool = {k: a for k, a in pool.items() if k != 'v'}
+        return {'need_pool': bool(self.need_pool), 'pool': pool,
                 'pool_pos': int(self.pool_pos),
                 'mcmc_buf': list(self.mcmc_buf),
                 'prior_buf': list(self.prior_buf),
@@ -733,6 +744,7 @@ class NestedSampler(Sampler):
         if st.accept_point:
             st.kill(worst, st.logvol)
             st.accept_point = False
+            count('evidence_side', 1, 'dead')
         return worst, float(st.active_logl[worst])
 
     def _maybe_retrain(self, st, opts):
@@ -787,7 +799,9 @@ class NestedSampler(Sampler):
 
     def _refill_pool(self, st, opts, loglstar):
         """A new candidate pool of the current method, timed as the
-        ``pool`` region."""
+        ``pool`` region. The spent pool's ``logz`` scalars go to the writer
+        first."""
+        self._submit_logz(st)
         stem = _STAT_KEY[st.current_method]
         with timed('pool', method=st.current_method) as refill:
             if st.current_method in ('mcmc', 'slice'):
@@ -995,7 +1009,9 @@ class NestedSampler(Sampler):
     def _replace_worst(self, st, worst, loglstar):
         """Consume the pool: candidates in order against the current worst
         point; the first above it replaces it. A spent pool asks for a new
-        one."""
+        one. The pool's rows go through the sampler transform in one call,
+        at its first accept (a row-wise transform gives each row what a call
+        on the row alone gives)."""
         pool = st.pool
         if pool is None:
             return
@@ -1013,7 +1029,10 @@ class NestedSampler(Sampler):
                 st.insertion_ranks.append(int(
                     np.sum(st.active_logl < pool['logl'][ib])) - 1)
                 st.active_u[worst] = u[ib, :]
-                st.active_v[worst] = self.transform(st.active_u[worst])[0]
+                if 'v' not in pool:
+                    pool['v'] = self.transform(u)
+                    count('evidence_side', 1, 'transform_calls')
+                st.active_v[worst] = pool['v'][ib]
                 st.active_logl[worst] = pool['logl'][ib]
                 if self.num_derived:
                     st.active_derived[worst] = pool['derived'][ib]
@@ -1025,8 +1044,9 @@ class NestedSampler(Sampler):
     def _advance(self, st, opts, loglstar):
         """After an accept: shrink the prior volume, update the remaining
         evidence fraction (the stop rule) and ``it``; then the progress bar
-        and the ``logz`` scalar, and every ``log_interval`` the log line,
-        the ``results.csv`` row and the checkpoint cadence."""
+        and the ``logz`` scalar's row (:meth:`_submit_logz` writes them),
+        and every ``log_interval`` the log line, the ``results.csv`` row and
+        the checkpoint cadence."""
         n = self.num_live_points
         expected_vol = np.exp(-st.it / n)
         st.logvol -= 1.0 / n
@@ -1042,9 +1062,7 @@ class NestedSampler(Sampler):
                                  loglstar='%.3g' % loglstar,
                                  ncall=self.total_calls, refresh=False)
         if getattr(self.trainer, 'writes_events', False):
-            # the values bound now: the writer may run this later
-            self._submit_io(lambda v=float(logz), step=it:
-                            self.trainer.log_scalar('logz', v, step))
+            st.logz_rows.append((it, float(logz), time.time()))
         if it % opts.log_interval != 0:
             return
         self.logger.info(
@@ -1071,9 +1089,21 @@ class NestedSampler(Sampler):
                                 w=self.weights:
                                 self._save_samples(v, ll, weights=w))
 
+    def _submit_logz(self, st):
+        """The pending ``logz`` scalars as one job of the writer: when a
+        pool is spent, before a checkpoint (so that they reach the disk
+        before it) and at the run's end."""
+        if not st.logz_rows:
+            return
+        rows, st.logz_rows = st.logz_rows, []
+        count('evidence_side', 1, 'scalar_jobs')
+        self._submit_io(lambda: self.trainer.log_scalars('logz', *zip(*rows)))
+
     def _checkpoint(self, st, strategy):
         """:meth:`_write_checkpoint`, timed as the ``checkpoint_io``
-        phase; nothing without a run directory."""
+        phase, after the pending ``logz`` scalars; nothing without a run
+        directory."""
+        self._submit_logz(st)
         if self.logs is None:
             return
         with self.timers.time('checkpoint_io') as phase:
@@ -1096,6 +1126,7 @@ class NestedSampler(Sampler):
         # the queued writes and the trainer's plots land (and the
         # TensorBoard writer is flushed) before the run's results are
         # declared
+        self._submit_logz(st)
         with self.timers.time('checkpoint_io') as phase:
             self._close_io()
         self.run_stats['checkpoint_s'] += phase.seconds

@@ -29,10 +29,12 @@ makes (spline, NVP, Cholesky, fast-slow):
 - The run directory: with ``log_dir`` the trainer makes ``models/``,
   ``data/``, ``chains/`` and ``plots/`` there, and each ``train()`` writes
   ``data/originals.npy``, ``models/netG.pkl``, one ``loss`` scalar an epoch
-  (the validation loss) to TensorBoard and the real/latent/synthetic
-  triptych ``plots/plot_<total_iters>.png``, rendered on a worker thread
-  (:meth:`finish_plots` joins it). ``load_model`` loads
-  ``<log_dir>/<load_model>/models/netG.pkl``. matplotlib and
+  (the validation loss) to TensorBoard, all of a training's in one write of
+  the run directory's scalar event file (:meth:`log_scalars`,
+  ``utils/events.py``; the ``SummaryWriter``'s file takes the images), and
+  the real/latent/synthetic triptych ``plots/plot_<total_iters>.png``,
+  rendered on a worker thread (:meth:`finish_plots` joins it).
+  ``load_model`` loads ``<log_dir>/<load_model>/models/netG.pkl``. matplotlib and
   ``torch.utils.tensorboard`` are imported only when used; without them
   there is no plot and the writer is a null writer, as in ``nnest_tpu``.
 - The transport API of the JAX trainer: ``forward`` and ``inverse`` (each
@@ -97,6 +99,7 @@ from nnest_torch.parallel.mesh import (all_reduce_sum, shard_batch,
 from nnest_torch.parallel.sharded import (dp_backward, dp_rows, l2_term,
                                           make_sharded_train_step)
 from nnest_torch.utils.device import resolve_device
+from nnest_torch.utils.events import ScalarEventFile
 from nnest_torch.utils.logger import create_logger
 from nnest_torch.utils.profiling import count
 
@@ -183,6 +186,9 @@ class Trainer:
         self.logger = create_logger(__name__, level=log_level)
         self.log = log
         self.writer = None
+        # the scalar event file beside the writer's, made at the first
+        # scalar (log_scalars)
+        self._scalars = None
         # one writer, two threads (the triptych render and the caller)
         self._writer_lock = threading.Lock()
         self._plot_thread = None
@@ -208,12 +214,17 @@ class Trainer:
         return self.writer is not None and not isinstance(self.writer,
                                                           _NullWriter)
 
-    def log_scalar(self, tag, value, step):
-        """A TensorBoard scalar, written under the writer's lock (the
-        samplers log through this, from their IO thread too)."""
-        if self.writer is not None:
-            with self._writer_lock:
-                self.writer.add_scalar(tag, value, step)
+    def log_scalars(self, tag, steps, values, wall_times):
+        """TensorBoard scalars, one a row, appended to the run directory's
+        scalar event file in one write (``utils/events.py``) under the
+        writer's lock (the samplers log through this, from their IO thread
+        too); nothing where the trainer writes no events."""
+        if not self.writes_events:
+            return
+        with self._writer_lock:
+            if self._scalars is None:
+                self._scalars = ScalarEventFile(self.path)
+            self._scalars.write(tag, steps, values, wall_times)
 
     def _tensor(self, a):
         """float32 rows on the trainer's device from numpy, a list or a
@@ -298,7 +309,7 @@ class Trainer:
                  self._dp and n_valid % self.mesh.dp == 0)
         best_params = copy.deepcopy(self.model.state_dict())
         best_val, best_i, counter, i = 1e30, -1, 0, 0
-        val_trace = []
+        val_trace, val_times = [], []
         while i < max_iters and counter <= patience:
             order = torch.randperm(n_train, generator=self.generator,
                                    device=self.device)
@@ -307,6 +318,7 @@ class Trainer:
             train_loss, val_loss = self._train_epoch(
                 train, valid, order, noise, training_jitter, l2_norm, *shard)
             val_trace.append(val_loss)
+            val_times.append(time.time())
             if val_loss < best_val:
                 best_val, best_i, counter = val_loss, i, 0
                 best_params = copy.deepcopy(self.model.state_dict())
@@ -319,8 +331,9 @@ class Trainer:
             i += 1
         if self.log and i < max_iters:
             self.logger.info('Epoch [%i] ran out of patience' % i)
-        for e, v in enumerate(val_trace):
-            self.log_scalar('loss', v, self.total_iters + e + 1)
+        self.log_scalars('loss', range(self.total_iters + 1,
+                                       self.total_iters + i + 1),
+                         val_trace, val_times)
 
         self.total_iters += i
         self.model.load_state_dict(best_params)
@@ -796,9 +809,6 @@ def _out(tree, to_numpy):
 
 class _NullWriter:
     """The writer without TensorBoard: every call does nothing."""
-
-    def add_scalar(self, *args, **kwargs):
-        pass
 
     def add_figure(self, *args, **kwargs):
         pass

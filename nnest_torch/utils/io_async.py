@@ -2,8 +2,8 @@
 
 A copy of ``nnest_tpu/utils/io_async.py`` (the port imports nothing from
 the JAX package). The nested sampler snapshots its state on the main thread
-and hands the pure file IO (checkpoints, the ``chain.txt`` rewrite, the
-per-iteration ``logz`` scalar) to this one daemon thread.
+and hands the pure file IO (checkpoints, the ``chain.txt`` rewrite, a
+pool's ``logz`` scalars at a time) to this one daemon thread.
 
 One thread, FIFO order: a checkpoint's files keep their order (data files
 first, the ``checkpoint_<it>.txt`` marker last) and successive checkpoints

@@ -43,7 +43,10 @@ spline kernel, the kernel once per chain of a fast-slow flow, or the
 flow's own plain ``inverse``; ``train_step`` {``fused``, ``plain``: n}, the
 trainer's steps by the path their forward took: the spline coupling's
 kernel pair (``ops/spline_coupling.py``; a graph's path fixed at its
-capture) or the plain code (``training/trainer.py``).
+capture) or the plain code (``training/trainer.py``); ``evidence_side``
+{``dead``, ``transform_calls``, ``scalar_jobs``: n}, the points that die in
+the nested sampler's evidence loop, its calls of the sampler transform and
+the ``logz`` scalar batches it hands to the writer (``samplers/nested.py``).
 
 Recording is off by default. Off, :func:`span` returns one shared no-op
 context and :func:`count` returns at once: no clock is read and nothing is

@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs eighteen phases, printing one JSON line
+from JAX or ``nnest_tpu`` and runs nineteen phases, printing one JSON line
 per phase with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the builds
@@ -85,10 +85,12 @@ per phase with its seconds:
 9. other flows: one run each of ``flow='nvp'`` (2-D), ``flow='cholesky'``
    (2-D) and ``flow='spline', num_slow=2`` (4-D) on the Gaussian
    (transform 3x, 200 live points, MCMC after a volume switch) to its
-   analytic logz within the same bound; the NVP and Cholesky inverses are
-   ``model.inverse`` in plain PyTorch, so their kernel launches must be 0,
-   and the fast-slow spline flow's chains run through the kernel, so its
-   launches must be > 0; the twin's calls must be 0 in all three;
+   analytic logz within the same bound; the NVP flow's chains run through
+   the NVP kernel (``ops/nvp_inverse.py``), so its launches must be > 0
+   and the spline kernel's 0; the Cholesky inverse is ``model.inverse`` in
+   plain PyTorch, so it launches neither; the fast-slow spline flow's
+   chains run through the spline kernel, so its launches must be > 0; no
+   twin may be called in any of the three;
 10. posterior samplers: ``MCMCSampler.run`` (2000 full-MH steps, 16 chains)
    and ``EnsembleSampler.bootstrap`` (200 steps, 64 walkers, one phase)
    then ``run`` (500 steps) on the 16-D Gaussian with correlation 0.9 in
@@ -226,7 +228,20 @@ per phase with its seconds:
    short training's ``train_step`` counter (all ``fused``, or all
    ``plain``) and kernel launches (> 0 fused, 0 plain), the kernels one
    replay runs by name, a replay's device time and an epoch's wall (1000
-   rows). Phase 3's training must launch the pair too.
+   rows). Phase 3's training must launch the pair too;
+19. NVP kernel: the build of ``nnest_torch/csrc/nvp_inverse.cu`` with its
+   ``-Xptxas -v`` report; the kernel (``ops/nvp_inverse.py``) at the
+   benchmark's ``gauss50nvp`` widths (d 50, 3 couplings: hidden 16 and 64
+   with ``scale`` '', hidden 16 with ``'translate'`` and ``'constant'``;
+   1, 256 and 4097 rows) against its twin and ``model.inverse`` on the
+   card (the phase-2 limits) and the float64 reference of
+   ``portbench/reference/flows/nvp.py`` (1e-4 and 1e-3), each relative to
+   max(1, |value|) (the flow's x is unbounded), one launch a call
+   and no twin call, each row on its own at a second batch size; then
+   timed at 256 rows (hidden 16 and 64) and 4097 rows (hidden 16) by
+   CUDA-graph replay and eagerly beside its bound (the reference's
+   ``inverse_cost``), against ``model.inverse`` eagerly and by graph
+   replay, with the aten operations one plain call dispatches.
 
 Depth cut to keep the script inside its time limit (widths and checks
 unchanged; old -> new): phase 2's plain-twin timing, 5 warm-up calls then
@@ -250,7 +265,8 @@ kernel's launches by path (``mcmc``: phase 3, ``rejection_flow`` and
 ``mesh``: phase 14, every rank's launches in parts a, b and d,
 ``prefetch``: phase 15, ``tp``: phase 16, both ranks' launches,
 ``prewarm``: the prewarms of phase 17 (a), ``cold_start``: its four runs;
-consume_pool's by the first word of each path);
+consume_pool's by the first word of each path; the NVP kernel's:
+``other_flows``, phase 9, and ``nvp_kernel``, phase 19);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before that line.
@@ -1329,11 +1345,13 @@ COUPLING_LAUNCHES = {}
 def reset_counts():
     from nnest_torch.ops import consume_pool as cp
     from nnest_torch.ops import fused_spline
+    from nnest_torch.ops import nvp_inverse as nv
     from nnest_torch.ops import spline_coupling as sc
     from nnest_torch.ops import spline_inverse as si
     si.launches = si.launches_per_block = 0
     sc.launches = 0
     fused_spline.calls = 0
+    nv.launches = nv.calls = 0
     cp.launches = cp.twin_calls = 0
 
 
@@ -1618,14 +1636,16 @@ def evidence_run(name, log_dir, d, flow_kw, strategy):
     return out
 
 
-def phase_other_flows(log_dir):
+def phase_other_flows(log_dir, record):
     """NVP, Cholesky and fast-slow spline runs to their analytic evidence,
     each with the counts reset just before and read just after: the NVP
-    and Cholesky inverses are plain PyTorch, so neither the kernel nor its
-    twin runs; the fast-slow spline flow's chains run through the kernel
-    (``ops.spline_inverse.fast_slow_inverse``), so it launches, and its
-    twin never runs."""
+    flow's chains run through the NVP kernel (``ops.nvp_inverse``), so it
+    launches and the spline kernel does not; the Cholesky inverse is plain
+    PyTorch, so neither kernel runs; the fast-slow spline flow's chains run
+    through the spline kernel (``ops.spline_inverse.fast_slow_inverse``), so
+    it launches. No twin ever runs."""
     from nnest_torch.ops import fused_spline
+    from nnest_torch.ops import nvp_inverse as nv
     from nnest_torch.ops import spline_inverse as si
     runs = []
     for flow, d, kw in (('nvp', 2, {}), ('cholesky', 2, {}),
@@ -1634,14 +1654,20 @@ def phase_other_flows(log_dir):
         out = evidence_run(flow, log_dir, d, dict(flow=flow, **kw),
                            ['rejection_prior', 'mcmc'])
         torch.cuda.synchronize()
-        out.update({'launches': si.launches,
-                    'twin_calls': fused_spline.calls})
-        if (si.launches > 0) != bool(kw) or fused_spline.calls != 0:
+        out.update({'launches': si.launches, 'nvp_launches': nv.launches,
+                    'twin_calls': fused_spline.calls + nv.calls})
+        if ((si.launches > 0) != bool(kw)
+                or (nv.launches > 0) != (flow == 'nvp')
+                or fused_spline.calls + nv.calls != 0):
             raise AssertionError('flow %r: spline kernel launches %d (want '
-                                 '%s), twin calls %d (want 0): %s' % (
+                                 '%s), NVP kernel launches %d (want %s), '
+                                 'twin calls %d (want 0): %s' % (
                                      flow, si.launches,
-                                     '> 0' if kw else '0',
-                                     fused_spline.calls, out))
+                                     '> 0' if kw else '0', nv.launches,
+                                     '> 0' if flow == 'nvp' else '0',
+                                     fused_spline.calls + nv.calls, out))
+        if flow == 'nvp':
+            record['launches_by_path']['other_flows'] = nv.launches
         if out['mcmc_generations'] < 1 or out['trainings'] < 1:
             raise AssertionError('flow %r never trained or reached mcmc: %s'
                                  % (flow, out))
@@ -3656,6 +3682,152 @@ def phase_train_kernels(record):
     return out
 
 
+# phase 19: the benchmark's gauss50nvp flow (upstream run.py --flow nvp at
+# d 50, 3 blocks, the example's hidden 16) and the port's autoscaled width
+# 64 at that d; the rows it is held at and timed at; and the float64
+# reference's limits (the kernel computes in float32)
+NVP_DIM = 50
+NVP_CASES = ((16, ''), (64, ''), (16, 'translate'), (16, 'constant'))
+NVP_ROWS = (1, 256, 4097)
+NVP_TIMED = ((16, 256), (64, 256), (16, 4097))
+NVP_REF_X, NVP_REF_LOGDET = 1e-4, 1e-3
+
+
+def random_nvp_flow(d, hidden, scale, seed, device):
+    """A random NVP flow, every parameter moved by N(0, 0.1^2) off its
+    init (so every ScaleLayer's s is off 0)."""
+    from nnest_torch.flows import build_flow
+    model = build_flow(d, flow='nvp', hidden_dim=hidden, scale=scale,
+                       seed=seed, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=g, device=device))
+    return model
+
+
+def relative_gap(a, b):
+    """The widest gap of ``a`` from ``b`` relative to max(1, |b|): an NVP
+    flow's x is unbounded (|x| reaches 30 at hidden 64 on phase 19's
+    weights), and float32 keeps a relative precision."""
+    b = b.double()
+    return float(((a.double() - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+def nvp_reference():
+    """The benchmark's float64 NVP reference (it imports nothing of the
+    port), and with it the kernel's yardstick ``inverse_cost``."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'portbench')
+    if here not in sys.path:
+        sys.path.append(here)
+    from reference.flows import nvp
+    return nvp
+
+
+def aten_ops(fn):
+    """The aten operations one call of ``fn`` dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def phase_nvp_kernel(record):
+    """Phase 19: the NVP kernel built, held to its twin, ``model.inverse``
+    and the float64 reference at the ``gauss50nvp`` widths, and timed."""
+    from nnest_torch.ops import nvp_inverse as nv
+    ref = nvp_reference()
+    device = torch.device('cuda')
+    t0 = time.time()
+    nv.load_library()
+    out = {'build_s': time.time() - t0,
+           'ptxas': [line.strip() for line in nv.build_log.splitlines()
+                     if 'spill' in line or 'Used' in line],
+           'checks': [], 'timed': []}
+    before = nv.launches
+    worst = [0.0, 0.0]
+    for hidden, scale in NVP_CASES:
+        model = random_nvp_flow(NVP_DIM, hidden, scale, 600 + hidden, device)
+        packed = nv.pack_nvp_consts(model)
+        state = {k: v.double() for k, v in model.state_dict().items()}
+        for n in NVP_ROWS:
+            g = torch.Generator(device=device).manual_seed(17 * n + hidden)
+            z = 2.0 * torch.randn(n, NVP_DIM, generator=g, device=device)
+            launches, calls = nv.launches, nv.calls
+            got = nv.nvp_inverse(z, packed)
+            torch.cuda.synchronize()
+            if nv.launches - launches != 1 or nv.calls != calls:
+                raise AssertionError(
+                    'nvp kernel at n=%d: %d launches (want 1), %d twin '
+                    'calls (want 0)' % (n, nv.launches - launches,
+                                        nv.calls - calls))
+            with torch.no_grad():
+                twin = nv.nvp_inverse_twin(z, packed)
+                want = model.inverse(z)
+                x64, ld64 = ref.inverse(state, z.double())
+            case = {'d': NVP_DIM, 'hidden': hidden, 'scale': scale, 'n': n}
+            for name, other, tx, tld in (
+                    ('twin', twin, TOL_X, TOL_LOGDET),
+                    ('model', want, TOL_X, TOL_LOGDET),
+                    ('reference', (x64, ld64), NVP_REF_X, NVP_REF_LOGDET)):
+                dx, dld = (relative_gap(a, b) for a, b in zip(got, other))
+                case['vs_%s' % name] = (dx, dld)
+                if not (dx <= tx and dld <= tld):
+                    raise AssertionError('nvp kernel against the %s: %s'
+                                         % (name, case))
+            worst = [max(worst[0], case['vs_twin'][0]),
+                     max(worst[1], case['vs_twin'][1])]
+            if n > 77:
+                # each row on its own: a second batch size
+                part = nv.nvp_inverse(z[:77].contiguous(), packed)
+                torch.cuda.synchronize()
+                case['rows_alone'] = (torch.equal(part[0], got[0][:77])
+                                      and torch.equal(part[1], got[1][:77]))
+                if not case['rows_alone']:
+                    raise AssertionError('nvp kernel: 77 rows differ from '
+                                         'the same rows of %d' % n)
+            out['checks'].append(case)
+    for hidden, n in NVP_TIMED:
+        model = random_nvp_flow(NVP_DIM, hidden, '', 700 + hidden, device)
+        packed = nv.pack_nvp_consts(model)
+        g = torch.Generator(device=device).manual_seed(n)
+        z = 2.0 * torch.randn(n, NVP_DIM, generator=g, device=device)
+
+        def plain():
+            with torch.no_grad():
+                return model.inverse(z)
+        bound = bound_ms(*ref.inverse_cost(n, NVP_DIM, hidden, 3))
+        row = {'d': NVP_DIM, 'hidden': hidden, 'n': n,
+               'ms': graph_time_ms(lambda: nv.nvp_inverse(z, packed)),
+               'eager_ms': cuda_time_ms(lambda: nv.nvp_inverse(z, packed)),
+               'bound_ms': bound[0], 'bound_by': bound[1],
+               'plain_ms': cuda_time_ms(plain),
+               'plain_graph_ms': graph_time_ms(plain),
+               'plain_aten_ops': aten_ops(plain),
+               'plan': nv.launch_plan(n, NVP_DIM, hidden, 2, 3)}
+        row['x_bound'] = row['ms'] / row['bound_ms']
+        print('phase 19: d %d, hidden %d, n %d: %.5f ms by replay (%.5f '
+              'eager), bound %.6f ms, plain %.4f ms eager (%.4f replay, %d '
+              'aten ops)' % (NVP_DIM, hidden, n, row['ms'], row['eager_ms'],
+                             row['bound_ms'], row['plain_ms'],
+                             row['plain_graph_ms'], row['plain_aten_ops']),
+              flush=True)
+        out['timed'].append(row)
+    torch.cuda.synchronize()
+    out['worst_vs_twin'] = worst
+    record['launches_by_path']['nvp_kernel'] = nv.launches - before
+    return out
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3711,6 +3883,11 @@ def main():
          'source': 'nnest_torch/csrc/spline_coupling.cu',
          'replaces': None, 'launches': None, 'library_ms': None,
          'launches_by_path': {'mcmc': 0, 'training': 0}},
+        # no TPU kernel behind it: the JAX package runs NVP in plain XLA
+        {'name': 'nvp_inverse', 'route': 'cuda',
+         'source': 'nnest_torch/csrc/nvp_inverse.cu',
+         'replaces': None, 'launches': None, 'library_ms': None,
+         'launches_by_path': {'other_flows': 0, 'nvp_kernel': 0}},
     ]
     outputs = {}
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as log_dir:
@@ -3734,7 +3911,8 @@ def main():
                  lambda: phase_flow_rejection(records, log_dir)),
                 (7, 'resume', lambda: phase_resume(log_dir)),
                 (8, 'slice', lambda: phase_slice(records[0], log_dir)),
-                (9, 'other_flows', lambda: phase_other_flows(log_dir)),
+                (9, 'other_flows',
+                 lambda: phase_other_flows(log_dir, records[4])),
                 (10, 'mcmc_ensemble',
                  lambda: phase_mcmc_ensemble(records[0], log_dir)),
                 (11, 'dynamic', lambda: phase_dynamic(records[0], log_dir)),
@@ -3750,7 +3928,8 @@ def main():
                  lambda: phase_prewarm_trace_oracle(records[0], log_dir,
                                                     outputs[3])),
                 (18, 'train_kernels',
-                 lambda: phase_train_kernels(records[3]))):
+                 lambda: phase_train_kernels(records[3])),
+                (19, 'nvp_kernel', lambda: phase_nvp_kernel(records[4]))):
             t0 = time.time()
             out = outputs[num] = fn()
             emit({'phase': num, 'name': name,

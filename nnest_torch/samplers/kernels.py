@@ -26,8 +26,9 @@ in a deterministic body. Every flow inverse inside a step, and the one
 inverse of all trials of a flow-rejection or flow-density generation or of
 an ensemble's trajectory, goes through :meth:`LatentKernels._hot_inverse`,
 which for a single-speed spline flow on the GPU is the hand-written CUDA
-kernel (``ops/spline_inverse.py``), and for a fast-slow flow of two spline
-chains that kernel once a chain.
+kernel (``ops/spline_inverse.py``), for a fast-slow flow of two spline
+chains that kernel once a chain, and for a single-speed NVP flow the NVP
+kernel (``ops/nvp_inverse.py``).
 
 On a card, without a mesh, and with the flat prior or the library's box
 prior, the Metropolis step loop replays CUDA graphs of the step's own
@@ -67,6 +68,7 @@ import torch
 
 from nnest_torch.ops import fused_spline
 from nnest_torch.ops.consume_pool import consume_pool
+from nnest_torch.ops.nvp_inverse import is_fusable_nvp, nvp_inverse_fn
 from nnest_torch.ops.spline_inverse import (fast_slow_inverse_fn,
                                              fused_inverse_fn)
 from nnest_torch.parallel.mesh import (all_reduce_sum, batch_sharding,
@@ -205,6 +207,7 @@ class LatentKernels:
         self.oversample_rate = float(oversample_rate)
         self._fusable = fused_spline.is_fusable_spline(model)
         self._fast_slow = fused_spline.is_fusable_fast_slow(model)
+        self._nvp = is_fusable_nvp(model)
         # 1 on the fast dims, 0 on the slow ones: dz times this freezes
         # the slow block for a fast-only move.
         self._fast_mask = torch.ones(
@@ -222,7 +225,7 @@ class LatentKernels:
         return derived0
 
     def _hot_inverse(self):
-        """Flow inverse for use inside chain steps, on one of three paths:
+        """Flow inverse for use inside chain steps, on one of four paths:
 
         - ``spline``, a single-speed spline flow: the parameter-only work
           (1x1-conv inverses, constant logdet) is packed once per kernel
@@ -235,9 +238,14 @@ class LatentKernels:
           fast_slow_inverse``). It stands for the JAX package's plain
           ``FastSlowFlowModel.inverse``, which no Pallas kernel covers; two
           launches and the coupling's ~30 small launches bound it;
-        - ``plain``, every other flow (NVP, Cholesky, a fast-slow NVP
-          flow): its own ``inverse`` in plain PyTorch, as in the JAX
-          package.
+        - ``nvp``, a single-speed NVP flow (``ops.nvp_inverse.
+          is_fusable_nvp``): every coupling's parameters packed once, and
+          each call runs the whole chain's inverse as one launch of the
+          NVP kernel (``ops.nvp_inverse.nvp_inverse``). It stands for the
+          JAX package's plain NVP inverse, which no Pallas kernel covers;
+          the kernel's latency bounds it;
+        - ``plain``, every other flow (Cholesky, a fast-slow NVP flow): its
+          own ``inverse`` in plain PyTorch, as in the JAX package.
 
         Each call of the returned callable counts once under the recorder's
         ``hot_inverse`` counter, by path."""
@@ -245,6 +253,8 @@ class LatentKernels:
             path, inverse = 'spline', fused_inverse_fn(self.model)
         elif self._fast_slow:
             path, inverse = 'fast_slow', fast_slow_inverse_fn(self.model)
+        elif self._nvp:
+            path, inverse = 'nvp', nvp_inverse_fn(self.model)
         else:
             path, inverse = 'plain', self.model.inverse
 

@@ -121,7 +121,7 @@ def test_both_inverses_match_the_float64_reference():
 
 @pytest.mark.parametrize('flow,num_slow,path', [
     ('spline', 2, 'fast_slow'), ('spline', 0, 'spline'),
-    ('nvp', 2, 'plain')])
+    ('nvp', 2, 'plain'), ('nvp', 0, 'nvp')])
 def test_hot_inverse_takes_its_path_and_counts_it(flow, num_slow, path):
     model = build_flow(5, flow=flow, num_slow=num_slow, seed=1,
                        device='cpu')

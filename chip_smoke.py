@@ -2,8 +2,8 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnest_torch``) on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
-from JAX or ``nnest_tpu`` and runs nineteen phases, printing one JSON line
-per phase with its seconds:
+from JAX or ``nnest_tpu`` and runs twenty phases (``--phases 3,20`` runs
+only those listed), printing one JSON line per phase with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the builds
    of ``nnest_torch/csrc/spline_inverse.cu`` and ``consume_pool.cu`` (one
@@ -241,7 +241,25 @@ per phase with its seconds:
    timed at 256 rows (hidden 16 and 64) and 4097 rows (hidden 16) by
    CUDA-graph replay and eagerly beside its bound (the reference's
    ``inverse_cost``), against ``model.inverse`` eagerly and by graph
-   replay, with the aten operations one plain call dispatches.
+   replay, with the aten operations one plain call dispatches;
+20. spline chain kernels: the build of ``nnest_torch/csrc/spline_chain.cu``
+   with its ``-Xptxas -v`` report; (a) the chain's pair
+   (``ops/spline_chain.py``) at the cells' chains (d 16 and 50, the
+   fast-slow flow's 2-dim and 28-dim chains; hidden 16, K 8) at 100 rows
+   forward and backward and at 256 and 1000 rows forward, against float64
+   (y within 1.5e-5 and the row logdet within 3e-5 of max(1, |value|), or
+   within twice the plain chain's own distance in float32 where that is
+   farther; the gradients' largest gap, each relative to its largest
+   magnitude, within twice float32's own, autograd through the plain
+   chain in float32 on the CPU and on the card, plus 1e-5), two launches
+   bit-equal, each launch timed by CUDA-graph replay and eagerly beside
+   its bound (``chain_cost``), the pair against
+   the module-by-module chain (each coupling half on its own pair) by
+   graph replay; (b) for the cells' three flows, a captured training step
+   with each coupling half's pair and with the chain's, in turns: the
+   counters of a short training, the kernels one replay runs, a replay's
+   device time and an epoch's wall (1000 rows). Phase 3's training launches
+   a training pair (the chain's, at its widths).
 
 Depth cut to keep the script inside its time limit (widths and checks
 unchanged; old -> new): phase 2's plain-twin timing, 5 warm-up calls then
@@ -266,7 +284,8 @@ kernel's launches by path (``mcmc``: phase 3, ``rejection_flow`` and
 ``prefetch``: phase 15, ``tp``: phase 16, both ranks' launches,
 ``prewarm``: the prewarms of phase 17 (a), ``cold_start``: its four runs;
 consume_pool's by the first word of each path; the NVP kernel's:
-``other_flows``, phase 9, and ``nvp_kernel``, phase 19);
+``other_flows``, phase 9, and ``nvp_kernel``, phase 19; the chain pair's:
+``mcmc``, phase 3, and ``chain_kernel``, phase 20);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before that line.
@@ -507,6 +526,9 @@ def ptxas_report(build_log):
         if m and 'Compiling entry' in line:
             h = int(m.group(2))
             label = 'K=%s hidden=%s' % (m.group(1), h if h else 'run-time')
+        elif 'Compiling entry' in line:
+            m = re.search(r"entry function '(\w+)'", line)
+            label = m.group(1) if m else line.strip()
         elif 'spill' in line or 'Used' in line:
             out.append('%s: %s' % (label, line.strip()))
     return out
@@ -1215,11 +1237,13 @@ def phase_main_path(record, log_dir):
     timers = {k: v['total_s'] for k, v in sampler.timers.summary().items()}
     launches = read_counts('mcmc', pool_launched=True)
     record['launches_by_path']['mcmc'] = launches
+    from nnest_torch.ops import spline_chain as sch
     from nnest_torch.ops import spline_coupling as sc
-    if sc.launches <= 0:
-        raise AssertionError('the main path\'s training never launched the '
-                             'spline coupling kernels')
+    if sc.launches + sch.launches <= 0:
+        raise AssertionError('the main path\'s training never launched a '
+                             'training kernel pair')
     COUPLING_LAUNCHES['mcmc'] = sc.launches
+    CHAIN_LAUNCHES['mcmc'] = sch.launches
     stats = sampler.run_stats
     if stats['mcmc_generations'] < 3 or stats['trainings'] < 1:
         raise AssertionError('main path did not reach 3 MCMC generations '
@@ -1338,18 +1362,21 @@ def phase_correctness(log_dir):
 # consume_pool's launches by path (the first word of read_counts' path),
 # added up over the phases
 POOL_LAUNCHES = {}
-# the spline coupling pair's launches in phase 3's run (its trainings)
+# the spline coupling pair's and the spline chain pair's launches in phase
+# 3's run (its trainings)
 COUPLING_LAUNCHES = {}
+CHAIN_LAUNCHES = {}
 
 
 def reset_counts():
     from nnest_torch.ops import consume_pool as cp
     from nnest_torch.ops import fused_spline
     from nnest_torch.ops import nvp_inverse as nv
+    from nnest_torch.ops import spline_chain as sch
     from nnest_torch.ops import spline_coupling as sc
     from nnest_torch.ops import spline_inverse as si
     si.launches = si.launches_per_block = 0
-    sc.launches = 0
+    sc.launches = sch.launches = 0
     fused_spline.calls = 0
     nv.launches = nv.calls = 0
     cp.launches = cp.twin_calls = 0
@@ -3571,6 +3598,51 @@ def coupling_kernel_turns():
     return out
 
 
+def step_measures(t, d, data):
+    """A trainer's captured training step (batch ``TRAIN_BATCH``): the
+    kernels one replay runs, by name, from the profiler (the step's copies
+    in, the graph and the loss's clone out), a replay's device time by CUDA
+    events, and an epoch's wall as the cells' trainer runs it on ``data``
+    (``TRAIN_ROWS`` rows: 9 steps and the validation)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step = t._graphed_step(TRAIN_BATCH, 0.0)
+    batch = torch.randn(TRAIN_BATCH, d, device='cuda')
+    w = torch.ones(TRAIN_BATCH, device='cuda')
+    step(batch, w)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(50):
+        step(batch, w)
+    end.record()
+    end.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            step(batch, w)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0) + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.train(data, max_iters=TRAIN_EPOCHS, patience=10 ** 6)
+    torch.cuda.synchronize()
+    epoch_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_EPOCHS
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {'kernels_a_step': sum(by_name.values()) / 5,
+            'coupling_kernels_a_step': sum(
+                v for k_, v in by_name.items() if 'coupling_' in k_) / 5,
+            'chain_kernels_a_step': sum(
+                v for k_, v in by_name.items() if 'chain_' in k_) / 5,
+            'step_ms': start.elapsed_time(end) / 50,
+            'epoch_ms': epoch_ms,
+            'top': [{'name': k_[:80], 'a_step': v / 5} for k_, v in top]}
+
+
 def train_step_turns():
     """Part (b): for each cell's flow, a captured training step (forward,
     backward, Adam at batch 100) with the coupling's transform plain and
@@ -3580,15 +3652,16 @@ def train_step_turns():
     steps and the validation); and a short training's launches and
     ``train_step`` counter. The plain turns put
     ``coupling_rqs_plain`` in ``coupling_rqs``'s place, which the card
-    otherwise never runs."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    otherwise never runs; both keep the spline chain's pair (phase 20)
+    off."""
     from nnest_torch import Trainer
+    from nnest_torch.ops import spline_chain as sch
     from nnest_torch.ops import spline_coupling as sc
     from nnest_torch.utils.profiling import recording
-    fused_fn = sc.coupling_rqs
+    fused_fn, takes = sc.coupling_rqs, sch.takes
     out = {}
+    # the chain's pair (phase 20) off: these turns are the coupling's
+    sch.takes = lambda chain, x: False
     try:
         for name, d, num_slow in TRAIN_FLOWS:
             g = torch.Generator().manual_seed(d)
@@ -3611,46 +3684,9 @@ def train_step_turns():
                     raise AssertionError(
                         '%s %s training: train_step %s, %d launches'
                         % (name, mode, counted, launched))
-                step = t._graphed_step(TRAIN_BATCH, 0.0)
-                batch = torch.randn(TRAIN_BATCH, d, device='cuda')
-                w = torch.ones(TRAIN_BATCH, device='cuda')
-                step(batch, w)
-                torch.cuda.synchronize()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(50):
-                    step(batch, w)
-                end.record()
-                end.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    for _ in range(5):
-                        step(batch, w)
-                    torch.cuda.synchronize()
-                by_name = {}
-                for e in prof.events():
-                    if e.device_type == DeviceType.CUDA:
-                        by_name[e.name] = by_name.get(e.name, 0) + 1
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                t.train(data, max_iters=TRAIN_EPOCHS, patience=10 ** 6)
-                torch.cuda.synchronize()
-                epoch_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_EPOCHS
-                top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-                res[mode].append({
-                    'launches_in_training': launched,
-                    'train_step_counter': counted,
-                    # a replay's launches: the step's copies in, the graph
-                    # and the loss's clone out
-                    'kernels_a_step': sum(by_name.values()) / 5,
-                    'coupling_kernels_a_step': sum(
-                        v for k_, v in by_name.items()
-                        if 'coupling_' in k_) / 5,
-                    'step_ms': start.elapsed_time(end) / 50,
-                    'epoch_ms': epoch_ms,
-                    'top': [{'name': k_[:80], 'a_step': v / 5}
-                            for k_, v in top]})
+                res[mode].append({'launches_in_training': launched,
+                                  'train_step_counter': counted,
+                                  **step_measures(t, d, data)})
             out[name] = res
             print('phase 18 (b): %s: kernels a step plain %s, fused %s; '
                   'step ms plain %s, fused %s; epoch ms plain %s, fused %s'
@@ -3662,7 +3698,7 @@ def train_step_turns():
                      ['%.2f' % r['epoch_ms'] for r in res['fused']]),
                   flush=True)
     finally:
-        sc.coupling_rqs = fused_fn
+        sc.coupling_rqs, sch.takes = fused_fn, takes
     return out
 
 
@@ -3828,6 +3864,302 @@ def phase_nvp_kernel(record):
     return out
 
 
+# phase 20: the spline chain's training pair at the cells' chains (name,
+# d, the fast-slow flow's num_slow and chain), all at hidden 16 and K 8; the
+# rows a training step takes (forward and backward), and the forward alone
+# at the starts' 256 and the NLL gate's and covariance factor's 1000; the
+# limits against float64: y and the row logdet (relative to max(1, |value|))
+# within these or, where float32 itself is farther off on the inputs (the
+# plain chain in float32 on the CPU), within twice its distance; the
+# gradients' largest gap (each relative to its largest magnitude) within
+# twice float32's own (autograd through the plain chain in float32, on the
+# CPU and on the card with each coupling half on its own pair) plus 1e-5
+CHAIN_CASES = (('gauss16', 16, 0, None), ('gauss50', 50, 0, None),
+               ('mog30fs.slow', 30, 2, 'slow'),
+               ('mog30fs.fast', 30, 2, 'fast'))
+CHAIN_ROWS, CHAIN_FORWARD_ROWS = 100, (256, 1000)
+CHAIN_TOL_Y, CHAIN_TOL_LOGDET, CHAIN_TOL_GRAD = 1.5e-5, 3e-5, 1e-5
+
+
+def worst_gap(got, want):
+    """The largest gap of any gradient from float64's, relative to that
+    gradient's largest magnitude."""
+    return max(float((a.detach().double().cpu() - w).abs().max())
+               / float(w.abs().max()) for a, w in zip(got, want))
+
+
+def chain_cost(rows, d, hidden, k, blocks, backward=False):
+    """(operations, bytes) of the spline chain's forward, or of its
+    backward, at ``rows`` x ``d``, as the function is defined: a block's
+    ActNorm (2 a value), the conv and the two conditioner MLPs (2 a
+    multiply-add, 1 a bias, 2 a LeakyReLU), the RQS of each value
+    (``coupling_cost``); the backward takes each product twice (d/d input
+    and d/d weight) and each RQS's backward (``coupling_cost``'s, the RQS
+    forward it needs included; the rest of the forward it reads from the
+    forward's records). Bytes: the weights once
+    and the rows in and out; the backward reads the saved block inputs,
+    dL/dz and dL/dlogdet and writes d/dx and a gradient for every
+    weight."""
+    per = 3 * k - 1
+    cut = d - d // 2
+    up = d - cut
+    macs, weights, extra = d * d, 2 * d + d * d, 2 * d
+    for n_in, n_out in ((cut, up * per), (up, cut * per)):
+        sizes = (n_in, hidden, hidden, hidden, n_out)
+        for i in range(4):
+            macs += sizes[i] * sizes[i + 1]
+            weights += sizes[i] * sizes[i + 1] + sizes[i + 1]
+            extra += sizes[i + 1] + (2 * sizes[i + 1] if i < 3 else 0)
+    forward = rows * blocks * (2 * macs + extra) + \
+        blocks * coupling_cost(rows, d, k)[0]
+    if not backward:
+        return forward, 4 * (blocks * weights + 2 * rows * d + rows)
+    ops = rows * blocks * 4 * macs + \
+        blocks * coupling_cost(rows, d, k, backward=True)[0]
+    return ops, 4 * (2 * blocks * weights + (blocks + 2) * rows * d + rows)
+
+
+def chain_case(d, num_slow, part):
+    """A cell's chain in float64 on the CPU (every parameter moved by
+    N(0, 0.1^2) off its init) and in float32 on the card."""
+    import copy
+    from nnest_torch.flows import build_flow
+    model = build_flow(d, hidden_dim=16, num_slow=num_slow, seed=d,
+                       device='cpu')
+    chain64 = copy.deepcopy(getattr(model, part) if num_slow
+                            else model.chain)
+    g = torch.Generator().manual_seed(d + 1)
+    with torch.no_grad():
+        for p in chain64.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=g))
+    chain64 = chain64.double()
+    return chain64, copy.deepcopy(chain64).to('cuda', torch.float32)
+
+
+def chain_autograd(chain64, x, gz, gl):
+    """Autograd through the chain (its dtype, on its device) of sum(z gz)
+    + sum(RQS logdet gl), each assembled W a leaf: d/dx and each tensor's
+    gradient in the kernels' table order."""
+    import copy
+    from nnest_torch.ops import spline_chain as sch
+    chain = copy.deepcopy(chain64)
+    for _, conv, _ in sch._blocks(chain):
+        W = conv.assemble().detach().requires_grad_()
+        conv.assemble = (lambda W=W: W)
+    x = x.clone().requires_grad_()
+    tensors = sch.chain_tensors(chain)
+    z, logdet = chain(x)
+    rqs = logdet - sch.const_logdet(chain)
+    got = torch.autograd.grad(torch.sum(z * gz) + torch.sum(rqs * gl),
+                              [x] + tensors)
+    return [g.detach() for g in got]
+
+
+def chain_kernel_turns():
+    """Part (a): the chain pair at the cells' chains, checked (y, the row
+    logdet within ``CHAIN_TOL_*`` of float64, the gradients no farther from
+    it than twice float32's own distance plus ``CHAIN_TOL_GRAD``; two
+    launches bit-equal) and timed: each launch by CUDA-graph replay and
+    eagerly beside its bound (``chain_cost``), the pair under autograd
+    against the module-by-module chain (each coupling half on its own pair,
+    the path before the chain's) forward alone and forward and backward,
+    by graph replay."""
+    import copy
+    from nnest_torch.ops import spline_chain as sch
+    takes = sch.takes
+    out = []
+    for name, d, num_slow, part in CHAIN_CASES:
+        chain64, chain = chain_case(d, num_slow, part)
+        n = chain.bijectors[0].dim
+        meta = sch._shape(chain)
+        tensors = [t.detach() for t in sch.chain_tensors(chain)]
+        with torch.no_grad():
+            const = float(sch.const_logdet(chain64))
+        for rows in (CHAIN_ROWS,) + CHAIN_FORWARD_ROWS:
+            backward = rows == CHAIN_ROWS
+            g = torch.Generator().manual_seed(rows + n)
+            x64 = 2.0 * torch.randn(rows, n, generator=g,
+                                    dtype=torch.float64)
+            x64[0], x64[1] = 9.0, -9.0
+            gz64 = torch.randn(rows, n, generator=g, dtype=torch.float64)
+            gl64 = torch.randn(rows, generator=g, dtype=torch.float64)
+            x, gz, gl = (v.float().cuda() for v in (x64, gz64, gl64))
+            if not sch.takes(chain, x):
+                raise AssertionError('%s: the chain kernels refuse it' % name)
+            z, ld, saved = sch.forward_kernel(x, tensors, meta, save=True)
+            with torch.no_grad():
+                z64, ld64 = chain64(x64)
+                z32, ld32 = copy.deepcopy(chain64).float()(x64.float())
+            ld64 = ld64 - const
+            ld32 = ld32 - const
+
+            def gap(a, want):
+                return float((a.double().cpu() - want).abs().max()) / max(
+                    1.0, float(want.abs().max()))
+            rec = {'chain': name, 'rows': rows, 'd': n, 'hidden': 16,
+                   'bins': 8, 'y_gap': gap(z, z64),
+                   'logdet_gap': gap(ld, ld64),
+                   'plain_f32_y_gap': gap(z32, z64),
+                   'plain_f32_logdet_gap': gap(ld32, ld64),
+                   'plan': sch.launch_plan(rows, n, 16, 8, False)}
+            first = [z, ld]
+            again = list(sch.forward_kernel(x, tensors, meta)[:2])
+            ok = rec['y_gap'] <= max(CHAIN_TOL_Y,
+                                     2.0 * rec['plain_f32_y_gap']) and \
+                rec['logdet_gap'] <= max(CHAIN_TOL_LOGDET,
+                                         2.0 * rec['plain_f32_logdet_gap'])
+            if backward:
+                gx, grads = sch.backward_kernel(saved, tensors, gz, gl, meta)
+                want = chain_autograd(chain64, x64, gz64, gl64)
+                rec['grad_gap'] = worst_gap([gx] + grads, want)
+                rec['plain_f32_grad_gap'] = worst_gap(chain_autograd(
+                    copy.deepcopy(chain64).float(), x64.float(),
+                    gz64.float(), gl64.float()), want)
+                sch.takes = lambda c, v: False
+                try:
+                    rec['card_plain_grad_gap'] = worst_gap(
+                        chain_autograd(chain, x, gz, gl), want)
+                finally:
+                    sch.takes = takes
+                rec['backward_plan'] = sch.launch_plan(rows, n, 16, 8, True)
+                first += [gx] + grads
+                gx2, grads2 = sch.backward_kernel(saved, tensors, gz, gl,
+                                                  meta)
+                again += [gx2] + grads2
+                ok = ok and rec['grad_gap'] <= 2.0 * max(
+                    rec['plain_f32_grad_gap'],
+                    rec['card_plain_grad_gap']) + CHAIN_TOL_GRAD
+            torch.cuda.synchronize()
+            rec['bit_equal'] = all(torch.equal(a, b)
+                                   for a, b in zip(first, again))
+            if not (ok and rec['bit_equal']):
+                raise AssertionError('spline chain pair off float64: %s'
+                                     % rec)
+            fwd_cost = chain_cost(rows, n, 16, 8, 3)
+            rec['forward_ms'] = graph_time_ms(
+                lambda: sch.forward_kernel(x, tensors, meta))
+            rec['forward_eager_ms'] = cuda_time_ms(
+                lambda: sch.forward_kernel(x, tensors, meta))
+            rec['forward_bound_ms'], rec['forward_bound'] = bound_ms(
+                *fwd_cost)
+            with torch.no_grad():
+                rec['forward_api_ms'] = graph_time_ms(lambda: chain(x),
+                                                      calls=5)
+                sch.takes = lambda c, v: False
+                try:
+                    rec['plain_forward_ms'] = graph_time_ms(
+                        lambda: chain(x), calls=5)
+                finally:
+                    sch.takes = takes
+            if backward:
+                def bwd():
+                    return sch.backward_kernel(saved, tensors, gz, gl, meta)
+                rec['backward_ms'] = graph_time_ms(bwd)
+                rec['backward_eager_ms'] = cuda_time_ms(bwd)
+                rec['backward_bound_ms'], rec['backward_bound'] = bound_ms(
+                    *chain_cost(rows, n, 16, 8, 3, backward=True))
+                params = list(chain.parameters())
+
+                def pair():
+                    zz, ll = chain(x)
+                    return torch.autograd.grad(
+                        torch.sum(zz * gz) + torch.sum(ll * gl), params)
+                rec['pair_ms'] = graph_time_ms(pair, calls=5)
+                sch.takes = lambda c, v: False
+                try:
+                    rec['plain_pair_ms'] = graph_time_ms(pair, calls=5)
+                finally:
+                    sch.takes = takes
+            out.append(rec)
+            print('phase 20 (a): %s x %d: forward %.5f ms (bound %.6f, '
+                  'module by module %.4f)%s' % (
+                      name, rows, rec['forward_ms'],
+                      rec['forward_bound_ms'], rec['plain_forward_ms'],
+                      ', backward %.5f ms (bound %.6f), pair %.4f ms '
+                      'against %.4f' % (rec['backward_ms'],
+                                        rec['backward_bound_ms'],
+                                        rec['pair_ms'], rec['plain_pair_ms'])
+                      if backward else ''), flush=True)
+    return out
+
+
+def chain_step_turns():
+    """Part (b): for each cell's flow, a captured training step before (the
+    chain's pair off: each coupling half on its own pair, phase 18's
+    ``fused``) and after (the chain's pair), in turns (pair, chain, chain,
+    pair): a short training's counters (``train_step`` all ``fused``;
+    ``spline_chain`` all ``plain`` before, all ``kernel`` after) and the
+    chain's launches (0 before), then :func:`step_measures`."""
+    from nnest_torch import Trainer
+    from nnest_torch.ops import spline_chain as sch
+    from nnest_torch.utils.profiling import recording
+    takes = sch.takes
+    out = {}
+    try:
+        for name, d, num_slow in TRAIN_FLOWS:
+            g = torch.Generator().manual_seed(d)
+            data = torch.randn(TRAIN_ROWS, d, generator=g).numpy()
+            res = {'pair': [], 'chain': []}
+            for mode in ('pair', 'chain', 'chain', 'pair'):
+                sch.takes = takes if mode == 'chain' else (
+                    lambda chain, x: False)
+                t = Trainer(d, hidden_dim=16, num_slow=num_slow,
+                            batch_size=TRAIN_BATCH, log=False, seed=d,
+                            device='cuda')
+                launches = sch.launches
+                with recording() as rec:
+                    t.train(data, max_iters=2, patience=50)
+                torch.cuda.synchronize()
+                counted = dict(rec.counters.get('train_step', {}))
+                chains = dict(rec.counters.get('spline_chain', {}))
+                launched = sch.launches - launches
+                path = 'kernel' if mode == 'chain' else 'plain'
+                if counted != {'fused': 2 * 9} or set(chains) != {path} or \
+                        (launched > 0) != (mode == 'chain'):
+                    raise AssertionError(
+                        '%s %s training: train_step %s, spline_chain %s, %d '
+                        'launches' % (name, mode, counted, chains, launched))
+                res[mode].append({'launches_in_training': launched,
+                                  'train_step_counter': counted,
+                                  'spline_chain_counter': chains,
+                                  **step_measures(t, d, data)})
+            out[name] = res
+            print('phase 20 (b): %s: kernels a step pair %s, chain %s; '
+                  'step ms pair %s, chain %s; epoch ms pair %s, chain %s'
+                  % (name, [r['kernels_a_step'] for r in res['pair']],
+                     [r['kernels_a_step'] for r in res['chain']],
+                     ['%.4f' % r['step_ms'] for r in res['pair']],
+                     ['%.4f' % r['step_ms'] for r in res['chain']],
+                     ['%.2f' % r['epoch_ms'] for r in res['pair']],
+                     ['%.2f' % r['epoch_ms'] for r in res['chain']]),
+                  flush=True)
+    finally:
+        sch.takes = takes
+    return out
+
+
+def phase_chain_kernels(record):
+    """Phase 20: the build of ``csrc/spline_chain.cu`` with its
+    ``-Xptxas -v`` report, (a) the spline chain's pair checked and timed at
+    the cells' chains, (b) a captured training step's kernels and times
+    with the chain's pair against each coupling half's, for the cells'
+    three flows."""
+    from nnest_torch.ops import spline_chain as sch
+    t0 = time.time()
+    sch.load_library()
+    out = {'build_s': time.time() - t0,
+           'ptxas': ptxas_report(sch.build_log)}
+    before = sch.launches
+    t0 = time.time()
+    out['a'] = chain_kernel_turns()
+    out['a_seconds'] = time.time() - t0
+    t0 = time.time()
+    out['b'] = chain_step_turns()
+    out['b_seconds'] = time.time() - t0
+    record['launches_by_path']['chain_kernel'] = sch.launches - before
+    return out
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3837,6 +4169,11 @@ def main():
     parser.add_argument('--pool-baseline', metavar='SRC',
                         help='an earlier consume_pool source to hold to '
                              'the twin and time beside this one in phase 2')
+    parser.add_argument('--phases', type=lambda v: {int(p) for p in
+                                                    v.split(',')},
+                        help='run only these phases (comma-separated '
+                             'numbers; those that read phase 3\'s output '
+                             'need 3 among them)')
     # one rank of phase 14 or 16, started by the script itself
     parser.add_argument('--mesh-part', choices=('a', 'b', 'd1', 'd2', 'tp'),
                         help=argparse.SUPPRESS)
@@ -3888,6 +4225,11 @@ def main():
          'source': 'nnest_torch/csrc/nvp_inverse.cu',
          'replaces': None, 'launches': None, 'library_ms': None,
          'launches_by_path': {'other_flows': 0, 'nvp_kernel': 0}},
+        # no TPU kernel behind it: the JAX package trains in plain XLA
+        {'name': 'spline_chain', 'route': 'cuda',
+         'source': 'nnest_torch/csrc/spline_chain.cu',
+         'replaces': None, 'launches': None, 'library_ms': None,
+         'launches_by_path': {'mcmc': 0, 'chain_kernel': 0}},
     ]
     outputs = {}
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as log_dir:
@@ -3929,13 +4271,18 @@ def main():
                                                     outputs[3])),
                 (18, 'train_kernels',
                  lambda: phase_train_kernels(records[3])),
-                (19, 'nvp_kernel', lambda: phase_nvp_kernel(records[4]))):
+                (19, 'nvp_kernel', lambda: phase_nvp_kernel(records[4])),
+                (20, 'chain_kernels',
+                 lambda: phase_chain_kernels(records[5]))):
+            if args.phases and num not in args.phases:
+                continue
             t0 = time.time()
             out = outputs[num] = fn()
             emit({'phase': num, 'name': name,
                   'seconds': time.time() - t0, **out})
     records[2]['launches_by_path'] = dict(POOL_LAUNCHES)
     records[3]['launches_by_path'].update(COUPLING_LAUNCHES)
+    records[5]['launches_by_path'].update(CHAIN_LAUNCHES)
     for rec in records:
         # launches on the paths that drive the kernel (phases 3, 5, 6, 8,
         # 10, 11, 12, 13, 14, 15, 16, 17; the coupling pair's: 3 and 18)

@@ -10,6 +10,12 @@ hook; ``Chain.data_init`` threads the batch through the chain so each
 bijector sees the activations of the ones before it, as the JAX
 ``Chain.init`` does.
 
+A chain with the spline layout ([ActNorm, Invertible1x1Conv,
+SplineCoupling] x blocks) runs its forward on a card through one kernel
+launch where ``ops.spline_chain.takes`` it, and module by module otherwise
+(the CPU's path); the recorder's counter ``spline_chain`` counts each such
+forward by its path.
+
 Under tensor parallelism (``parallel.shard_params``) a tensor may hold
 only this rank's columns; :func:`whole` gives the whole tensor wherever a
 bijector needs it.
@@ -19,6 +25,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from nnest_torch.utils.profiling import count
 
 
 def whole(t):
@@ -50,6 +58,13 @@ class Chain(Bijector):
         self.bijectors = nn.ModuleList(bijectors)
 
     def forward(self, x):
+        # imported here: nnest_torch.ops imports this package
+        from nnest_torch.ops import spline_chain
+        path = spline_chain.path(self, x)
+        if path is not None:
+            count('spline_chain', key=path)
+        if path == 'kernel':
+            return spline_chain.chain_forward(self, x)
         logdet = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for b in self.bijectors:
             x, ld = b(x)

@@ -28,7 +28,7 @@ from nnest_torch.parallel.mesh import unshard
 calls = 0
 
 
-def _is_spline_chain(chain) -> bool:
+def is_spline_chain(chain) -> bool:
     """[ActNorm, Inv1x1Conv, SplineCoupling] × blocks (the factory's
     'spline' layout)."""
     if chain is None:
@@ -45,7 +45,7 @@ def _is_spline_chain(chain) -> bool:
 def is_fusable_spline(model) -> bool:
     """True for single-speed spline chains: [ActNorm, Inv1x1Conv,
     SplineCoupling] × blocks (the factory's 'spline' layout)."""
-    return _is_spline_chain(getattr(model, 'chain', None))
+    return is_spline_chain(getattr(model, 'chain', None))
 
 
 def is_fusable_fast_slow(model) -> bool:
@@ -53,7 +53,7 @@ def is_fusable_fast_slow(model) -> bool:
     single-speed spline layout over two dims or more (a one-dim chain's
     conditioner reads no input, a shape the kernel has never run)."""
     return (isinstance(model, FastSlowFlowModel)
-            and all(_is_spline_chain(c) and c.bijectors[0].dim >= 2
+            and all(is_spline_chain(c) and c.bijectors[0].dim >= 2
                     for c in (model.slow, model.fast)))
 
 

@@ -37,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -227,22 +228,39 @@ def _find_nvcc():
                        'cannot be built')
 
 
-def build(source, stem):
-    """Compile ``source`` with ``nvcc`` into ``BUILD_DIR/lib<stem>_<hash>.so``
-    unless that library (one per hash of the source and the flags) and its
-    log are there; returns the library's path and nvcc's output, the
-    ``-Xptxas -v`` report included. Each process writes a file of its own
-    and renames it into place, so concurrent builds never see half a
-    library."""
-    with open(source, 'rb') as f:
-        tag = hashlib.sha256(
-            f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _source_bytes(source):
+    """The bytes of ``source`` and of every header it includes by
+    ``#include "..."`` from its own directory (recursively, each once)."""
+    seen, out, todo = set(), [], [source]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, 'rb') as f:
+            text = f.read()
+        out.append(text)
+        todo += [os.path.join(os.path.dirname(path), m.decode())
+                 for m in re.findall(rb'^#include "([^"]+)"', text, re.M)]
+    return b''.join(out)
+
+
+def build(source, stem, flags=()):
+    """Compile ``source`` with ``nvcc`` (and the extra ``flags``) into
+    ``BUILD_DIR/lib<stem>_<hash>.so`` unless that library (one per hash of
+    the source, the headers it includes and the flags) and its log are
+    there; returns the library's path and nvcc's output, the ``-Xptxas
+    -v`` report included. Each process writes a file of its own and renames
+    it into place, so concurrent builds never see half a library."""
+    flags = NVCC_FLAGS + tuple(flags)
+    tag = hashlib.sha256(_source_bytes(source)
+                         + ' '.join(flags).encode()).hexdigest()[:16]
     so = os.path.join(BUILD_DIR, 'lib%s_%s.so' % (stem, tag))
     log_path = so + '.log'
     if not (os.path.exists(so) and os.path.exists(log_path)):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = '%s.%d.tmp' % (so, os.getpid())
-        proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, '-o', tmp, source],
+        proc = subprocess.run([_find_nvcc(), *flags, '-o', tmp, source],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError('nvcc failed (exit %d):\n%s%s' % (

@@ -470,13 +470,13 @@ class NestedSampler(Sampler):
         if self.device.type == 'cuda':
             from concurrent.futures import ThreadPoolExecutor
 
-            from nnest_torch.ops import (consume_pool, spline_coupling,
-                                         spline_inverse)
+            from nnest_torch.ops import (consume_pool, spline_chain,
+                                         spline_coupling, spline_inverse)
             t0 = time.time()
-            with ThreadPoolExecutor(4) as pool:
+            with ThreadPoolExecutor(5) as pool:
                 for job in [pool.submit(m.load_library) for m in (
                         spline_inverse, consume_pool, spline_coupling,
-                        runtime)]:
+                        spline_chain, runtime)]:
                     job.result()
             self.logger.info('Kernel and runtime libraries ready in %.1f s'
                              % (time.time() - t0))

@@ -66,11 +66,15 @@ makes (spline, NVP, Cholesky, fast-slow):
 
 Training is the flow's forward plus autograd in PyTorch, and the transport
 API the flow's ``forward`` and plain ``inverse``; the JAX package runs both
-in plain XLA, with no hand-written kernel. On a card each spline coupling's
-transform in the forward, and its backward, is a hand-written CUDA kernel
-pair (``ops/spline_coupling.py``), recorded into the step's graph like the
-rest; the CPU runs the plain code. The recorder's counter ``train_step``
-{``fused``, ``plain``} counts each step by the path its forward took.
+in plain XLA, with no hand-written kernel. On a card a spline chain's
+forward (every block's ActNorm, conv product, both halves' conditioner
+MLPs and RQS) is one hand-written CUDA launch and its backward one more
+plus a reduction of the weight gradients (``ops/spline_chain.py``); a
+spline chain outside that kernel's limits takes each coupling half's
+transform pair (``ops/spline_coupling.py``); both are recorded into the
+step's graph like the rest, and the CPU runs the plain code. The
+recorder's counter ``train_step`` {``fused``, ``plain``} counts each step
+by the path its forward took: ``fused`` where it launched either.
 ``epoch_chunk`` and ``use_gpu`` are accepted and change nothing, as in
 ``nnest_tpu``; ``device`` decides placement. Unlike ``nnest_tpu``, whose
 default ``log_dir`` is ``'logs/test'``, a trainer built without a
@@ -93,7 +97,7 @@ import torch
 from nnest_torch.flows import build_flow
 from nnest_torch.flows.convert import (param_tensors, params_from_jax,
                                        params_to_jax)
-from nnest_torch.ops import spline_coupling
+from nnest_torch.ops import spline_chain, spline_coupling
 from nnest_torch.parallel.mesh import (all_reduce_sum, shard_batch,
                                        shard_params, unshard)
 from nnest_torch.parallel.sharded import (dp_backward, dp_rows, l2_term,
@@ -104,11 +108,17 @@ from nnest_torch.utils.logger import create_logger
 from nnest_torch.utils.profiling import count
 
 
+def _launches():
+    """Launches of the training kernels so far: the spline chain's pair
+    (``ops/spline_chain.py``) and the spline coupling's
+    (``ops/spline_coupling.py``)."""
+    return spline_chain.launches + spline_coupling.launches
+
+
 def _path(launches_before):
-    """'fused' where the spline coupling's kernels launched since
-    ``launches_before``, else 'plain'."""
-    return ('fused' if spline_coupling.launches != launches_before
-            else 'plain')
+    """'fused' where a training kernel launched since ``launches_before``
+    (a :func:`_launches` reading), else 'plain'."""
+    return 'fused' if _launches() != launches_before else 'plain'
 
 
 def mean_nn_distance(x):
@@ -397,7 +407,7 @@ class Trainer:
         path = getattr(step, 'path', None)
         train_loss = 0.0
         for b in range(nb):
-            before = spline_coupling.launches
+            before = _launches()
             train_loss = train_loss + step(epoch[b] + jitter * noise[b],
                                            weights[b])
             count('train_step', key=path or _path(before))
@@ -442,15 +452,14 @@ class Trainer:
 
     def _capture(self, bs, l2_norm):
         """Warm up and capture one training step (:meth:`_warmed_up`), with
-        the path its forward took: 'fused' where the capture launched the
-        spline coupling's kernels (``ops/spline_coupling.py``), else
-        'plain'."""
+        the path its forward took: 'fused' where the capture launched a
+        training kernel (:func:`_launches`), else 'plain'."""
         static_x = torch.zeros(bs, self.x_dim, device=self.device)
         static_w = torch.ones(bs, device=self.device)
         graph = torch.cuda.CUDAGraph()
         with self._warmed_up(lambda: self._step(static_x, static_w,
                                                 l2_norm)):
-            before = spline_coupling.launches
+            before = _launches()
             with torch.cuda.graph(graph, capture_error_mode='thread_local'):
                 static_nll = self._step(static_x, static_w, l2_norm)
         return static_x, static_w, static_nll, graph, _path(before)
@@ -540,7 +549,7 @@ class Trainer:
 
         graph_a, graph_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         with self._warmed_up(lambda: update(backward())):
-            before = spline_coupling.launches
+            before = _launches()
             with torch.cuda.graph(graph_a, capture_error_mode='thread_local'):
                 flat = backward()
             path = _path(before)

@@ -41,9 +41,12 @@ graphs captured (``samplers/kernels.py``); ``hot_inverse`` {``spline``,
 steps run (``LatentKernels._hot_inverse``) by the path each took: the
 spline kernel, the kernel once per chain of a fast-slow flow, or the
 flow's own plain ``inverse``; ``train_step`` {``fused``, ``plain``: n}, the
-trainer's steps by the path their forward took: the spline coupling's
-kernel pair (``ops/spline_coupling.py``; a graph's path fixed at its
-capture) or the plain code (``training/trainer.py``); ``evidence_side``
+trainer's steps by the path their forward took: a training kernel pair
+(the spline chain's, ``ops/spline_chain.py``, or the spline coupling's,
+``ops/spline_coupling.py``; a graph's path fixed at its capture) or the
+plain code (``training/trainer.py``); ``spline_chain`` {``kernel``,
+``plain``: n}, each forward of a spline-layout chain by its path: the
+chain's kernel or module by module (``bijectors/base.py``); ``evidence_side``
 {``dead``, ``transform_calls``, ``scalar_jobs``: n}, the points that die in
 the nested sampler's evidence loop, its calls of the sampler transform and
 the ``logz`` scalar batches it hands to the writer (``samplers/nested.py``).
